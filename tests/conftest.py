@@ -24,3 +24,7 @@ jax.config.update("jax_enable_x64", True)
 # Compiles dominate test wall-clock on this host — cache them across runs.
 jax.config.update("jax_compilation_cache_dir", "/tmp/jax_test_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips without one")
