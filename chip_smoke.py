@@ -6,21 +6,34 @@
 Imports nothing of JAX.  Phases, one JSON line each; any failure raises,
 so the exit code is non-zero:
 
-  build    compiles ``graph_odenet_tpu_torch/csrc/csr_spmm.cu`` with nvcc
-           into ``graph_odenet_tpu_torch/_build/``.
-  kernel   ``spmm_csr`` forward and backward on the card against the plain
-           version ``spmm_csr_reference`` run in float64 on the same inputs
-           (rtol = atol = 1e-5; see ``check_kernel``), on the Pubmed twin at
-           F = 16 and F = 3, a
-           hub graph and the bench graph (169,343 nodes, zipf(1.8)
-           receivers, F = 128); ms per fwd+bwd for the kernel and for the
-           plain version in float32.
-  slice    trains ``pubmed-gcnode`` (GCN-ODE, rk4, 200 epochs with early
-           stop) on the card, checks that it went through the kernel and
-           reached test accuracy >= 0.65, and holds the trained model's
-           log-probs through the kernel against the segment path.
-  dense    one GCN-ODE fwd+bwd at Pubmed size through dense Â, the kernel
-           and the segment path.
+  build      compiles every ``graph_odenet_tpu_torch/csrc/*.cu`` with nvcc
+             (one process per source, all at once) into
+             ``graph_odenet_tpu_torch/_build/``; the ptxas register and
+             spill lines of every kernel.
+  kernel     ``spmm_csr`` forward and backward on the card against the plain
+             version ``spmm_csr_reference`` run in float64 on the same inputs
+             (rtol = atol = 1e-5; see ``check_kernel``), on the Pubmed twin at
+             F = 16 and F = 3, a
+             hub graph and the bench graph (169,343 nodes, zipf(1.8)
+             receivers, F = 128); ms per fwd+bwd for the kernel and for the
+             plain version in float32.
+  attention  the GAT kernels (gat_fwd, gat_bwd, gat_dwh and the weighted
+             SpMM) against their plain versions in float64 on the same
+             inputs, and the Functions' values and gradients against the
+             plain path in float64 (``ATT_TOL``; see ``check_attention``),
+             on the Citeseer twin (H=8/F=8 with dropout 0.6, H=1/F=64,
+             H=1/F=6), two hub graphs and the bench graph; ms per fwd+bwd
+             of ``attention_aggregate`` through the kernels and through the
+             plain version in float32.
+  slice      trains ``pubmed-gcnode`` (GCN-ODE, rk4, 200 epochs with early
+             stop) on the card, checks that it went through the kernel and
+             reached test accuracy >= 0.65, and holds the trained model's
+             log-probs through the kernel against the segment path.
+  gat_slice  trains config 2 (GAT-ODE, dopri5_scan, on the Citeseer twin) on
+             the card through the GAT kernels to test accuracy >= 0.60, and
+             holds the trained model's log-probs against the segment path.
+  dense      one GCN-ODE fwd+bwd at Pubmed size through dense Â, the kernel
+             and the segment path.
 
 Then the kernel table, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``.
@@ -41,6 +54,15 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 SLICE_TOL = dict(rtol=1e-4, atol=1e-4)
 MIN_TEST_ACC = 0.65
 SPMM_PER_EPOCH = 54  # 18 forward + 18 backward in training, 18 in evaluation
+# The GAT kernels against their plain versions in float64: 1e-5 on the
+# Citeseer twin and the hub graphs.  On the bench graph 1e-4: there a row of
+# the CSC view holds up to 164,913 edges, and a sum of that many random
+# terms cancels to values near 1, which float32 in any order misses by more
+# than 1e-5 (the plain version in float32 is reported beside the kernel).
+ATT_TOL = dict(rtol=1e-5, atol=1e-5)
+BENCH_ATT_TOL = dict(rtol=1e-4, atol=1e-4)
+GAT_MIN_TEST_ACC = 0.60  # config 2; the JAX package reaches 0.696 ± 0.019, chance is 1/6
+GAT_LAYERS = 3  # encoder, dynamics and readout: each epoch launches every kernel >= 3 times
 
 
 def emit(phase, **fields):
@@ -67,12 +89,14 @@ def alternate(fns, iters):
     return {n: sum(v) / len(v) for n, v in runs.items()}
 
 
-def bench_graph(from_edges, n_nodes=169_343, n_edges=1_166_243, seed=0):
+def bench_graph(from_edges, n_nodes=169_343, n_edges=1_166_243, seed=0, normalize="row"):
     """The graph of ``bench.py``'s ``build_graph``, built with the port."""
     rng = np.random.default_rng(seed)
     pop = rng.zipf(1.8, size=n_edges).astype(np.int64) % n_nodes
     src = rng.integers(0, n_nodes, size=n_edges)
-    return from_edges(src, pop, n_node=n_nodes, normalize="row", node_multiple=128, edge_multiple=1024)
+    return from_edges(
+        src, pop, n_node=n_nodes, normalize=normalize, node_multiple=128, edge_multiple=1024
+    )
 
 
 def hub_graph(from_edges):
@@ -87,14 +111,21 @@ def hub_graph(from_edges):
 def phase_build():
     from graph_odenet_tpu_torch.ops import _build
 
-    fresh = not _build.library_path().exists()
+    fresh = [n for n in _build.SOURCES if not _build.library_path(n).exists()]
     t0 = time.perf_counter()
-    lib = _build.build()
-    _build.load_library()
+    libs = _build.build()
+    for name in libs:
+        _build.load_library(name)
     seconds = time.perf_counter() - t0
-    report = lib.with_name(f"{lib.stem}.ptxas.txt")
-    regs = [ln.strip() for ln in report.read_text().splitlines() if "registers" in ln or "spill" in ln]
-    emit("build", seconds=seconds, compiled_now=fresh, library=os.path.relpath(lib, ROOT), ptxas=regs)
+    ptxas = {}
+    for name, lib in libs.items():
+        report = lib.with_name(f"{lib.stem}.ptxas.txt").read_text().splitlines()
+        ptxas[name] = [
+            ln.strip() for ln in report
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln
+        ]
+    emit("build", seconds=seconds, compiled_now=fresh,
+         libraries={n: os.path.relpath(p, ROOT) for n, p in libs.items()}, ptxas=ptxas)
 
 
 def check_kernel(name, g, f, dev, iters, seed):
@@ -165,6 +196,195 @@ def phase_kernel(dev, pubmed_graph):
     return rows
 
 
+def split_hub_graph(from_edges, into):
+    """Node 0 with 1,500 distinct in- (or out-) neighbours, unsymmetrised, so
+    that its row spans several warp segments of the CSR (or CSC) view."""
+    rng = np.random.default_rng(4)
+    far = rng.permutation(np.arange(1, 2000))[:1500]
+    s, r = (far, np.zeros_like(far)) if into else (np.zeros_like(far), far)
+    return from_edges(s, r, n_node=2000, normalize=None, symmetrize=False)
+
+
+def _err(a, b, tol):
+    """(max abs err, max err / tolerance) of float32 ``a`` against float64 ``b``."""
+    d = (a.double() - b).abs()
+    return float(d.max()), float((d / (tol["atol"] + tol["rtol"] * b.abs())).max())
+
+
+def check_attention(name, g, heads, feat, mode, dev, iters, seed, tol=ATT_TOL):
+    """The GAT kernels at one shape.  ``mode``: "hint" (score hint, the
+    config-2 path), "hint_hash" (plus the counter-hash dropout 0.6) or
+    "mask" (no hint, an explicit [E, H] dropout mask 0.6: the weighted SpMM
+    computes dWh).
+
+    1. Each kernel's wrapper against its plain version run in float64 on
+       the same inputs (upstream gradient random normal; the backward
+       kernels take the forward kernel's m and l).
+    2. ``attention_aggregate`` through the kernels: values and the gradient
+       of ``sum(sin(out))`` w.r.t. s_src, s_dst and wh, against the plain
+       path (``gat_aggregate_reference``) in float64.
+    Both at ``tol``; the plain version in float32 is held to the same
+    references and reported.  Then ms per fwd+bwd through the entry point,
+    for the kernels and for the plain version in float32, and of each kernel
+    alone; the kernel launches of the timed entry-point runs are counted.
+    """
+    from graph_odenet_tpu_torch.ops import csr_spmm, gat_attn, prepare
+    from graph_odenet_tpu_torch.ops.dropmask import attention_dropout_scale
+    from graph_odenet_tpu_torch.ops.sddmm import attention_aggregate, edge_scores
+
+    rng = np.random.default_rng(seed)
+    csr = prepare(g).to(dev)
+    n, rate, drop_seed, slope = g.n_node_pad, 0.6, 1234 + seed, 0.2
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    s_src0, s_dst0 = randn(n, heads, scale=1.5), randn(n, heads, scale=1.5)
+    wh0, up = randn(n, heads, feat), randn(n, heads, feat)
+    drop = (drop_seed, rate) if mode == "hint_hash" else None
+    dmask = (
+        attention_dropout_scale(drop_seed, csr.senders, csr.receivers, heads, rate)
+        if mode == "mask" else None
+    )
+    dd = lambda t: None if t is None else t.double()  # noqa: E731
+    errs, plain_errs = {}, {}
+
+    # 1. Kernel by kernel.
+    logits = edge_scores(csr, s_src0, s_dst0, negative_slope=slope)
+    out, m, l = gat_attn.gat_fwd(csr, logits, wh0, dmask=dmask, drop=drop)
+    beta = (up * out).sum(-1)
+    dlog, alpha_d = gat_attn.gat_bwd(
+        csr, logits, wh0, up, m, l, beta, dmask=dmask, drop=drop, emit_alpha=mode == "mask"
+    )
+    if mode == "mask":
+        alpha_csc = alpha_d.index_select(0, csr.t_perm)
+        x = up.view(n, heads * feat)
+        dwh = csr_spmm.csr_reduce(csr, x, transpose=True, alpha=alpha_csc, feat=feat)
+        dwh_ref = csr_spmm._reduce_plain(
+            csr.t_row_ptr, csr.t_receivers, None, x.double(), alpha_csc.double(), feat)
+        errs["csr_spmm_weighted"] = _err(dwh, dwh_ref, tol)
+        plain_errs["csr_spmm_weighted"] = _err(csr_spmm._reduce_plain(
+            csr.t_row_ptr, csr.t_receivers, None, x, alpha_csc, feat), dwh_ref, tol)
+    else:
+        dwh = gat_attn.gat_dwh(csr, s_src0, s_dst0, m, l, up, slope, drop=drop)
+        dwh_ref = gat_attn.gat_dwh_plain(
+            csr, s_src0.double(), s_dst0.double(), m.double(), l.double(), up.double(), slope,
+            drop=drop)
+        errs["gat_dwh"] = _err(dwh, dwh_ref, tol)
+        plain_errs["gat_dwh"] = _err(gat_attn.gat_dwh_plain(
+            csr, s_src0, s_dst0, m, l, up, slope, drop=drop), dwh_ref, tol)
+    torch.cuda.synchronize()
+    ref = gat_attn.gat_fwd_plain(csr, logits.double(), wh0.double(), dmask=dmask, drop=drop)
+    errs["gat_fwd"] = max((_err(a, b, tol) for a, b in zip((out, m, l), ref)), key=lambda e: e[1])
+    dlog_ref, alpha_ref = gat_attn.gat_bwd_plain(
+        csr, logits.double(), wh0.double(), up.double(), m.double(), l.double(), beta.double(),
+        dmask=dd(dmask), drop=drop, emit_alpha=mode == "mask")
+    errs["gat_bwd"] = _err(dlog, dlog_ref, tol)
+    if mode == "mask":
+        errs["gat_bwd"] = max(errs["gat_bwd"], _err(alpha_d, alpha_ref, tol), key=lambda e: e[1])
+
+    # 2. The entry point, values and gradients.
+    def entry(dtype, kernel):
+        a, b, w = (t.to(dtype).requires_grad_(True) for t in (s_src0, s_dst0, wh0))
+        lg = edge_scores(csr, a, b, negative_slope=slope)
+        if kernel:
+            o = attention_aggregate(
+                csr, lg, w, dropout_seed=drop_seed if drop else None,
+                dropout_rate=rate if drop else 0.0, dmask=dmask,
+                scores=None if mode == "mask" else (a, b), negative_slope=slope)
+        else:
+            o = gat_attn.gat_aggregate_reference(csr, lg, w, dmask=dd(dmask), drop=drop)
+        return o, a, b, w
+
+    def probe(dtype, kernel):
+        o, a, b, w = entry(dtype, kernel)
+        return (o.detach(), *torch.autograd.grad(torch.sin(o).sum(), (a, b, w)))
+
+    got = probe(torch.float32, True)
+    torch.cuda.synchronize()
+    want = probe(torch.float64, False)
+    errs["entry"] = max((_err(x, y, tol) for x, y in zip(got, want)), key=lambda e: e[1])
+    plain_errs["entry"] = max(
+        (_err(x, y, tol) for x, y in zip(probe(torch.float32, False), want)), key=lambda e: e[1])
+    worst = max(errs.values(), key=lambda e: e[1])
+    if worst[1] > 1.0:
+        raise AssertionError(f"attention {name} H={heads} F={feat} {mode}: {errs}")
+
+    # Each kernel alone against its plain version, both in float32.
+    per_kernel = {
+        "gat_fwd": {
+            "plain": lambda: gat_attn.gat_fwd_plain(csr, logits, wh0, dmask=dmask, drop=drop),
+            "kernel": lambda: gat_attn.gat_fwd(csr, logits, wh0, dmask=dmask, drop=drop),
+        },
+        "gat_bwd": {
+            "plain": lambda: gat_attn.gat_bwd_plain(
+                csr, logits, wh0, up, m, l, beta, dmask=dmask, drop=drop,
+                emit_alpha=mode == "mask"),
+            "kernel": lambda: gat_attn.gat_bwd(
+                csr, logits, wh0, up, m, l, beta, dmask=dmask, drop=drop,
+                emit_alpha=mode == "mask"),
+        },
+    }
+    if mode == "mask":
+        per_kernel["csr_spmm_weighted"] = {
+            "plain": lambda: csr_spmm._reduce_plain(
+                csr.t_row_ptr, csr.t_receivers, None, x, alpha_csc, feat),
+            "kernel": lambda: csr_spmm.csr_reduce(
+                csr, x, transpose=True, alpha=alpha_csc, feat=feat),
+        }
+    else:
+        per_kernel["gat_dwh"] = {
+            "plain": lambda: gat_attn.gat_dwh_plain(
+                csr, s_src0, s_dst0, m, l, up, slope, drop=drop),
+            "kernel": lambda: gat_attn.gat_dwh(csr, s_src0, s_dst0, m, l, up, slope, drop=drop),
+        }
+    kernel_ms = {k: alternate(fns, iters) for k, fns in per_kernel.items()}
+
+    def fwd_bwd(kernel):
+        def run():
+            o, a, b, w = entry(torch.float32, kernel)
+            torch.autograd.grad(o, (a, b, w), up)
+        return run
+
+    counts = [csr_spmm.weighted_launches, dict(gat_attn.launches)]
+    times = alternate({"plain": fwd_bwd(False), "kernel": fwd_bwd(True)}, iters)
+    launched = {k: v - counts[1][k] for k, v in gat_attn.launches.items()}
+    launched["csr_spmm_weighted"] = csr_spmm.weighted_launches - counts[0]
+    row = dict(
+        graph=name, n_node_pad=n, n_edge=csr.n_edge, H=heads, F=feat, mode=mode,
+        max_row_edges=int(csr.row_ptr.diff().max()), max_col_edges=int(csr.t_row_ptr.diff().max()),
+        tolerance=tol,
+        max_abs_err={k: e[0] for k, e in errs.items()},
+        max_err_over_tol={k: e[1] for k, e in errs.items()},
+        plain_f32_max_err_over_tol={k: e[1] for k, e in plain_errs.items()},
+        ms=times["kernel"], plain_ms=times["plain"],
+        edges_per_s=csr.n_edge / (times["kernel"] * 1e-3), launches=launched,
+        kernel_ms={k: t["kernel"] for k, t in kernel_ms.items()},
+        kernel_plain_ms={k: t["plain"] for k, t in kernel_ms.items()},
+    )
+    emit("attention", **row)
+    return row
+
+
+def phase_attention(dev, bench, iters=50, bench_iters=10):
+    """``bench``: the bench graph with unnormalised weights (attention ignores them)."""
+    from graph_odenet_tpu_torch.data import synthetic_planetoid
+    from graph_odenet_tpu_torch.graph import from_edges
+
+    cite = synthetic_planetoid("citeseer", seed=42, calibrated=True).graph
+    hub_in, hub_out = split_hub_graph(from_edges, True), split_hub_graph(from_edges, False)
+    return [
+        check_attention("citeseer-twin", cite, 8, 8, "hint_hash", dev, iters, seed=10),
+        check_attention("citeseer-twin", cite, 1, 64, "hint", dev, iters, seed=11),
+        check_attention("citeseer-twin", cite, 1, 6, "hint", dev, iters, seed=12),
+        check_attention("hub-receiver", hub_in, 8, 8, "hint", dev, iters, seed=13),
+        check_attention("hub-sender", hub_out, 8, 8, "hint", dev, iters, seed=14),
+        check_attention("bench", bench, 8, 8, "hint_hash", dev, bench_iters, 15, BENCH_ATT_TOL),
+        check_attention("bench", bench, 1, 128, "hint", dev, bench_iters, 16, BENCH_ATT_TOL),
+        check_attention("bench", bench, 8, 8, "mask", dev, bench_iters, 17, BENCH_ATT_TOL),
+    ]
+
+
 def phase_slice(dev, data):
     """Train through ``run_config``; ``data`` is the same twin, for the checks."""
     from graph_odenet_tpu_torch.configs import get_config, run_config
@@ -206,6 +426,76 @@ def phase_slice(dev, data):
     return launches
 
 
+def phase_gat_slice(dev):
+    """Config 2 through ``run_config``: GAT-ODE (dopri5_scan) on the Citeseer twin."""
+    from graph_odenet_tpu_torch.configs import get_config, run_config
+    from graph_odenet_tpu_torch.data import synthetic_planetoid
+    from graph_odenet_tpu_torch.ops import gat_attn, prepare
+    from graph_odenet_tpu_torch.train import build_model
+
+    for k in gat_attn.launches:
+        gat_attn.launches[k] = 0
+    res = run_config(2, calibrated=True, device=dev)
+    launches = dict(gat_attn.launches)
+
+    epochs = res["epochs_run"]
+    if res["representation"] != "kernel":
+        raise AssertionError(f"config 2 took {res['representation']!r}, not the kernels")
+    if min(launches.values()) < GAT_LAYERS * epochs:
+        raise AssertionError(f"{launches} GAT kernel launches for {epochs} epochs")
+    if not res["best"]["test_acc"] >= GAT_MIN_TEST_ACC:
+        raise AssertionError(f"test accuracy {res['best']['test_acc']} < {GAT_MIN_TEST_ACC}")
+    if not res["ode_stats"]["success"]:
+        raise AssertionError(f"the last forward's solver failed: {res['ode_stats']}")
+
+    # The trained model through the kernels against the plain segment path.
+    _, cfg = get_config(2)
+    data = synthetic_planetoid("citeseer", seed=cfg.seed, calibrated=True).to(dev)
+    model = build_model(cfg, data.n_class, data.features.shape[1])
+    model.load_state_dict(res["params"])
+    model.to(dev).eval()
+    with torch.no_grad():
+        lp_kernel = model(prepare(data.graph), data.features)
+        stats = dict(model.odeblock.stats)
+        lp_segment = model(data.graph, data.features)
+    if lp_kernel.shape != (data.graph.n_node_pad, data.n_class):
+        raise AssertionError(f"log-probs of shape {tuple(lp_kernel.shape)}")
+    if not torch.isfinite(lp_kernel).all():
+        raise AssertionError("non-finite log-probs")
+    torch.testing.assert_close(lp_kernel, lp_segment, **SLICE_TOL)
+
+    emit(
+        "gat_slice", config=res["config"], dataset=res["dataset"], best=res["best"],
+        epochs_run=epochs, seconds=res["seconds"], seconds_per_epoch=res["seconds"] / epochs,
+        representation=res["representation"], launches=launches,
+        last_train_ode_stats=res["ode_stats"], eval_ode_stats=stats,
+        nfe_per_forward=stats["nfe"],
+        logprob_max_abs_diff_vs_segment=float((lp_kernel - lp_segment).abs().max()),
+    )
+    return launches
+
+
+def bench_path_launches(dev, bench, iters=5):
+    """The GAT bench's path (``attention_aggregate`` without the score hint,
+    H=8/F=8, dropout mask 0.6, at the bench shape): kernel launches per run."""
+    from graph_odenet_tpu_torch.ops import csr_spmm, prepare
+    from graph_odenet_tpu_torch.ops.dropmask import attention_dropout_scale
+    from graph_odenet_tpu_torch.ops.sddmm import attention_aggregate
+
+    rng = np.random.default_rng(20)
+    csr = prepare(bench).to(dev)
+    logits = torch.from_numpy(rng.standard_normal((csr.n_edge, 8)).astype(np.float32)).to(dev)
+    wh = torch.from_numpy(rng.standard_normal((bench.n_node_pad, 8, 8)).astype(np.float32)).to(dev)
+    dmask = attention_dropout_scale(5, csr.senders, csr.receivers, 8, 0.6)
+    csr_spmm.weighted_launches = 0
+    for _ in range(iters):
+        lg, w = logits.clone().requires_grad_(True), wh.clone().requires_grad_(True)
+        out = attention_aggregate(csr, lg, w, dmask=dmask)
+        torch.autograd.grad(out.sum(), (lg, w))
+    torch.cuda.synchronize()
+    return csr_spmm.weighted_launches
+
+
 def phase_dense(dev, data):
     from graph_odenet_tpu_torch.configs import get_config
     from graph_odenet_tpu_torch.ops import prepare
@@ -239,6 +529,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     from graph_odenet_tpu_torch.configs import get_config
     from graph_odenet_tpu_torch.data import synthetic_planetoid
+    from graph_odenet_tpu_torch.graph import from_edges
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -247,27 +538,69 @@ def main():
     ).stdout.strip()
     emit("device", torch=torch.__version__, cuda=torch.version.cuda, card=card)
 
-    phase_build()
+    times = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        times[phase] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build)
     _, cfg = get_config("pubmed-gcnode")
     data = synthetic_planetoid("pubmed", seed=cfg.seed, calibrated=True).to(dev)
-    rows = phase_kernel(dev, data.graph)
-    launches = phase_slice(dev, data)
-    phase_dense(dev, data)
+    rows = timed("kernel", phase_kernel, dev, data.graph)
+    bench = bench_graph(from_edges, normalize=None)
+    att = timed("attention", phase_attention, dev, bench)
+    launches = timed("slice", phase_slice, dev, data)
+    gat_launches = timed("gat_slice", phase_gat_slice, dev)
+    weighted = timed("bench_path", bench_path_launches, dev, bench)
+    if weighted < 5:
+        raise AssertionError(f"{weighted} weighted SpMM launches on the GAT bench path")
+    timed("dense", phase_dense, dev, data)
+    emit("seconds", **times)
+
+    def att_entry(kernel, source, replaces, row, launched):
+        checked = [r for r in att if kernel in r["max_abs_err"]]
+        # Worst error over tolerance of all shapes, each at its own tolerance.
+        return {
+            "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launched,
+            "max_abs_err": max(r["max_abs_err"][kernel] for r in checked),
+            "max_err_over_tol": max(r["max_err_over_tol"][kernel] for r in checked),
+            "tolerance": "rtol=atol=1e-5 against the plain version in float64 "
+                         "(1e-4 on the bench graph)",
+            "ms": row["kernel_ms"][kernel], "plain_ms": row["kernel_plain_ms"][kernel],
+            "shape": f"{row['graph']}, H={row['H']}, F={row['F']}, {row['mode']}, one call",
+        }
 
     main_row = rows[0]  # the slice's shape: Pubmed twin, F = 16
-    print(json.dumps({"kernels": [{
-        "name": "csr_spmm",
-        "route": "cuda",
-        "source": "graph_odenet_tpu_torch/csrc/csr_spmm.cu",
-        "replaces": "graph_odenet_tpu/ops/pallas_spmm.py:479",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "max_err_over_tol": max(r["max_err_over_tol"] for r in rows),
-        "tolerance": "rtol=atol=1e-5 against the plain version in float64",
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "shape": "Pubmed twin, F=16, fwd+bwd",
-    }]}))
+    cite_row, mask_row = att[0], att[7]  # config 2's encoder shape; the bench's no-hint shape
+    gat_src = "graph_odenet_tpu_torch/csrc/gat_attn.cu"
+    spmm_src = "graph_odenet_tpu_torch/csrc/csr_spmm.cu"
+    print(json.dumps({"kernels": [
+        {
+            "name": "csr_spmm",
+            "route": "cuda",
+            "source": spmm_src,
+            "replaces": "graph_odenet_tpu/ops/pallas_spmm.py:479",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_err_over_tol": max(r["max_err_over_tol"] for r in rows),
+            "tolerance": "rtol=atol=1e-5 against the plain version in float64",
+            "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "shape": "Pubmed twin, F=16, fwd+bwd",
+        },
+        att_entry("csr_spmm_weighted", spmm_src, "graph_odenet_tpu/ops/pallas_spmm.py:479",
+                  mask_row, weighted),
+        att_entry("gat_fwd", gat_src, "graph_odenet_tpu/ops/pallas_gat.py:206",
+                  cite_row, gat_launches["gat_fwd"]),
+        att_entry("gat_bwd", gat_src, "graph_odenet_tpu/ops/pallas_gat.py:890",
+                  cite_row, gat_launches["gat_bwd"]),
+        att_entry("gat_dwh", gat_src, "graph_odenet_tpu/ops/pallas_spmm.py:736",
+                  cite_row, gat_launches["gat_dwh"]),
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

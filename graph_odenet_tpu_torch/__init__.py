@@ -9,9 +9,12 @@ a Pallas kernel runs here through a CUDA C++ kernel written for Hopper
 This package imports neither JAX nor the JAX package.
 
   graph            Graph container: COO edges, normalisation, padding.
-  ops              gather/segment_sum, SpMM (segment, CSR kernel, dense).
-  ode              odeint with the fixed-grid Runge-Kutta solvers.
-  models           GCN, ResGCN, ODEBlock and GCN-ODE.
+  ops              gather/segment_sum/segment_softmax, SpMM (segment, CSR
+                   kernel, dense), GAT attention (segment path and the
+                   fused kernels), the counter-hash attention dropout.
+  ode              odeint with the fixed-grid and adaptive Runge-Kutta
+                   solvers (dopri5 and kin, each with a ``_scan`` form).
+  models           GCN, ResGCN, GAT, ResGAT, ODEBlock, GCN-ODE, GAT-ODE.
   data             Planetoid loader and its synthetic twin.
   train            Full-batch node-classification trainer.
   configs          Named node-classification configs and ``run_config``.

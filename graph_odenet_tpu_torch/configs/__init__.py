@@ -4,13 +4,13 @@ Counterpart of ``graph_odenet_tpu/configs/__init__.py``:
 
   0  2-layer GCN on Cora (discrete baseline)
   1  GCN-ODE on Cora, fixed-step RK4 (4 steps)
-  2  GAT-ODE on Citeseer with dopri5         (ROADMAP A12)
+  2  GAT-ODE on Citeseer with dopri5_scan (32 attempts)
   3  Interaction-network ODE on n-body        (ROADMAP A15)
   4  Edge-partitioned GCN-ODE on OGBN-arxiv   (ROADMAP A16)
 
-plus the GCN-family named extras (``pubmed-gcnode`` among them).  The
-configs that are not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item.
+plus the named extras of the GCN and GAT families (``pubmed-gcnode`` and
+``cora-gatode`` among them).  The configs that are not ported yet raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,23 +38,37 @@ _GCNODE_RECIPE = dict(
     model="gcnode", hidden=16, method="rk4", steps=4, dropout=0.5,
     lr=0.01, weight_decay=5e-4, epochs=200, patience=100,
 )
+# The Veličković GAT recipe: 8 heads × 8 hidden, dropout 0.6, lr 0.005.
+_GAT_RECIPE = dict(
+    model="gat", hidden=8, heads=8, dropout=0.6,
+    lr=0.005, weight_decay=5e-4, epochs=300, patience=100,
+)
+_RESGAT_RECIPE = dict(_GAT_RECIPE, model="resgat", n_blocks=2)
+_GATODE_RECIPE = dict(
+    model="gatode", hidden=8, heads=8, method="dopri5_scan",
+    steps=32, rtol=1e-3, atol=1e-4, dropout=0.6,
+    lr=0.005, weight_decay=5e-4, epochs=300, patience=100,
+)
 EXTRA_CONFIGS = {
     "citeseer-gcn": ("citeseer", _GCN_RECIPE),
     "pubmed-gcn": ("pubmed", _GCN_RECIPE),
+    "cora-gat": ("cora", _GAT_RECIPE),
+    "citeseer-gat": ("citeseer", _GAT_RECIPE),
+    "pubmed-gat": ("pubmed", _GAT_RECIPE),
     "cora-resgcn": ("cora", _RESGCN_RECIPE),
     "citeseer-resgcn": ("citeseer", _RESGCN_RECIPE),
     "pubmed-resgcn": ("pubmed", _RESGCN_RECIPE),
+    "cora-resgat": ("cora", _RESGAT_RECIPE),
+    "citeseer-resgat": ("citeseer", _RESGAT_RECIPE),
+    "pubmed-resgat": ("pubmed", _RESGAT_RECIPE),
     "citeseer-gcnode": ("citeseer", _GCNODE_RECIPE),
     "pubmed-gcnode": ("pubmed", _GCNODE_RECIPE),
+    "cora-gatode": ("cora", _GATODE_RECIPE),
+    "pubmed-gatode": ("pubmed", _GATODE_RECIPE),
 }
 
 # Configs of the JAX package that wait for a later slice.
-_NOT_PORTED = {
-    2: "A12", 3: "A15", 4: "A16",
-    "cora-gat": "A11", "citeseer-gat": "A11", "pubmed-gat": "A11",
-    "cora-resgat": "A11", "citeseer-resgat": "A11", "pubmed-resgat": "A11",
-    "cora-gatode": "A12", "pubmed-gatode": "A12",
-}
+_NOT_PORTED = {3: "A15", 4: "A16"}
 
 
 def get_config(i):
@@ -74,10 +88,12 @@ def get_config(i):
             model="gcnode", hidden=16, method="rk4", steps=4,
             dropout=0.5, lr=0.01, weight_decay=5e-4, epochs=200,
         )
+    if i == 2:
+        return "node", NodeClassConfig(**_GATODE_RECIPE)
     raise KeyError(i)
 
 
-_CONFIG_DATASET = {0: "cora", 1: "cora"}
+_CONFIG_DATASET = {0: "cora", 1: "cora", 2: "citeseer"}
 
 
 def run_config(
@@ -112,5 +128,5 @@ def run_config(
     return dict(
         config=cfg_name, dataset=data.name, best=res["best"], seconds=res["seconds"],
         epochs_run=res["epochs_run"], representation=res["representation"],
-        params=res["params"],
+        params=res["params"], ode_stats=res["ode_stats"],
     )

@@ -1,15 +1,23 @@
 """Flax parameter trees of the JAX package to torch ``state_dict``s.
 
 Takes the nested mapping of numpy arrays that ``jax.tree.map(np.asarray,
-params)`` gives for GCN, ResGCN or GCNODE, for example for GCNODE::
+params)`` gives for GCN, ResGCN, GCNODE, GAT, ResGAT or GATODE, for example
+for GCNODE and GATODE::
 
     {GCNLayer_0: {Dense_0: {kernel [in, out]}, bias},
      ODEBlock_0: {dynamics: {GCNLayer_0: {Dense_0: {kernel}, bias}}},
      GCNLayer_1: ...}
 
+    {GATLayer_0: {DenseGeneral_0: {kernel [in, H, F]}, attn_src [1, H, F],
+                  attn_dst [1, H, F]},
+     ODEBlock_0: {dynamics: {GATLayer_0: {...}}},
+     GATLayer_1: ...}
+
 and returns the ``state_dict`` of the port's model of the same kind.  A
-flax ``Dense`` kernel is ``[in, out]``; a torch ``Linear.weight`` is its
-transpose.  Only numpy is read, so this module needs no JAX.
+flax ``Dense`` kernel is ``[in, out]`` and a ``DenseGeneral`` kernel
+``[in, H, F]``; a torch ``Linear.weight`` is ``[H·F, in]``, the kernel
+flattened to ``[in, H·F]`` and transposed.  Only numpy is read, so this
+module needs no JAX.
 """
 
 from __future__ import annotations
@@ -24,13 +32,13 @@ __all__ = ["params_from_flax"]
 
 
 def _module_name(flax_name: str, in_dynamics: bool) -> str:
-    if flax_name == "Dense_0":
+    if flax_name in ("Dense_0", "DenseGeneral_0"):
         return "linear"
     if flax_name == "ODEBlock_0":
         return "odeblock"
     if flax_name == "dynamics":
         return "dynamics"
-    m = re.fullmatch(r"GCNLayer_(\d+)", flax_name)
+    m = re.fullmatch(r"(?:GCN|GAT)Layer_(\d+)", flax_name)
     if m and in_dynamics and m.group(1) == "0":
         return "layer"
     if m and not in_dynamics:
@@ -51,9 +59,10 @@ def params_from_flax(tree: Mapping) -> dict:
                 )
             elif name == "kernel":
                 kernel = np.asarray(value, dtype=np.float32)
+                kernel = kernel.reshape(kernel.shape[0], -1)
                 out[prefix + "weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T))
-            elif name == "bias":
-                out[prefix + "bias"] = torch.from_numpy(np.array(value, dtype=np.float32))
+            elif name in ("bias", "attn_src", "attn_dst"):
+                out[prefix + name] = torch.from_numpy(np.array(value, dtype=np.float32))
             else:
                 raise KeyError(f"no torch counterpart for flax parameter {prefix}{name}")
 

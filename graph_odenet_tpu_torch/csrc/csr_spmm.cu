@@ -23,17 +23,24 @@
 //   * a hub row longer than one segment is spread over several warps,
 //     which write partial rows to scratch; a second small kernel adds
 //     them in segment order.  The result does not depend on scheduling.
+// Weighted mode (alpha != null): lane f of edge p is scaled by
+// alpha[p * (F / feat) + f / feat] instead of w[p].  It replaces the same
+// kernel's alpha3d mode, which the GAT backward without the score hint
+// (pallas_gat.py::_dwh_csc) runs over the CSC view.  The head index of a lane
+// is fixed for a feature chunk, so the mode costs one more load per edge.
 // Index math is 64-bit.  f32 only.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "segments.cuh"
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
+using gode::kThreads;
+using gode::kWarpsPerBlock;
 
-template <int G>
+template <int G, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
 segment_reduce_kernel(const int64_t* __restrict__ seg_ptr,
                       const int32_t* __restrict__ seg_row,
@@ -41,10 +48,12 @@ segment_reduce_kernel(const int64_t* __restrict__ seg_ptr,
                       int64_t n_seg,
                       const int32_t* __restrict__ col,
                       const float* __restrict__ w,
+                      const float* __restrict__ alpha,
                       const float* __restrict__ x,
                       float* __restrict__ out,
                       float* __restrict__ partial,
-                      int64_t F) {
+                      int64_t F,
+                      int64_t feat) {
   constexpr int kSlots = 32 / G;
   const int64_t s = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   if (s >= n_seg) return;  // uniform across the warp
@@ -60,78 +69,74 @@ segment_reduce_kernel(const int64_t* __restrict__ seg_ptr,
     const int64_t f = f0 + fl;
     float acc = 0.f;
     if (f < F) {
-      for (int64_t p = p0 + sub; p < p1; p += kSlots) {
-        const int64_t c = __ldg(col + p);
-        acc = fmaf(__ldg(w + p), __ldg(x + c * F + f), acc);
+      if (kWeighted) {
+        const int64_t heads = F / feat;
+        const int64_t h = f / feat;
+        for (int64_t p = p0 + sub; p < p1; p += kSlots) {
+          const int64_t c = __ldg(col + p);
+          acc = fmaf(__ldg(alpha + p * heads + h), __ldg(x + c * F + f), acc);
+        }
+      } else {
+        for (int64_t p = p0 + sub; p < p1; p += kSlots) {
+          const int64_t c = __ldg(col + p);
+          acc = fmaf(__ldg(w + p), __ldg(x + c * F + f), acc);
+        }
       }
     }
 #pragma unroll
     for (int off = 16; off >= G; off >>= 1) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      acc += __shfl_xor_sync(gode::kFullMask, acc, off);
     }
     if (sub == 0 && f < F) dst[f] = acc;
   }
 }
 
-// out[split_row[j], f] = sum of partial[k, f] over k in [split_ptr[j], split_ptr[j+1]).
-__global__ void __launch_bounds__(kThreads)
-split_rows_kernel(const int32_t* __restrict__ split_row,
-                  const int32_t* __restrict__ split_ptr,
-                  int64_t n_split,
-                  const float* __restrict__ partial,
-                  float* __restrict__ out,
-                  int64_t F) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n_split * F) return;
-  const int64_t j = i / F;
-  const int64_t f = i - j * F;
-  float acc = 0.f;
-  for (int64_t k = split_ptr[j]; k < split_ptr[j + 1]; ++k) {
-    acc += partial[k * F + f];
-  }
-  out[static_cast<int64_t>(split_row[j]) * F + f] = acc;
-}
-
 template <int G>
 void launch_segments(int64_t blocks, cudaStream_t stream, const int64_t* seg_ptr,
                      const int32_t* seg_row, const int32_t* seg_slot, int64_t n_seg,
-                     const int32_t* col, const float* w, const float* x, float* out,
-                     float* partial, int64_t F) {
-  segment_reduce_kernel<G><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      seg_ptr, seg_row, seg_slot, n_seg, col, w, x, out, partial, F);
+                     const int32_t* col, const float* w, const float* alpha, const float* x,
+                     float* out, float* partial, int64_t F, int64_t feat) {
+  if (alpha != nullptr) {
+    segment_reduce_kernel<G, true><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat);
+  } else {
+    segment_reduce_kernel<G, false><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat);
+  }
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launches (0 on success).  Launches on
 // `stream` and does not synchronise.  `partial` holds one row of F floats per
-// slot of the split rows and may be null when n_split is 0.
+// slot of the split rows and may be null when n_split is 0.  `alpha` null
+// selects the unweighted mode (w); otherwise the weighted mode, with heads of
+// `feat` lanes (feat divides F).
 extern "C" int gode_csr_spmm_f32(const int64_t* seg_ptr, const int32_t* seg_row,
                                  const int32_t* seg_slot, int64_t n_seg,
                                  const int32_t* split_row, const int32_t* split_ptr,
                                  int64_t n_split, const int32_t* col, const float* w,
-                                 const float* x, float* out, float* partial, int64_t F,
-                                 void* stream) {
+                                 const float* alpha, const float* x, float* out,
+                                 float* partial, int64_t F, int64_t feat, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t max_blocks = 0x7fffffff;
-  if (F < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (F < 1 || feat < 1 || F % feat != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_seg > 0) {
     const int64_t blocks = (n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock;
     if (blocks > max_blocks) return static_cast<int>(cudaErrorInvalidValue);
-    const int g = F >= 32 ? 32 : F > 8 ? 16 : F > 4 ? 8 : F > 2 ? 4 : F > 1 ? 2 : 1;
-    switch (g) {
-      case 1: launch_segments<1>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, x, out, partial, F); break;
-      case 2: launch_segments<2>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, x, out, partial, F); break;
-      case 4: launch_segments<4>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, x, out, partial, F); break;
-      case 8: launch_segments<8>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, x, out, partial, F); break;
-      case 16: launch_segments<16>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, x, out, partial, F); break;
-      default: launch_segments<32>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, x, out, partial, F); break;
+    switch (gode::lanes_for(F)) {
+      case 1: launch_segments<1>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat); break;
+      case 2: launch_segments<2>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat); break;
+      case 4: launch_segments<4>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat); break;
+      case 8: launch_segments<8>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat); break;
+      case 16: launch_segments<16>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat); break;
+      default: launch_segments<32>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat); break;
     }
   }
   if (n_split > 0) {
     const int64_t blocks = (n_split * F + kThreads - 1) / kThreads;
     if (blocks > max_blocks) return static_cast<int>(cudaErrorInvalidValue);
-    split_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+    gode::split_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
         split_row, split_ptr, n_split, partial, out, F);
   }
   return static_cast<int>(cudaGetLastError());

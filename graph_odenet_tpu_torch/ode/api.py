@@ -1,14 +1,16 @@
-"""``odeint``: the torchdiffeq-compatible entry point, fixed-grid methods.
+"""``odeint``: the torchdiffeq-compatible entry point.
 
-Counterpart of the fixed-grid half of ``graph_odenet_tpu/ode/api.py``.
-``odeint(func, y0, ts, *args, method=...)`` integrates
-``dy/dt = func(t, y, *args)`` and returns the solution at every requested
-time (``ys[0] == y0``).  ``y0`` is one tensor; the solvers work on it
-elementwise, so it needs no ravelling.
+Counterpart of ``graph_odenet_tpu/ode/api.py``.  ``odeint(func, y0, ts,
+*args, method=...)`` integrates ``dy/dt = func(t, y, *args)`` and returns
+the solution at every requested time (``ys[0] == y0``).  ``y0`` is one
+tensor; the solvers work on it elementwise and take the error norm over all
+of it, as JAX does over the ravelled state.
 
-Methods not yet ported raise ``NotImplementedError`` naming their ROADMAP
-item: the adaptive solvers and their ``_scan`` forms (A12), the Adams
-family and ``scipy_solver`` (A14).
+Methods: the fixed-grid tableaus, the adaptive ones (``dopri5``,
+``dopri8``, ``bosh3``, ``adaptive_heun``, ``fehlberg2``) and their
+``_scan`` forms.  All are differentiable by autograd through the steps.
+The Adams family and ``scipy_solver`` raise ``NotImplementedError`` naming
+their ROADMAP item (A14).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Callable
 
 import torch
 
-from graph_odenet_tpu_torch.ode import fixed, tableaus
+from graph_odenet_tpu_torch.ode import adaptive, fixed, tableaus
 
 __all__ = ["odeint", "SOLVERS"]
 
@@ -31,16 +33,20 @@ _FIXED = {
     "rk4_classic": tableaus.RK4,
 }
 
-_ADAPTIVE = ("dopri5", "dopri8", "bosh3", "adaptive_heun", "fehlberg2")
+_ADAPTIVE = {
+    "dopri5": tableaus.DOPRI5,
+    "dopri8": tableaus.DOPRI8,
+    "bosh3": tableaus.BOSH3,
+    "adaptive_heun": tableaus.HEUN12,
+    "fehlberg2": tableaus.FEHLBERG2,
+}
 _NOT_PORTED = {
-    **{m: "A12" for m in _ADAPTIVE},
-    **{f"{m}_scan": "A12" for m in _ADAPTIVE},
-    **{m: "A14" for m in (
+    m: "A14" for m in (
         "explicit_adams", "implicit_adams", "fixed_adams", "adams", "adams_scan", "scipy_solver",
-    )},
+    )
 }
 
-SOLVERS = tuple(_FIXED)
+SOLVERS = tuple(_FIXED) + tuple(_ADAPTIVE) + tuple(f"{m}_scan" for m in _ADAPTIVE)
 
 
 def odeint(
@@ -49,21 +55,27 @@ def odeint(
     ts,
     *args,
     method: str = "dopri5",
+    rtol: float = 1e-7,
+    atol: float = 1e-9,
     steps_per_interval: int = 1,
+    max_steps: int = 10_000,
+    max_steps_per_interval: int = 64,
+    first_step: float | None = None,
     return_stats: bool = False,
 ):
     """Integrate ``dy/dt = func(t, y, *args)`` over the monotonic times ``ts``.
 
-    ``ts`` may be a list or a tensor; a host-side grid keeps the time
-    arithmetic off the device.  Returns ``ys [T, *y0.shape]`` (and a stats
-    dict ``{nfe}`` when ``return_stats=True``).
+    ``ts`` may be a list or a tensor.  Returns ``ys [T, *y0.shape]`` (and a
+    stats dict when ``return_stats=True``: ``{nfe}`` for the fixed-grid
+    methods, ``{nfe, n_accept, n_reject, success, t_reached}`` for the
+    adaptive ones).
     """
     if method in _NOT_PORTED:
         raise NotImplementedError(
             f"method {method!r} is not ported yet (ROADMAP {_NOT_PORTED[method]}); "
             f"ported: {SOLVERS}"
         )
-    if method not in _FIXED:
+    if method not in SOLVERS:
         raise ValueError(f"unknown method {method!r}; choose from {SOLVERS}")
     ts = torch.as_tensor(ts, dtype=y0.dtype)
 
@@ -80,5 +92,19 @@ def odeint(
 
         ts = -ts
 
-    ys, nfe = fixed.odeint_fixed(f, _FIXED[method], y0, ts, steps_per_interval=steps_per_interval)
-    return (ys, dict(nfe=nfe)) if return_stats else ys
+    if method in _FIXED:
+        ys, nfe = fixed.odeint_fixed(
+            f, _FIXED[method], y0, ts, steps_per_interval=steps_per_interval
+        )
+        stats = dict(nfe=nfe)
+    elif method in _ADAPTIVE:
+        ys, stats = adaptive.odeint_adaptive(
+            f, y0, ts, tab=_ADAPTIVE[method], rtol=rtol, atol=atol,
+            max_steps=max_steps, first_step=first_step,
+        )
+    else:
+        ys, stats = adaptive.odeint_adaptive_scan(
+            f, y0, ts, tab=_ADAPTIVE[method[: -len("_scan")]], rtol=rtol, atol=atol,
+            max_steps_per_interval=max_steps_per_interval, first_step=first_step,
+        )
+    return (ys, stats) if return_stats else ys

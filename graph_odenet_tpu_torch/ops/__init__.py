@@ -1,4 +1,4 @@
-"""Aggregation ops: segment primitives, the CSR SpMM kernel and its dispatch."""
+"""Aggregation ops: segment primitives, the CSR SpMM kernel, GAT attention."""
 
 from graph_odenet_tpu_torch.ops.csr_spmm import (  # noqa: F401
     CSRGraph,
@@ -6,5 +6,6 @@ from graph_odenet_tpu_torch.ops.csr_spmm import (  # noqa: F401
     spmm_csr,
     spmm_csr_reference,
 )
-from graph_odenet_tpu_torch.ops.segment import gather, segment_sum  # noqa: F401
+from graph_odenet_tpu_torch.ops.sddmm import attention_aggregate, edge_scores  # noqa: F401
+from graph_odenet_tpu_torch.ops.segment import gather, segment_softmax, segment_sum  # noqa: F401
 from graph_odenet_tpu_torch.ops.spmm import spmm, spmm_segment  # noqa: F401

@@ -5,6 +5,11 @@ row's CSR span, as ``spmm_pallas`` does.  The forward reduces over the
 receiver-sorted (CSR) view; the backward ``dx = Âᵀ g`` is the same reduction
 over the sender-sorted (CSC) view.  The adjacency gets no gradient.
 
+``csr_reduce(..., alpha=[E, H], feat=F)`` is the weighted mode of the same
+kernel (``_segment_reduce_sched``'s ``alpha3d`` mode): feature lane ``f`` of
+edge ``p`` is scaled by ``alpha[p, f // F]`` instead of the edge weight.
+The GAT backward without the score hint reduces ``dWh`` with it.
+
 On a CUDA tensor the reduction is the hand-written kernel in
 ``csrc/csr_spmm.cu``; on a CPU tensor it is the plain version
 ``_reduce_plain`` (gather + ``index_add_``).  There is no other path: a CUDA
@@ -36,8 +41,10 @@ __all__ = [
 #: Most edges one warp reduces; longer rows are cut into several segments.
 SEG_EDGES = 256
 
-#: Number of kernel launches made by ``csr_reduce`` in this process.
+#: Number of kernel launches made by ``csr_reduce`` in this process,
+#: unweighted and weighted.
 launches = 0
+weighted_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +77,9 @@ class CSRGraph:
     """Receiver-sorted (CSR) and sender-sorted (CSC) views of a Graph.
 
     fwd view: rows are receivers, ``senders`` are the gathered columns.
+              CSR position ``p`` is the Graph's edge ``p`` (``prepare``
+              takes receiver-sorted Graphs only), so per-edge data in Graph
+              order is in CSR order.
     bwd view: rows are senders, ``t_receivers`` are the gathered columns
               (Âᵀ through the same kernel).  ``t_perm`` maps a CSC
               position to its original edge id.
@@ -78,6 +88,7 @@ class CSRGraph:
 
     row_ptr: torch.Tensor      # int64[n_node_pad+1]
     senders: torch.Tensor      # int32[E]
+    receivers: torch.Tensor    # int32[E] receiver of each CSR position
     weight: torch.Tensor       # f32[E]
     t_row_ptr: torch.Tensor    # int64[n_node_pad+1]
     t_receivers: torch.Tensor  # int32[E]
@@ -140,16 +151,26 @@ def _build_view(dst, src, w, n_pad):
 
 
 def prepare(g: Graph) -> CSRGraph:
-    """Host-side, one-time CSR and CSC build of a Graph (on g's device)."""
+    """Host-side, one-time CSR and CSC build of a Graph (on g's device).
+
+    Raises ``ValueError`` unless the Graph's real edges are sorted by
+    receiver (``from_edges`` sorts them): per-edge data such as attention
+    logits arrives in Graph order and is read in CSR order.
+    """
     s = g.senders[: g.n_edge].cpu().numpy().astype(np.int64)
     r = g.receivers[: g.n_edge].cpu().numpy().astype(np.int64)
     w = g.weight[: g.n_edge].cpu().numpy()
-    # Graph edges are receiver-sorted, so the fwd order is the identity.
+    if np.any(np.diff(r) < 0):
+        raise ValueError(
+            "prepare takes a Graph whose real edges are sorted by receiver "
+            "(as from_edges builds it)"
+        )
     f_ptr, f_src, f_w, _ = _build_view(r, s, w, g.n_node_pad)
     b_ptr, b_src, b_w, b_order = _build_view(s, r, w, g.n_node_pad)
     csr = CSRGraph(
         row_ptr=torch.from_numpy(f_ptr),
         senders=torch.from_numpy(f_src.astype(np.int32)),
+        receivers=torch.from_numpy(r.astype(np.int32)),
         weight=torch.from_numpy(f_w.astype(np.float32)),
         t_row_ptr=torch.from_numpy(b_ptr),
         t_receivers=torch.from_numpy(b_src.astype(np.int32)),
@@ -163,46 +184,69 @@ def prepare(g: Graph) -> CSRGraph:
     return csr.to(g.device)
 
 
-def _reduce_plain(row_ptr, col, weight, x):
-    """Plain PyTorch version of the kernel: ``out[r] = Σ_p w[p]·x[col[p]]``."""
+def row_ids(row_ptr: torch.Tensor, n_edge: int) -> torch.Tensor:
+    """The row of each edge position of a CSR (or CSC) view."""
     n_rows = row_ptr.shape[0] - 1
-    rows = torch.repeat_interleave(
-        torch.arange(n_rows, device=x.device), row_ptr.diff(),
-        output_size=col.shape[0],
+    return torch.repeat_interleave(
+        torch.arange(n_rows, device=row_ptr.device), row_ptr.diff(), output_size=n_edge
     )
-    msgs = x.index_select(0, col) * weight[:, None]
-    return x.new_zeros((n_rows, x.shape[1])).index_add_(0, rows, msgs)
+
+
+def _reduce_plain(row_ptr, col, weight, x, alpha=None, feat=None):
+    """Plain PyTorch version of the kernel: ``out[r] = Σ_p w[p]·x[col[p]]``.
+
+    Weighted mode (``alpha [E, H]``): lane ``f`` of edge ``p`` is scaled by
+    ``alpha[p, f // feat]`` instead of ``w[p]``.
+    """
+    rows = row_ids(row_ptr, col.shape[0])
+    gathered = x.index_select(0, col)
+    if alpha is None:
+        msgs = gathered * weight[:, None]
+    else:
+        msgs = gathered * alpha.to(x.dtype).repeat_interleave(feat, dim=1)
+    return x.new_zeros((row_ptr.shape[0] - 1, x.shape[1])).index_add_(0, rows, msgs)
 
 
 def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(part: Partition, col, weight, x, n_rows):
-    global launches
-    fn = _build.load_library().gode_csr_spmm_f32
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _launch(part: Partition, col, weight, x, n_rows, alpha=None, feat=1):
+    global launches, weighted_launches
     f = x.shape[1]
     out = torch.empty((n_rows, f), dtype=torch.float32, device=x.device)
     partial = torch.empty((part.n_slots, f), dtype=torch.float32, device=x.device)
-    rc = fn(
+    rc = _build.load_library("csr_spmm").gode_csr_spmm_f32(
         _ptr(part.seg_ptr), _ptr(part.seg_row), _ptr(part.seg_slot),
         part.seg_row.shape[0],
         _ptr(part.split_row), _ptr(part.split_ptr), part.split_row.shape[0],
-        _ptr(col), _ptr(weight), _ptr(x), _ptr(out),
-        _ptr(partial) if part.n_slots else None,
-        f, ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        _ptr(col), _ptr(weight), None if alpha is None else _ptr(alpha),
+        _ptr(x), _ptr(out), _ptr(partial) if part.n_slots else None,
+        f, feat, _stream(x.device),
     )
     if rc != 0:
         raise RuntimeError(f"csr_spmm kernel launch failed: CUDA error {rc}")
-    launches += 1
+    if alpha is None:
+        launches += 1
+    else:
+        weighted_launches += 1
     return out
 
 
-def csr_reduce(csr: CSRGraph, x: torch.Tensor, *, transpose: bool = False) -> torch.Tensor:
+def csr_reduce(
+    csr: CSRGraph, x: torch.Tensor, *, transpose: bool = False,
+    alpha: torch.Tensor | None = None, feat: int | None = None,
+) -> torch.Tensor:
     """The kernel's wrapper: one SpMM over the fwd (or, transposed, bwd) view.
 
     Takes f32, contiguous ``x [n_node_pad, F]`` on the adjacency's device.
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    With ``alpha`` (f32, contiguous ``[E, H]`` in the view's edge order) and
+    ``feat`` (``F = H * feat``), the weighted mode.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel.
     """
     if x.dtype != torch.float32:
         raise TypeError(f"csr_spmm takes float32 features, got {x.dtype}")
@@ -214,12 +258,25 @@ def csr_reduce(csr: CSRGraph, x: torch.Tensor, *, transpose: bool = False) -> to
         raise ValueError("csr_spmm takes contiguous features")
     if x.device != csr.device:
         raise ValueError(f"x is on {x.device} but the adjacency is on {csr.device}")
+    if alpha is not None:
+        if alpha.dtype != torch.float32:
+            raise TypeError(f"csr_spmm takes float32 alpha, got {alpha.dtype}")
+        if (feat is None or feat < 1 or x.shape[1] % feat
+                or alpha.shape != (csr.n_edge, x.shape[1] // feat)):
+            raise ValueError(
+                f"weighted csr_spmm takes alpha [{csr.n_edge}, F/feat] and feat dividing "
+                f"F={x.shape[1]}, got alpha {tuple(alpha.shape)}, feat={feat}"
+            )
+        if not alpha.is_contiguous():
+            raise ValueError("csr_spmm takes contiguous alpha")
+        if alpha.device != csr.device:
+            raise ValueError(f"alpha is on {alpha.device} but the adjacency is on {csr.device}")
     row_ptr, col, weight, part = csr.view(transpose)
     if x.device.type == "cpu":
-        return _reduce_plain(row_ptr, col, weight, x)
+        return _reduce_plain(row_ptr, col, weight, x, alpha, feat)
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmm runs on CPU or CUDA tensors, not {x.device}")
-    return _launch(part, col, weight, x, csr.n_node_pad)
+    return _launch(part, col, weight, x, csr.n_node_pad, alpha, feat or 1)
 
 
 class _SpMMCSR(torch.autograd.Function):

@@ -4,7 +4,9 @@ Counterpart of ``graph_odenet_tpu/train/node_classification.py``: Adam with
 weight decay as L2 in the gradient, full-graph forward, NLL on the training
 nodes, early stopping on validation loss, test accuracy at the best epoch.
 GCN-family models aggregate through dense Â on small graphs and through the
-CSR kernel (``representation="kernel"``) on large graphs on the card.
+CSR kernel (``representation="kernel"``) on large graphs on the card; GAT-
+family models take the attention kernels on the card at every scale.
+Attention-dropout seeds come from a CPU generator seeded from ``cfg.seed``.
 """
 
 from __future__ import annotations
@@ -16,27 +18,33 @@ from typing import Optional, Union
 import torch
 
 from graph_odenet_tpu_torch.data.planetoid import NodeClassificationData
-from graph_odenet_tpu_torch.models import GCN, GCNODE, ResGCN
+from graph_odenet_tpu_torch.models import GAT, GATODE, GCN, GCNODE, ResGAT, ResGCN
 from graph_odenet_tpu_torch.ops.csr_spmm import prepare
 from graph_odenet_tpu_torch.utils.logging import MetricsLogger
 from graph_odenet_tpu_torch.utils.metrics import masked_accuracy, masked_nll
 
-__all__ = ["NodeClassConfig", "build_model", "choose_representation", "fit_node_classifier"]
+__all__ = [
+    "NodeClassConfig", "GAT_FAMILY", "build_model", "choose_representation", "fit_node_classifier",
+]
 
 #: Largest padded graph that aggregates through dense Â by default.
 DENSE_MAX_NODES = 16_384
+GAT_FAMILY = ("gat", "resgat", "gatode")
 
 
 @dataclasses.dataclass
 class NodeClassConfig:
-    model: str = "gcn"           # gcn|resgcn|gcnode (gat|resgat|gatode: ROADMAP A11/A12)
+    model: str = "gcn"           # gcn|resgcn|gcnode|gat|resgat|gatode
     hidden: int = 16
+    heads: int = 8               # GAT family
     n_blocks: int = 2            # residual variants
     dropout: float = 0.5
-    # ODE-variant knobs (fixed-grid methods; adaptive ones come with A12).
+    # ODE-variant knobs.
     t1: float = 1.0
     method: str = "rk4"
-    steps: int = 4
+    steps: int = 4               # fixed-grid substeps / attempts of a _scan method
+    rtol: float = 1e-3
+    atol: float = 1e-4
     adjoint: Union[bool, str] = False  # only False is ported (A13)
     activation: str = "tanh"
     # Optimisation (reference defaults).
@@ -57,19 +65,24 @@ class NodeClassConfig:
 def build_model(cfg: NodeClassConfig, n_class: int, in_features: int, *, generator=None):
     """The config's model, initialised from ``generator`` on the CPU."""
     common = dict(n_class=n_class, dropout=cfg.dropout, generator=generator)
+    ode = dict(
+        t1=cfg.t1, method=cfg.method, steps=cfg.steps, rtol=cfg.rtol, atol=cfg.atol,
+        adjoint=cfg.adjoint, activation=cfg.activation,
+    )
     if cfg.model == "gcn":
         return GCN(in_features, hidden=cfg.hidden, **common)
     if cfg.model == "resgcn":
         return ResGCN(in_features, hidden=cfg.hidden, n_blocks=cfg.n_blocks, **common)
     if cfg.model == "gcnode":
-        return GCNODE(
-            in_features, hidden=cfg.hidden, t1=cfg.t1, method=cfg.method, steps=cfg.steps,
-            adjoint=cfg.adjoint, activation=cfg.activation, **common,
+        return GCNODE(in_features, hidden=cfg.hidden, **common, **ode)
+    if cfg.model == "gat":
+        return GAT(in_features, hidden=cfg.hidden, heads=cfg.heads, **common)
+    if cfg.model == "resgat":
+        return ResGAT(
+            in_features, hidden=cfg.hidden, heads=cfg.heads, n_blocks=cfg.n_blocks, **common
         )
-    if cfg.model in ("gat", "resgat"):
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet (ROADMAP A11)")
     if cfg.model == "gatode":
-        raise NotImplementedError("model 'gatode' is not ported yet (ROADMAP A12)")
+        return GATODE(in_features, hidden=cfg.hidden, heads=cfg.heads, **common, **ode)
     raise ValueError(f"unknown model {cfg.model!r}")
 
 
@@ -128,11 +141,14 @@ def fit_node_classifier(
     # Adam(weight_decay) adds L2 to the gradient, as the reference does.
     opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, weight_decay=cfg.weight_decay)
     drop_gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    gens = dict(generator=drop_gen)
+    if cfg.model in GAT_FAMILY:
+        gens["seed_generator"] = torch.Generator().manual_seed(cfg.seed)
 
     def train_step():
         model.train()
         opt.zero_grad(set_to_none=True)
-        out = model(adj, data.features, deterministic=False, generator=drop_gen)
+        out = model(adj, data.features, deterministic=False, **gens)
         loss = masked_nll(out, data.labels, data.idx_train)
         loss.backward()
         opt.step()
@@ -180,4 +196,6 @@ def fit_node_classifier(
         seconds=time.perf_counter() - t_start,
         final_test_acc=best["test_acc"],
         representation=representation,
+        # Solver stats of the last forward (the last evaluation), ODE models only.
+        ode_stats=model.odeblock.stats if hasattr(model, "odeblock") else None,
     )

@@ -1,4 +1,5 @@
-"""The CSR SpMM kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (CSR SpMM, weighted SpMM, GAT forward, α/dlogit backward,
+recompute-α dWh) against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA card and skips without one.  On the card
 (which has no JAX, so the repo's conftest cannot load):
@@ -99,3 +100,108 @@ def test_wrapper_raises_on_cuda(cuda):
         spmm_csr(csr, torch.zeros((g.n_node_pad, 4), dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         spmm_csr(csr, torch.zeros((4, g.n_node_pad), device=cuda).t())
+
+
+# ---------------------------------------------------------------- GAT kernels
+
+
+def _att_inputs(g, heads, feat, device, seed):
+    from graph_odenet_tpu_torch.ops.sddmm import edge_scores
+
+    rng = np.random.default_rng(seed)
+    csr = prepare(g).to(device)
+    n = g.n_node_pad
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
+
+    s_src, s_dst = randn(n, heads, scale=1.5), randn(n, heads, scale=1.5)
+    return csr, s_src, s_dst, edge_scores(csr, s_src, s_dst), randn(n, heads, feat), randn(n, heads, feat)
+
+
+ATT_SHAPES = [(8, 8), (1, 64), (1, 6), (1, 128), (2, 96), (3, 5)]
+
+
+@pytest.mark.parametrize("mode", ["none", "hash", "mask"])
+@pytest.mark.parametrize("heads,feat", ATT_SHAPES)
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_gat_kernels_match_plain(cuda, name, heads, feat, mode):
+    from graph_odenet_tpu_torch.ops import gat_attn
+    from graph_odenet_tpu_torch.ops.dropmask import attention_dropout_scale
+
+    g = GRAPHS[name](np.random.default_rng(0))
+    csr, s_src, s_dst, logits, wh, up = _att_inputs(g, heads, feat, cuda, seed=heads * feat)
+    drop = (77, 0.6) if mode == "hash" else None
+    dmask = (attention_dropout_scale(77, csr.senders, csr.receivers, heads, 0.6)
+             if mode == "mask" else None)
+    before = dict(gat_attn.launches)
+    out, m, l = gat_attn.gat_fwd(csr, logits, wh, dmask=dmask, drop=drop)
+    beta = (up * out).sum(-1)
+    dlog, alpha_d = gat_attn.gat_bwd(csr, logits, wh, up, m, l, beta, dmask=dmask, drop=drop,
+                                     emit_alpha=True)
+    torch.cuda.synchronize()
+    d = lambda t: None if t is None else t.double()  # noqa: E731
+    ref = gat_attn.gat_fwd_plain(csr, d(logits), d(wh), dmask=d(dmask), drop=drop)
+    for got, want in zip((out, m, l), ref):
+        torch.testing.assert_close(got, want.float(), **TOL)
+    dlog_r, alpha_r = gat_attn.gat_bwd_plain(
+        csr, d(logits), d(wh), d(up), d(m), d(l), d(beta), dmask=d(dmask), drop=drop,
+        emit_alpha=True)
+    torch.testing.assert_close(dlog, dlog_r.float(), **TOL)
+    torch.testing.assert_close(alpha_d, alpha_r.float(), **TOL)
+    if mode != "mask":
+        dwh = gat_attn.gat_dwh(csr, s_src, s_dst, m, l, up, 0.2, drop=drop)
+        torch.testing.assert_close(dwh, gat_attn.gat_dwh_plain(
+            csr, d(s_src), d(s_dst), d(m), d(l), d(up), 0.2, drop=drop).float(), **TOL)
+    x = up.view(g.n_node_pad, heads * feat)
+    a_csc = alpha_d.index_select(0, csr.t_perm)
+    before_w = csr_spmm.weighted_launches
+    got = csr_spmm.csr_reduce(csr, x, transpose=True, alpha=a_csc, feat=feat)
+    torch.testing.assert_close(got, csr_spmm._reduce_plain(
+        csr.t_row_ptr, csr.t_receivers, None, x.double(), a_csc.double(), feat).float(), **TOL)
+    assert csr_spmm.weighted_launches == before_w + 1
+    assert gat_attn.launches["gat_fwd"] == before["gat_fwd"] + 1
+    assert gat_attn.launches["gat_bwd"] == before["gat_bwd"] + 1
+    if name == "edgeless":
+        assert torch.all(out[128:] == 0) and torch.all(l[128:] == 0)
+
+
+@pytest.mark.parametrize("mode", ["hint", "hint_hash", "mask"])
+def test_gat_functions_match_reference(cuda, mode):
+    from graph_odenet_tpu_torch.ops import gat_attn
+    from graph_odenet_tpu_torch.ops.dropmask import attention_dropout_scale
+    from graph_odenet_tpu_torch.ops.sddmm import attention_aggregate, edge_scores
+
+    g = _split_hub_graph(np.random.default_rng(1))
+    csr, s_src, s_dst, _, wh, _ = _att_inputs(g, 8, 8, cuda, seed=3)
+    dmask = (attention_dropout_scale(5, csr.senders, csr.receivers, 8, 0.6)
+             if mode == "mask" else None)
+    seed = 5 if mode == "hint_hash" else None
+
+    def run(dtype, kernel):
+        a, b, w = (t.to(dtype).requires_grad_(True) for t in (s_src, s_dst, wh))
+        lg = edge_scores(csr, a, b)
+        if kernel:
+            out = attention_aggregate(csr, lg, w, dropout_seed=seed, dropout_rate=0.6,
+                                      dmask=dmask, scores=None if mode == "mask" else (a, b))
+        else:
+            out = gat_attn.gat_aggregate_reference(
+                csr, lg, w, dmask=None if dmask is None else dmask.double(),
+                drop=None if seed is None else (seed, 0.6))
+        return (out, *torch.autograd.grad(torch.sin(out).sum(), (a, b, w)))
+
+    for got, want in zip(run(torch.float32, True), run(torch.float64, False)):
+        torch.testing.assert_close(got.detach(), want.detach().float(), **TOL)
+
+
+def test_gat_wrappers_raise_on_cuda(cuda):
+    from graph_odenet_tpu_torch.ops import gat_attn
+
+    g = _random_graph(np.random.default_rng(0))
+    csr, _, _, logits, wh, _ = _att_inputs(g, 2, 4, cuda, seed=0)
+    with pytest.raises(TypeError):
+        gat_attn.gat_fwd(csr, logits.double(), wh)
+    with pytest.raises(ValueError):
+        gat_attn.gat_fwd(csr, logits, wh.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError):
+        gat_attn.gat_fwd(csr, logits.cpu(), wh)

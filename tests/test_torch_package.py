@@ -8,8 +8,8 @@ import pytest
 import torch
 
 from graph_odenet_tpu_torch.configs import get_config, run_config
-from graph_odenet_tpu_torch.graph import from_edges
-from graph_odenet_tpu_torch.ops import csr_spmm, prepare, spmm_csr
+from graph_odenet_tpu_torch.graph import Graph, from_edges
+from graph_odenet_tpu_torch.ops import csr_spmm, gat_attn, prepare, spmm_csr
 from graph_odenet_tpu_torch.train import NodeClassConfig, build_model, choose_representation
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -27,6 +27,11 @@ def _imported_roots(path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "graph_odenet_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {
+        f"graph_odenet_tpu_torch/{name}.py"
+        for name in ("ops/dropmask", "ops/gat_attn", "ops/sddmm", "models/gat", "ode/adaptive")
+    } <= names
     bad = {
         (str(f.relative_to(ROOT)), mod)
         for f in files for mod in _imported_roots(f) if mod in FORBIDDEN
@@ -75,17 +80,108 @@ def test_choose_representation():
 
 
 @pytest.mark.parametrize("name,item", [
-    (2, "A12"), (3, "A15"), (4, "A16"), ("cora-gat", "A11"), ("pubmed-gatode", "A12"),
+    (3, "A15"), (4, "A16"), ("nbody-inode-rollout", "A15"), ("ogbn-arxiv-gcnode-sharded", "A16"),
 ])
 def test_unported_configs_name_their_roadmap_item(name, item):
     with pytest.raises(NotImplementedError, match=item):
         get_config(name)
 
 
-@pytest.mark.parametrize("model,item", [("gat", "A11"), ("gatode", "A12")])
-def test_unported_models_name_their_roadmap_item(model, item):
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(NodeClassConfig(model=model), 3, 8)
+@pytest.mark.parametrize("model,adjoint", [("gatode", True), ("gcnode", "checkpoint")])
+def test_unported_models_name_their_roadmap_item(model, adjoint):
+    with pytest.raises(NotImplementedError, match="A13"):
+        build_model(NodeClassConfig(model=model, adjoint=adjoint), 3, 8)
+
+
+def test_config_2_and_gat_extras():
+    kind, cfg = get_config(2)
+    assert kind == "node" and get_config("citeseer-gatode-dopri5")[1] == cfg
+    assert (cfg.model, cfg.hidden, cfg.heads, cfg.method, cfg.steps) == (
+        "gatode", 8, 8, "dopri5_scan", 32
+    )
+    assert (cfg.rtol, cfg.atol, cfg.dropout, cfg.lr, cfg.weight_decay) == (1e-3, 1e-4, 0.6, 0.005, 5e-4)
+    assert (cfg.epochs, cfg.patience) == (300, 100)
+    for name in ("cora-gat", "pubmed-resgat", "cora-gatode", "pubmed-gatode"):
+        assert get_config(name)[1].model in ("gat", "resgat", "gatode")
+    g = _graph()
+    assert choose_representation(g, "gatode") == "segment"  # CPU tensors, any scale
+
+
+def _unsorted_graph():
+    """Two real edges, not sorted by receiver (from_edges would sort them)."""
+    return Graph(
+        senders=torch.tensor([0, 1, 0], dtype=torch.int32),
+        receivers=torch.tensor([2, 0, 127], dtype=torch.int32),
+        weight=torch.tensor([1.0, 1.0, 0.0]),
+        n_node=3, n_edge=2, n_node_pad=128,
+    )
+
+
+def test_prepare_rejects_a_graph_not_sorted_by_receiver():
+    with pytest.raises(ValueError, match="sorted by receiver"):
+        prepare(_unsorted_graph())
+    csr = prepare(_graph())
+    np.testing.assert_array_equal(csr.receivers.numpy(), _graph().receivers[: csr.n_edge].numpy())
+
+
+def _gat_inputs():
+    g = _graph()
+    csr = prepare(g)
+    rng = np.random.default_rng(0)
+    n, e, heads, feat = g.n_node_pad, csr.n_edge, 2, 3
+    f32 = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    return csr, dict(
+        logits=f32(e, heads), wh=f32(n, heads, feat), g=f32(n, heads, feat),
+        m=f32(n, heads), l=f32(n, heads).abs() + 1, beta=f32(n, heads),
+        s_src=f32(n, heads), s_dst=f32(n, heads), alpha=f32(e, heads),
+    )
+
+
+def _call(wrapper, csr, t):
+    if wrapper == "gat_fwd":
+        return gat_attn.gat_fwd(csr, t["logits"], t["wh"])
+    if wrapper == "gat_bwd":
+        return gat_attn.gat_bwd(csr, t["logits"], t["wh"], t["g"], t["m"], t["l"], t["beta"])
+    if wrapper == "gat_dwh":
+        return gat_attn.gat_dwh(csr, t["s_src"], t["s_dst"], t["m"], t["l"], t["g"], 0.2)
+    x = t["wh"].reshape(csr.n_node_pad, -1)
+    return csr_spmm.csr_reduce(csr, x, transpose=True, alpha=t["alpha"], feat=t["wh"].shape[2])
+
+
+WRAPPER_INPUTS = {
+    "gat_fwd": ("logits", "wh"), "gat_bwd": ("logits", "wh", "g", "m", "l", "beta"),
+    "gat_dwh": ("s_src", "s_dst", "m", "l", "g"), "csr_reduce_weighted": ("alpha",),
+}
+
+
+@pytest.mark.parametrize("bad", ["float64", "non_contiguous"])
+@pytest.mark.parametrize("wrapper", sorted(WRAPPER_INPUTS))
+def test_new_wrappers_reject_bad_input(wrapper, bad):
+    csr, t = _gat_inputs()
+    _call(wrapper, csr, t)  # the good inputs pass
+    for key in WRAPPER_INPUTS[wrapper]:
+        broken = dict(t)
+        if bad == "float64":
+            broken[key] = t[key].double()
+        else:
+            broken[key] = t[key].transpose(0, 1).contiguous().transpose(0, 1)
+        assert broken[key].is_contiguous() == (bad == "float64")
+        with pytest.raises(TypeError if bad == "float64" else ValueError):
+            _call(wrapper, csr, broken)
+
+
+def test_cpu_csr_graph_leaves_every_launch_counter_at_zero():
+    from graph_odenet_tpu_torch.models import GAT, GATODE
+
+    g = _graph()
+    csr = prepare(g)
+    x = torch.randn(g.n_node_pad, 12)
+    counts = (csr_spmm.launches, csr_spmm.weighted_launches, dict(gat_attn.launches))
+    for model in (GATODE(12, n_class=3, steps=4), GAT(12, n_class=3)):
+        model(csr, x).sum().backward()
+    spmm_csr(csr, x).sum()
+    assert (csr_spmm.launches, csr_spmm.weighted_launches, dict(gat_attn.launches)) == counts
+    assert counts == (0, 0, {"gat_fwd": 0, "gat_bwd": 0, "gat_dwh": 0})
 
 
 def test_pubmed_gcnode_config():
