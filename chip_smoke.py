@@ -34,9 +34,31 @@ so the exit code is non-zero:
              holds the trained model's log-probs against the segment path.
   dense      one GCN-ODE fwd+bwd at Pubmed size through dense Â, the kernel
              and the segment path.
+  bucket     the CSR kernel's bucket mode (B2) on the full arxiv twin
+             partitioned into P = 8 (64 buckets of 21,168 rows) and P = 1:
+             every bucket's forward (CSR view), backward (CSC view) and
+             positional form, written into NaNs, against the plain version
+             in float64 at TOL, upstream the gradient of ``sum(sin(·))``;
+             each receiver block's buckets in the ring's order (the first
+             written, the rest added in place), forward and backward,
+             against the single-device ``spmm_csr``; ms of fwd+bwd over all
+             buckets, kernel and plain version (float32) and cuSPARSE, and
+             the kernel with zero-filled outputs that every bucket adds
+             into (``zero_fill_add_ms``), the form without the write.
+  config4    ``run_config(4)`` (edge-partitioned GCN-ODE, one part on one
+             card) on the full arxiv twin through the bucket kernel, after
+             one training step through the kernel held against the same step
+             through the plain versions (dropout 0; ``CONFIG4_RTOL``), and a
+             ``torch.profiler`` breakdown of three training steps.
+  library    ``torch.sparse.mm`` on a CSR tensor (cuSPARSE) for the
+             function B1 and B2 compute, fwd+bwd, at the bench shape, the
+             Pubmed F = 16 shape and the arxiv F = 256 shape; used nowhere
+             in the port.
 
-Then the kernel table, the card's name and power limit, and as the last
-line ``{"ok": true, "device": {...}}``.
+Then the kernel table (each kernel's launches on its main path, error,
+ms, plain ms, the bound of its work on an H100 and the library call's ms),
+the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -63,6 +85,16 @@ ATT_TOL = dict(rtol=1e-5, atol=1e-5)
 BENCH_ATT_TOL = dict(rtol=1e-4, atol=1e-4)
 GAT_MIN_TEST_ACC = 0.60  # config 2; the JAX package reaches 0.696 ± 0.019, chance is 1/6
 GAT_LAYERS = 3  # encoder, dynamics and readout: each epoch launches every kernel >= 3 times
+# Config 4's one training step through the kernel against the plain versions:
+# 18 aggregations of f32 sums in two orders, then gradients through all of
+# them; atol is relative to each gradient's largest entry.
+CONFIG4_RTOL = 1e-4
+BUCKET_PARTS = (8, 1)
+ARXIV_HIDDEN = 256  # config 4's width: the encoder's and the dynamics' aggregations
+# Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM and f32 outside the
+# tensor cores.  A kernel's bound is the larger of its bytes and its flops over these.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def emit(phase, **fields):
@@ -87,6 +119,40 @@ def alternate(fns, iters):
     for n in names + names[::-1]:
         runs[n].append(timed_ms(fns[n], iters))
     return {n: sum(v) / len(v) for n, v in runs.items()}
+
+
+def bound(n_bytes, n_flops):
+    """Least ms an H100 could take for work that moves ``n_bytes`` (each
+    input read once, each output written once) and does ``n_flops`` f32
+    operations, and which of the two bounds it."""
+    t_bytes, t_flops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_F32_FLOPS
+    return dict(bound_ms=max(t_bytes, t_flops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_flops else "operations")
+
+
+def spmm_work(n_rows, n_edge, f, accumulate=False):
+    """(bytes, flops) of one SpMM ``out (+)= A x`` over a CSR view: x and out
+    (read too when added into), int64 row pointers, int32 columns, f32 weights."""
+    n_bytes = (3 if accumulate else 2) * n_rows * f * 4 + (n_rows + 1) * 8 + n_edge * 8
+    return n_bytes, 2 * n_edge * f + (n_rows * f if accumulate else 0)
+
+
+def attention_work(kernel, n, e, h, f):
+    """(bytes, flops) of one call of a GAT kernel or the weighted SpMM on a
+    graph of ``n`` padded nodes and ``e`` edges at H = ``h``, F = ``f``: each
+    input read once, each output written once; the f32 operations of the
+    softmax and the weighted sums (the dropout hash's integer operations not
+    counted)."""
+    return {
+        "csr_spmm_weighted": (2 * n * h * f * 4 + (n + 1) * 8 + e * 4 + e * h * 4,
+                              2 * e * h * f),
+        "gat_fwd": (e * h * 4 + 2 * n * h * f * 4 + (n + 1) * 8 + e * 4 + 2 * n * h * 4,
+                    e * h * (2 * f + 5)),
+        "gat_bwd": (e * h * 4 + 2 * n * h * f * 4 + 3 * n * h * 4 + 2 * e * 4 + e * h * 4,
+                    e * h * (2 * f + 6)),
+        "gat_dwh": (4 * n * h * 4 + 2 * n * h * f * 4 + (n + 1) * 8 + e * 4,
+                    e * h * (2 * f + 8)),
+    }[kernel]
 
 
 def bench_graph(from_edges, n_nodes=169_343, n_edges=1_166_243, seed=0, normalize="row"):
@@ -179,19 +245,20 @@ def check_kernel(name, g, f, dev, iters, seed):
         plain_f32_stress_bwd_max_abs_err=max_err(fwd_bwd(spmm_csr_reference), stress_ref),
         ms=times["kernel"], plain_ms=times["plain"],
         max_row_edges=int(csr.row_ptr.diff().max()), split_rows=int(csr.part.split_row.numel()),
+        **bound(*(2 * v for v in spmm_work(g.n_node_pad, csr.n_edge, f))),
     )
     emit("kernel", **row)
     return row
 
 
-def phase_kernel(dev, pubmed_graph):
+def phase_kernel(dev, pubmed_graph, bench_row):
     from graph_odenet_tpu_torch.graph import from_edges
 
     rows = [
         check_kernel("pubmed-twin", pubmed_graph, 16, dev, iters=200, seed=0),
         check_kernel("pubmed-twin", pubmed_graph, 3, dev, iters=200, seed=1),
         check_kernel("hub", hub_graph(from_edges), 128, dev, iters=200, seed=2),
-        check_kernel("bench", bench_graph(from_edges), 128, dev, iters=20, seed=3),
+        check_kernel("bench", bench_row, 128, dev, iters=20, seed=3),
     ]
     return rows
 
@@ -206,8 +273,9 @@ def split_hub_graph(from_edges, into):
 
 
 def _err(a, b, tol):
-    """(max abs err, max err / tolerance) of float32 ``a`` against float64 ``b``."""
-    d = (a.double() - b).abs()
+    """(max abs err, max err / tolerance) of float32 ``a`` against float64 ``b``;
+    a NaN in ``a`` (a row left unwritten) counts as an infinite error."""
+    d = (a.double() - b).abs().nan_to_num(nan=float("inf"))
     return float(d.max()), float((d / (tol["atol"] + tol["rtol"] * b.abs())).max())
 
 
@@ -362,6 +430,9 @@ def check_attention(name, g, heads, feat, mode, dev, iters, seed, tol=ATT_TOL):
         kernel_ms={k: t["kernel"] for k, t in kernel_ms.items()},
         kernel_plain_ms={k: t["plain"] for k, t in kernel_ms.items()},
     )
+    bounds = {k: bound(*attention_work(k, n, csr.n_edge, heads, feat)) for k in kernel_ms}
+    row["bound_ms"] = {k: b["bound_ms"] for k, b in bounds.items()}
+    row["bound_by"] = {k: b["bound_by"] for k, b in bounds.items()}
     emit("attention", **row)
     return row
 
@@ -522,13 +593,258 @@ def phase_dense(dev, data):
     )
 
 
+def _randn(rng, shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+
+def phase_bucket(dev, graph, f=ARXIV_HIDDEN, iters=10):
+    """B2 on every bucket of the arxiv twin at P = 8 and P = 1 (see the module doc)."""
+    from graph_odenet_tpu_torch.ops import prepare, spmm_csr
+    from graph_odenet_tpu_torch.ops.csr_spmm import _bucket_reduce_plain, bucket_reduce
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver
+
+    rng = np.random.default_rng(30)
+    n = graph.n_node_pad
+    x = _randn(rng, (n, f), dev)
+    csr = prepare(graph).to(dev)
+    xr = x.clone().requires_grad_(True)
+    want = spmm_csr(csr, xr)
+    up = torch.cos(want).detach()  # d sum(sin(Â x)) / d(Â x)
+    (want_dx,) = torch.autograd.grad(want, xr, up)
+    rows = {}
+    for n_parts in BUCKET_PARTS:
+        t0 = time.perf_counter()
+        pg = partition_by_receiver(graph, n_parts).to(dev)
+        partition_s = time.perf_counter() - t0
+        B = pg.block_size
+        errs = []
+
+        def check(got, ref):
+            errs.append(_err(got, ref, TOL))
+
+        def nan(dtype=torch.float32):  # the write form must write every row
+            return torch.full((B, f), float("nan"), device=dev, dtype=dtype)
+
+        out = torch.full((n, f), float("nan"), device=dev)
+        for p in range(n_parts):
+            for k in range(n_parts):  # the ring's order: the own block first, written
+                b = (p + k) % n_parts
+                bk, chunk = pg.bucket(p, b), x[b * B:(b + 1) * B]
+                y = bucket_reduce(bk.fwd, chunk, nan(), accumulate=False)
+                y64 = _bucket_reduce_plain(bk.fwd, chunk.double(), nan(torch.float64),
+                                           accumulate=False)
+                g_b = torch.cos(y64).float()  # d sum(sin(y)) / dy
+                d = bucket_reduce(bk.bwd, g_b, nan(), accumulate=False)
+                d64 = _bucket_reduce_plain(bk.bwd, g_b.double(), nan(torch.float64),
+                                           accumulate=False)
+                msgs = chunk.index_select(0, bk.fwd.col) * bk.fwd.weight[:, None]
+                pos = bucket_reduce(bk.fwd, msgs, nan(), positional=True, accumulate=False)
+                pos64 = _bucket_reduce_plain(bk.fwd, msgs.double(), nan(torch.float64), True,
+                                             accumulate=False)
+                torch.cuda.synchronize()
+                check(y, y64)
+                check(d, d64)
+                check(pos, pos64)
+                bucket_reduce(bk.fwd, chunk, out[p * B:(p + 1) * B], accumulate=k > 0)
+        # The reverse ring: block b's gradient gathers bucket [p, b] of every
+        # rank p, from rank b + 1 on, written first and then added into.
+        dx = torch.full((n, f), float("nan"), device=dev)
+        for b in range(n_parts):
+            for k in range(n_parts):
+                p = (b + 1 + k) % n_parts
+                bucket_reduce(pg.bucket(p, b).bwd, up[p * B:(p + 1) * B], dx[b * B:(b + 1) * B],
+                              accumulate=k > 0)
+        torch.cuda.synchronize()
+        acc_err = max(_err(out, want.detach().double(), TOL), _err(dx, want_dx.double(), TOL),
+                      key=lambda e: e[1])
+        worst = max(errs, key=lambda e: e[1])
+        if worst[1] > 1.0 or acc_err[1] > 1.0:
+            raise AssertionError(f"bucket P={n_parts}: per bucket {worst}, accumulated {acc_err}")
+
+        def fwd_bwd(reduce, write=True):
+            """Each output's first bucket writes it and the rest add; or, not
+            ``write``, outputs zero-filled and every bucket adds."""
+            def run():
+                new = torch.empty if write else torch.zeros
+                o, dxx = new(n, f, device=dev), new(n, f, device=dev)
+                for p in range(n_parts):
+                    for b in range(n_parts):
+                        bk = pg.bucket(p, b)
+                        reduce(bk.fwd, x[b * B:(b + 1) * B], o[p * B:(p + 1) * B],
+                               accumulate=b > 0 or not write)
+                        reduce(bk.bwd, up[p * B:(p + 1) * B], dxx[b * B:(b + 1) * B],
+                               accumulate=p > 0 or not write)
+            return run
+
+        # cuSPARSE for the same buckets: A_pb x_b and A_pbᵀ g_p.
+        mats = [
+            [(_sparse_csr(pg.bucket(p, b).fwd), _sparse_csr(pg.bucket(p, b).bwd))
+             for b in range(n_parts)] for p in range(n_parts)
+        ]
+
+        def library():
+            for p in range(n_parts):
+                for b in range(n_parts):
+                    a, at = mats[p][b]
+                    torch.sparse.mm(a, x[b * B:(b + 1) * B])
+                    torch.sparse.mm(at, up[p * B:(p + 1) * B])
+
+        times = alternate({"plain": fwd_bwd(_bucket_reduce_plain), "kernel": fwd_bwd(bucket_reduce),
+                           "zero_fill_add": fwd_bwd(bucket_reduce, write=False),
+                           "library": library}, iters)
+        work = [spmm_work(B, int(pg.bucket_edges[p, b]), f, accumulate=acc)
+                for p in range(n_parts) for b in range(n_parts) for acc in (b > 0, p > 0)]
+        n_bytes, n_flops = (sum(w[i] for w in work) for i in (0, 1))  # fwd and bwd
+        rows[n_parts] = dict(
+            n_parts=n_parts, block_rows=B, buckets=n_parts ** 2,
+            largest_bucket=int(pg.bucket_edges.max()), n_edge=graph.n_edge, F=f,
+            partition_s=partition_s, max_abs_err=worst[0], max_err_over_tol=worst[1],
+            accumulated_max_err_over_tol=acc_err[1],
+            split_rows=sum(int(pg.bucket(p, b).fwd.part.split_row.numel())
+                           for p in range(n_parts) for b in range(n_parts)),
+            ms=times["kernel"], plain_ms=times["plain"], library_ms=times["library"],
+            zero_fill_add_ms=times["zero_fill_add"], **bound(n_bytes, n_flops),
+        )
+        emit("bucket", **rows[n_parts])
+    return rows
+
+
+def _sparse_csr(view):
+    """A ``CSRView`` as a torch CSR tensor (cuSPARSE's operand)."""
+    return torch.sparse_csr_tensor(view.row_ptr, view.col.long(), view.weight,
+                                   (view.n_rows, view.n_cols))
+
+
+def phase_config4(dev, data):
+    """Config 4 through ``run_config``; ``data`` is the same twin, for the one-step check."""
+    from graph_odenet_tpu_torch.configs import get_config, run_config
+    from graph_odenet_tpu_torch.ops import csr_spmm, prepare, spmm_csr_reference
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver, sharded_gcn, spmm_sharded
+
+    _, cfg = get_config(4)
+    # One training step (dropout 0) through the kernel and through the plain versions.
+    pg = partition_by_receiver(data.graph, 1).to(dev)
+    csr = prepare(data.graph).to(dev)
+    model = sharded_gcn.init_params(data.features.shape[1], cfg.hidden, data.n_class,
+                                    generator=torch.Generator().manual_seed(0)).to(dev)
+    x, labels = data.features.to(dev), data.labels.to(dev)
+    y1h = torch.nn.functional.one_hot(labels.clamp(min=0), data.n_class).float()
+    w = torch.zeros(data.graph.n_node_pad, device=dev)
+    w[data.idx_train.to(dev)] = 1.0
+
+    def step(agg):
+        model.zero_grad(set_to_none=True)
+        lp = sharded_gcn.forward_with(model, agg, x, steps=cfg.steps, t1=cfg.t1)
+        loss = -(lp * y1h).sum(-1).mul(w).sum() / w.sum()
+        loss.backward()
+        return loss.detach(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    kernel_agg = lambda h: spmm_sharded(pg, h, mode=cfg.mode)  # noqa: E731
+    before = csr_spmm.bucket_launches
+    loss_k, grads_k = step(kernel_agg)
+    check_launches = csr_spmm.bucket_launches - before
+    loss_p, grads_p = step(lambda h: spmm_csr_reference(csr, h))
+    torch.cuda.synchronize()
+    step_err = {"loss": float((loss_k - loss_p).abs() / loss_p.abs())}
+    torch.testing.assert_close(loss_k, loss_p, rtol=CONFIG4_RTOL, atol=0.0)
+    for k, g in grads_p.items():
+        atol = CONFIG4_RTOL * float(g.abs().max())
+        torch.testing.assert_close(grads_k[k], g, rtol=CONFIG4_RTOL, atol=atol, msg=k)
+        step_err[k] = float(((grads_k[k] - g).abs() / (atol + CONFIG4_RTOL * g.abs())).max())
+    profile = profile_steps(model, lambda: step(kernel_agg), cfg)
+    del model, csr, pg
+
+    csr_spmm.bucket_launches = 0
+    res = run_config(4, device=dev)
+    launches = csr_spmm.bucket_launches
+
+    epochs = res["epochs_run"]
+    if not (np.isfinite(res["loss_first"]) and np.isfinite(res["loss_final"])):
+        raise AssertionError(f"config 4: non-finite loss {res}")
+    if not res["loss_final"] < res["loss_first"]:
+        raise AssertionError(f"config 4: the loss did not fall: {res}")
+    if not res["test_acc"] > 1.0 / data.n_class:
+        raise AssertionError(f"config 4: test accuracy {res['test_acc']} at chance")
+    if launches < 36 * epochs:  # 18 aggregations forward and 18 backward a step
+        raise AssertionError(f"config 4: {launches} bucket kernel launches for {epochs} epochs")
+    emit(
+        "config4", config=res["config"], dataset=res["dataset"], n_parts=res["n_parts"],
+        n_node_pad=data.graph.n_node_pad, n_edge=data.graph.n_edge, hidden=cfg.hidden,
+        epochs_run=epochs, best_epoch=res["best_epoch"], test_acc=res["test_acc"],
+        val_acc=res["val_acc"], val_loss=res["val_loss"], loss_first=res["loss_first"],
+        loss_final=res["loss_final"], step_ms=res["step_ms"], seconds=res["seconds"],
+        seconds_per_epoch=res["seconds"] / epochs, launches=launches,
+        one_step_check=dict(rtol=CONFIG4_RTOL, launches=check_launches, err_over_tol=step_err),
+        profile=profile,
+    )
+    return launches
+
+
+def profile_steps(model, loss_and_grads, cfg, steps=3):
+    """``torch.profiler`` over ``steps`` training steps (dropout 0, then
+    Adam): wall and device-busy ms per step and the kernels that take most
+    of the device time (single stream, so their times add up to busy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, weight_decay=cfg.weight_decay)
+
+    def train_step():
+        loss_and_grads()
+        opt.step()
+
+    train_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            train_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # Device events only: CPU ops also carry the device time of what they launched.
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(
+        steps=steps, wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms,
+        busy_share=busy_ms / wall_ms,
+        top_kernels_ms_per_step={e.key[:90]: e.self_device_time_total / 1e3 / steps for e in top},
+    )
+
+
+def phase_library(dev, graphs, iters=20):
+    """cuSPARSE (``torch.sparse.mm`` on CSR tensors) for ``Â x`` and ``Âᵀ g``:
+    ms per fwd+bwd at each ``(name, graph, F)``, checked against ``spmm_csr``."""
+    from graph_odenet_tpu_torch.ops import prepare, spmm_csr
+
+    rng = np.random.default_rng(40)
+    out = {}
+    for name, g, f in graphs:
+        csr = prepare(g).to(dev)
+        a = torch.sparse_csr_tensor(csr.row_ptr, csr.senders.long(), csr.weight,
+                                    (g.n_node_pad, g.n_node_pad))
+        at = torch.sparse_csr_tensor(csr.t_row_ptr, csr.t_receivers.long(), csr.t_weight,
+                                     (g.n_node_pad, g.n_node_pad))
+        x, up = _randn(rng, (g.n_node_pad, f), dev), _randn(rng, (g.n_node_pad, f), dev)
+        xr = x.clone().requires_grad_(True)
+        y = spmm_csr(csr, xr)
+        (dx,) = torch.autograd.grad(y, xr, up)
+        err = max(_err(torch.sparse.mm(a, x), y.detach().double(), BENCH_ATT_TOL),
+                  _err(torch.sparse.mm(at, up), dx.double(), BENCH_ATT_TOL), key=lambda e: e[1])
+        ms = timed_ms(lambda: (torch.sparse.mm(a, x), torch.sparse.mm(at, up)), iters)
+        out[name] = dict(graph=name, n_node_pad=g.n_node_pad, n_edge=csr.n_edge, F=f,
+                         ms=ms, max_err_over_tol_vs_kernel=err[1])
+    emit("library", what="torch.sparse.mm fwd+bwd (cuSPARSE)", shapes=list(out.values()))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from graph_odenet_tpu_torch.configs import get_config
-    from graph_odenet_tpu_torch.data import synthetic_planetoid
+    from graph_odenet_tpu_torch.data import synthetic_ogbn_arxiv, synthetic_planetoid
     from graph_odenet_tpu_torch.graph import from_edges
 
     dev = torch.device("cuda", 0)
@@ -549,7 +865,8 @@ def main():
     timed("build", phase_build)
     _, cfg = get_config("pubmed-gcnode")
     data = synthetic_planetoid("pubmed", seed=cfg.seed, calibrated=True).to(dev)
-    rows = timed("kernel", phase_kernel, dev, data.graph)
+    bench_row = bench_graph(from_edges)
+    rows = timed("kernel", phase_kernel, dev, data.graph, bench_row)
     bench = bench_graph(from_edges, normalize=None)
     att = timed("attention", phase_attention, dev, bench)
     launches = timed("slice", phase_slice, dev, data)
@@ -558,10 +875,18 @@ def main():
     if weighted < 5:
         raise AssertionError(f"{weighted} weighted SpMM launches on the GAT bench path")
     timed("dense", phase_dense, dev, data)
+    arxiv = synthetic_ogbn_arxiv(seed=0)  # run_config(4)'s twin
+    buckets = timed("bucket", phase_bucket, dev, arxiv.graph)
+    bucket_launches = timed("config4", phase_config4, dev, arxiv)
+    library = timed("library", phase_library, dev, [
+        ("bench", bench_row, 128), ("pubmed-twin", data.graph, 16),
+        ("arxiv-twin", arxiv.graph, ARXIV_HIDDEN),
+    ])
     emit("seconds", **times)
 
     def att_entry(kernel, source, replaces, row, launched):
         checked = [r for r in att if kernel in r["max_abs_err"]]
+        h, f = row["H"], row["F"]
         # Worst error over tolerance of all shapes, each at its own tolerance.
         return {
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
@@ -571,7 +896,9 @@ def main():
             "tolerance": "rtol=atol=1e-5 against the plain version in float64 "
                          "(1e-4 on the bench graph)",
             "ms": row["kernel_ms"][kernel], "plain_ms": row["kernel_plain_ms"][kernel],
-            "shape": f"{row['graph']}, H={row['H']}, F={row['F']}, {row['mode']}, one call",
+            "bound_ms": row["bound_ms"][kernel], "bound_by": row["bound_by"][kernel],
+            "library_ms": None,
+            "shape": f"{row['graph']}, H={h}, F={f}, {row['mode']}, one call",
         }
 
     main_row = rows[0]  # the slice's shape: Pubmed twin, F = 16
@@ -590,7 +917,28 @@ def main():
             "tolerance": "rtol=atol=1e-5 against the plain version in float64",
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": library["pubmed-twin"]["ms"],
             "shape": "Pubmed twin, F=16, fwd+bwd",
+        },
+        {
+            "name": "csr_spmm_bucket",
+            "route": "cuda",
+            "source": spmm_src,
+            "replaces": "graph_odenet_tpu/ops/pallas_spmm.py:227",
+            "launches": bucket_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in buckets.values()),
+            "max_err_over_tol": max(max(r["max_err_over_tol"], r["accumulated_max_err_over_tol"])
+                                    for r in buckets.values()),
+            "tolerance": "rtol=atol=1e-5 against the plain version in float64, every bucket "
+                         "at P=8 and P=1; accumulated blocks against spmm_csr",
+            "ms": buckets[1]["ms"],
+            "plain_ms": buckets[1]["plain_ms"],
+            "bound_ms": buckets[1]["bound_ms"],
+            "bound_by": buckets[1]["bound_by"],
+            "library_ms": buckets[1]["library_ms"],
+            "shape": f"arxiv twin, P=1 (config 4 on one card), F={ARXIV_HIDDEN}, fwd+bwd",
         },
         att_entry("csr_spmm_weighted", spmm_src, "graph_odenet_tpu/ops/pallas_spmm.py:479",
                   mask_row, weighted),

@@ -6,11 +6,13 @@ Counterpart of ``graph_odenet_tpu/configs/__init__.py``:
   1  GCN-ODE on Cora, fixed-step RK4 (4 steps)
   2  GAT-ODE on Citeseer with dopri5_scan (32 attempts)
   3  Interaction-network ODE on n-body        (ROADMAP A15)
-  4  Edge-partitioned GCN-ODE on OGBN-arxiv   (ROADMAP A16)
+  4  Edge-partitioned GCN-ODE on OGBN-arxiv
 
 plus the named extras of the GCN and GAT families (``pubmed-gcnode`` and
-``cora-gatode`` among them).  The configs that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+``cora-gatode`` among them).  ``get_config`` returns ``(kind, config)``:
+``node`` selects ``train.fit_node_classifier``, ``sharded``
+``parallel.fit_sharded_node_classifier``.  Config 3 raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import dataclasses
 
 from graph_odenet_tpu_torch.train.node_classification import NodeClassConfig
 
-__all__ = ["get_config", "run_config", "CONFIG_NAMES", "EXTRA_CONFIGS"]
+__all__ = ["get_config", "run_config", "CONFIG_NAMES", "EXTRA_CONFIGS", "ShardedConfig"]
 
 CONFIG_NAMES = {
     0: "cora-gcn-discrete",
@@ -68,7 +70,26 @@ EXTRA_CONFIGS = {
 }
 
 # Configs of the JAX package that wait for a later slice.
-_NOT_PORTED = {3: "A15", 4: "A16"}
+_NOT_PORTED = {3: "A15"}
+
+
+@dataclasses.dataclass
+class ShardedConfig:
+    """Config 4: the edge-partitioned GCN-ODE on (the twin of) OGBN-arxiv."""
+
+    dataset: str = "ogbn-arxiv"
+    model: str = "gcnode"
+    hidden: int = 256
+    steps: int = 4
+    t1: float = 1.0
+    lr: float = 0.01
+    weight_decay: float = 5e-4
+    epochs: int = 30
+    patience: int = 100
+    mode: str = "ring"    # halo exchange flavour
+    dropout: float = 0.5  # feature dropout
+    n_parts: int = 8      # at most; the process group's size bounds it
+    ckpt_dir: str | None = None  # ROADMAP A17
 
 
 def get_config(i):
@@ -90,6 +111,8 @@ def get_config(i):
         )
     if i == 2:
         return "node", NodeClassConfig(**_GATODE_RECIPE)
+    if i == 4:
+        return "sharded", ShardedConfig()
     raise KeyError(i)
 
 
@@ -103,18 +126,24 @@ def run_config(
     data_path: str | None = None,
     calibrated: bool = False,
     seed: int | None = None,
-    device="cpu",
+    device="cuda",
 ):
     """Run config ``i`` (index or name) end to end on ``device``.
 
-    ``scale`` shrinks the synthetic dataset for smoke runs; ``data_path``
-    points at real pygcn-format files; ``calibrated`` takes the
-    difficulty-calibrated twin; ``seed`` overrides the config seed.
+    Runs on the card unless ``device="cpu"``; without a card the default
+    raises.  ``scale`` shrinks the synthetic dataset for smoke runs;
+    ``data_path`` points at real files (pygcn format; the OGB CSVs for
+    config 4); ``calibrated`` takes the difficulty-calibrated twin; ``seed``
+    overrides the config seed (config 4 has none, as in the JAX package).
+    Config 4 runs over ``min(8, ranks)`` parts: one process, one part,
+    without a process group.
     """
     kind, cfg = get_config(i)
     cfg_name = CONFIG_NAMES[i] if isinstance(i, int) else i
-    if seed is not None:
+    if seed is not None and hasattr(cfg, "seed"):
         cfg = dataclasses.replace(cfg, seed=seed)
+    if kind == "sharded":
+        return _run_sharded(cfg_name, cfg, scale, data_path, calibrated, device)
     from graph_odenet_tpu_torch.data.planetoid import load_planetoid, synthetic_planetoid
     from graph_odenet_tpu_torch.train import fit_node_classifier
 
@@ -130,3 +159,24 @@ def run_config(
         epochs_run=res["epochs_run"], representation=res["representation"],
         params=res["params"], ode_stats=res["ode_stats"],
     )
+
+
+def _run_sharded(cfg_name, cfg: ShardedConfig, scale, data_path, calibrated, device):
+    from graph_odenet_tpu_torch.data.ogbn import load_ogbn_arxiv, synthetic_ogbn_arxiv
+    from graph_odenet_tpu_torch.parallel import (
+        ShardedTrainConfig, fit_sharded_node_classifier, world,
+    )
+
+    data = (
+        load_ogbn_arxiv(data_path) if data_path
+        else synthetic_ogbn_arxiv(seed=0, scale=scale, calibrated=calibrated)
+    )
+    tcfg = ShardedTrainConfig(
+        model=cfg.model, hidden=cfg.hidden, steps=cfg.steps, t1=cfg.t1, lr=cfg.lr,
+        weight_decay=cfg.weight_decay, epochs=cfg.epochs, patience=cfg.patience,
+        mode=cfg.mode, dropout=cfg.dropout, n_parts=min(cfg.n_parts, world()[0]),
+        ckpt_dir=cfg.ckpt_dir,
+    )
+    res = fit_sharded_node_classifier(tcfg, data, device=device)
+    res.pop("params")
+    return dict(config=cfg_name, dataset=data.name, **res)

@@ -16,7 +16,12 @@ for GCNODE and GATODE::
 and returns the ``state_dict`` of the port's model of the same kind.  A
 flax ``Dense`` kernel is ``[in, out]`` and a ``DenseGeneral`` kernel
 ``[in, H, F]``; a torch ``Linear.weight`` is ``[H·F, in]``, the kernel
-flattened to ``[in, H·F]`` and transposed.  Only numpy is read, so this
+flattened to ``[in, H·F]`` and transposed.
+
+``params_from_sharded`` takes the flat dict of the JAX package's
+edge-parallel GCN-ODE (``parallel.sharded_gcn.init_params``: ``w_in``,
+``b_in``, ``w_dyn``, ``b_dyn``, ``w_out``, ``b_out``), which the port's
+``ShardedGCNODE`` keeps by name and layout.  Only numpy is read, so this
 module needs no JAX.
 """
 
@@ -28,7 +33,9 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_flax"]
+__all__ = ["params_from_flax", "params_from_sharded"]
+
+_SHARDED_GCN = ("w_in", "b_in", "w_dyn", "b_dyn", "w_out", "b_out")
 
 
 def _module_name(flax_name: str, in_dynamics: bool) -> str:
@@ -68,3 +75,10 @@ def params_from_flax(tree: Mapping) -> dict:
 
     walk(tree, "", False)
     return out
+
+
+def params_from_sharded(params: Mapping) -> dict:
+    """JAX sharded GCN-ODE params (mapping of numpy arrays) -> ``ShardedGCNODE`` ``state_dict``."""
+    if sorted(params) != sorted(_SHARDED_GCN):
+        raise KeyError(f"expected the parameters {_SHARDED_GCN}, got {sorted(params)}")
+    return {k: torch.from_numpy(np.array(params[k], dtype=np.float32)) for k in _SHARDED_GCN}

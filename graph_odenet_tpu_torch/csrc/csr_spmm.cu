@@ -28,8 +28,20 @@
 // kernel's alpha3d mode, which the GAT backward without the score hint
 // (pallas_gat.py::_dwh_csc) runs over the CSC view.  The head index of a lane
 // is fixed for a feature chunk, so the mode costs one more load per edge.
-// Index math is 64-bit.  f32 only.
-
+//
+// Bucket mode (gode_csr_bucket_f32): out[r, :] (+)= sum_{p in row r} w[p] * x[col[p], :]
+// over one bucket of the edge-partitioned graph.  It replaces
+// pallas_spmm.py::_segment_reduce_kernel (B2), which parallel/halo.py runs per
+// bucket of a receiver block: forward over the bucket's CSR view, backward over
+// its CSC view.  The gathered table x is rectangular: a [B, F] feature chunk of
+// the sender block, or, with col == null, the bucket's [E, F] message array
+// itself (column = edge position, weight 1).  The bucket's segments skip rows
+// without edges, so an empty row costs no warp.  Two forms:
+//   * accumulate: the result is added into out, so a ring hop folds into the
+//     running sum without a temporary: a whole row adds its sum, and a split
+//     row adds its partial rows in the second pass; empty rows are untouched;
+//   * write (the first bucket of a receiver block): out is written and never
+//     read; a third small kernel writes zeros to the empty rows.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -40,7 +52,11 @@ namespace {
 using gode::kThreads;
 using gode::kWarpsPerBlock;
 
-template <int G, bool kWeighted>
+// kScaled: w[p] * x[col[p]].  kAlpha: alpha-scaled lanes.  kPositional: x[p].
+// kAdd: a whole row's sum is added into out instead of written.
+enum class Mode { kScaled, kAlpha, kPositional };
+
+template <int G, Mode kMode, bool kAdd>
 __global__ void __launch_bounds__(kThreads)
 segment_reduce_kernel(const int64_t* __restrict__ seg_ptr,
                       const int32_t* __restrict__ seg_row,
@@ -69,12 +85,16 @@ segment_reduce_kernel(const int64_t* __restrict__ seg_ptr,
     const int64_t f = f0 + fl;
     float acc = 0.f;
     if (f < F) {
-      if (kWeighted) {
+      if constexpr (kMode == Mode::kAlpha) {
         const int64_t heads = F / feat;
         const int64_t h = f / feat;
         for (int64_t p = p0 + sub; p < p1; p += kSlots) {
           const int64_t c = __ldg(col + p);
           acc = fmaf(__ldg(alpha + p * heads + h), __ldg(x + c * F + f), acc);
+        }
+      } else if constexpr (kMode == Mode::kPositional) {
+        for (int64_t p = p0 + sub; p < p1; p += kSlots) {
+          acc += __ldg(x + p * F + f);
         }
       } else {
         for (int64_t p = p0 + sub; p < p1; p += kSlots) {
@@ -87,22 +107,59 @@ segment_reduce_kernel(const int64_t* __restrict__ seg_ptr,
     for (int off = 16; off >= G; off >>= 1) {
       acc += __shfl_xor_sync(gode::kFullMask, acc, off);
     }
-    if (sub == 0 && f < F) dst[f] = acc;
+    if (sub == 0 && f < F) {
+      // A split row's partial rows are written; the second pass adds them.
+      dst[f] = (kAdd && slot < 0) ? dst[f] + acc : acc;
+    }
   }
 }
 
-template <int G>
-void launch_segments(int64_t blocks, cudaStream_t stream, const int64_t* seg_ptr,
-                     const int32_t* seg_row, const int32_t* seg_slot, int64_t n_seg,
-                     const int32_t* col, const float* w, const float* alpha, const float* x,
-                     float* out, float* partial, int64_t F, int64_t feat) {
-  if (alpha != nullptr) {
-    segment_reduce_kernel<G, true><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat);
-  } else {
-    segment_reduce_kernel<G, false><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat);
+// out[empty_row[j], :] = 0.
+__global__ void __launch_bounds__(kThreads)
+zero_rows_kernel(const int32_t* __restrict__ empty_row, int64_t n_empty,
+                 float* __restrict__ out, int64_t F) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n_empty * F) return;
+  const int64_t j = i / F;
+  out[static_cast<int64_t>(empty_row[j]) * F + (i - j * F)] = 0.f;
+}
+
+template <Mode kMode, bool kAdd>
+int launch(const int64_t* seg_ptr, const int32_t* seg_row, const int32_t* seg_slot,
+           int64_t n_seg, const int32_t* split_row, const int32_t* split_ptr, int64_t n_split,
+           const int32_t* col, const float* w, const float* alpha, const float* x, float* out,
+           float* partial, int64_t F, int64_t feat, cudaStream_t st,
+           const int32_t* empty_row = nullptr, int64_t n_empty = 0) {
+  const int64_t max_blocks = 0x7fffffff;
+  if (n_seg > 0) {
+    const int64_t blocks = (n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    if (blocks > max_blocks) return static_cast<int>(cudaErrorInvalidValue);
+#define GODE_SEGMENTS(G)                                                                      \
+  segment_reduce_kernel<G, kMode, kAdd><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>( \
+      seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat)
+    switch (gode::lanes_for(F)) {
+      case 1: GODE_SEGMENTS(1); break;
+      case 2: GODE_SEGMENTS(2); break;
+      case 4: GODE_SEGMENTS(4); break;
+      case 8: GODE_SEGMENTS(8); break;
+      case 16: GODE_SEGMENTS(16); break;
+      default: GODE_SEGMENTS(32); break;
+    }
+#undef GODE_SEGMENTS
   }
+  if (n_split > 0) {
+    const int64_t blocks = (n_split * F + kThreads - 1) / kThreads;
+    if (blocks > max_blocks) return static_cast<int>(cudaErrorInvalidValue);
+    gode::split_rows_kernel<kAdd><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        split_row, split_ptr, n_split, partial, out, F);
+  }
+  if (!kAdd && n_empty > 0) {
+    const int64_t blocks = (n_empty * F + kThreads - 1) / kThreads;
+    if (blocks > max_blocks) return static_cast<int>(cudaErrorInvalidValue);
+    zero_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(empty_row, n_empty,
+                                                                          out, F);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -118,26 +175,42 @@ extern "C" int gode_csr_spmm_f32(const int64_t* seg_ptr, const int32_t* seg_row,
                                  int64_t n_split, const int32_t* col, const float* w,
                                  const float* alpha, const float* x, float* out,
                                  float* partial, int64_t F, int64_t feat, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t max_blocks = 0x7fffffff;
   if (F < 1 || feat < 1 || F % feat != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_seg > 0) {
-    const int64_t blocks = (n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    if (blocks > max_blocks) return static_cast<int>(cudaErrorInvalidValue);
-    switch (gode::lanes_for(F)) {
-      case 1: launch_segments<1>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat); break;
-      case 2: launch_segments<2>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat); break;
-      case 4: launch_segments<4>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat); break;
-      case 8: launch_segments<8>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat); break;
-      case 16: launch_segments<16>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat); break;
-      default: launch_segments<32>(blocks, st, seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat); break;
-    }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (alpha != nullptr) {
+    return launch<Mode::kAlpha, false>(seg_ptr, seg_row, seg_slot, n_seg, split_row,
+                                       split_ptr, n_split, col, w, alpha, x, out, partial, F,
+                                       feat, st);
   }
-  if (n_split > 0) {
-    const int64_t blocks = (n_split * F + kThreads - 1) / kThreads;
-    if (blocks > max_blocks) return static_cast<int>(cudaErrorInvalidValue);
-    gode::split_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        split_row, split_ptr, n_split, partial, out, F);
+  return launch<Mode::kScaled, false>(seg_ptr, seg_row, seg_slot, n_seg, split_row,
+                                      split_ptr, n_split, col, w, alpha, x, out, partial, F,
+                                      feat, st);
+}
+
+// Bucket mode (see the header).  `col` and `w` both null selects the
+// positional form (x is the [E, F] message array); otherwise both are given.
+// `accumulate` nonzero adds into out; zero writes out, and `empty_row` lists
+// the n_empty rows that have no segment, which are written with zeros.  Same
+// return and stream contract as above.
+extern "C" int gode_csr_bucket_f32(const int64_t* seg_ptr, const int32_t* seg_row,
+                                   const int32_t* seg_slot, int64_t n_seg,
+                                   const int32_t* split_row, const int32_t* split_ptr,
+                                   int64_t n_split, const int32_t* empty_row, int64_t n_empty,
+                                   const int32_t* col, const float* w, const float* x,
+                                   float* out, float* partial, int64_t F, int accumulate,
+                                   void* stream) {
+  if (F < 1 || (col == nullptr) != (w == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GODE_BUCKET(MODE, ADD)                                                            \
+  return launch<MODE, ADD>(seg_ptr, seg_row, seg_slot, n_seg, split_row, split_ptr, n_split, \
+                           col, w, nullptr, x, out, partial, F, 1, st, empty_row, n_empty)
+  if (col == nullptr) {
+    if (accumulate) GODE_BUCKET(Mode::kPositional, true);
+    GODE_BUCKET(Mode::kPositional, false);
+  }
+  if (accumulate) GODE_BUCKET(Mode::kScaled, true);
+  GODE_BUCKET(Mode::kScaled, false);
+#undef GODE_BUCKET
 }

@@ -407,7 +407,7 @@ extern "C" int gode_gat_dwh_f32(const int64_t* seg_ptr, const int32_t* seg_row,
   if (n_split > 0) {
     const int64_t blocks = (n_split * HF + kThreads - 1) / kThreads;
     if (int rc = check_launch(blocks)) return rc;
-    gode::split_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+    gode::split_rows_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
         split_row, split_ptr, n_split, partial, out, HF);
   }
   return static_cast<int>(cudaGetLastError());

@@ -22,7 +22,9 @@ inline int lanes_for(int64_t F) {
 
 namespace {
 
-// out[split_row[j], f] = sum of partial[k, f] over k in [split_ptr[j], split_ptr[j+1]).
+// out[split_row[j], f] = sum of partial[k, f] over k in [split_ptr[j], split_ptr[j+1]),
+// or, with kAccumulate, out[split_row[j], f] += that sum.
+template <bool kAccumulate>
 __global__ void __launch_bounds__(kThreads)
 split_rows_kernel(const int32_t* __restrict__ split_row,
                   const int32_t* __restrict__ split_ptr,
@@ -38,7 +40,8 @@ split_rows_kernel(const int32_t* __restrict__ split_row,
   for (int64_t k = split_ptr[j]; k < split_ptr[j + 1]; ++k) {
     acc += partial[k * F + f];
   }
-  out[static_cast<int64_t>(split_row[j]) * F + f] = acc;
+  float* dst = out + static_cast<int64_t>(split_row[j]) * F + f;
+  *dst = kAccumulate ? *dst + acc : acc;
 }
 
 }  // namespace

@@ -10,6 +10,13 @@ kernel (``_segment_reduce_sched``'s ``alpha3d`` mode): feature lane ``f`` of
 edge ``p`` is scaled by ``alpha[p, f // F]`` instead of the edge weight.
 The GAT backward without the score hint reduces ``dWh`` with it.
 
+``bucket_reduce(view, x, out)`` is the bucket mode (B2, the counterpart of
+``_segment_reduce``): ``out += A x`` over one ``CSRView``, a rectangular
+block of the edge-partitioned graph whose gathered table ``x`` has its own
+row count, or, positional, is the block's ``[E, F]`` message array itself.
+With ``accumulate=False`` it writes ``out = A x`` instead, reading nothing
+of ``out``: the first bucket of a receiver block.
+
 On a CUDA tensor the reduction is the hand-written kernel in
 ``csrc/csr_spmm.cu``; on a CPU tensor it is the plain version
 ``_reduce_plain`` (gather + ``index_add_``).  There is no other path: a CUDA
@@ -34,25 +41,29 @@ from graph_odenet_tpu_torch.graph import Graph
 from graph_odenet_tpu_torch.ops import _build
 
 __all__ = [
-    "CSRGraph", "Partition", "prepare", "csr_reduce", "spmm_csr",
-    "spmm_csr_reference", "SEG_EDGES",
+    "CSRGraph", "CSRView", "Partition", "prepare", "csr_view", "csr_reduce", "bucket_reduce",
+    "spmm_csr", "spmm_csr_reference", "SEG_EDGES",
 ]
 
 #: Most edges one warp reduces; longer rows are cut into several segments.
 SEG_EDGES = 256
 
 #: Number of kernel launches made by ``csr_reduce`` in this process,
-#: unweighted and weighted.
+#: unweighted and weighted, and by ``bucket_reduce``.
 launches = 0
 weighted_launches = 0
+bucket_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class Partition:
     """Warp segments of one CSR view (built on the host by ``prepare``).
 
-    Segments tile the edge array in order; every row has at least one
-    (an edgeless row has one empty segment, which writes zeros).
+    Segments tile the edge array in order.  In a view that writes its
+    output (``prepare``) every row has at least one segment: an edgeless
+    row has one empty segment, which writes zeros.  In a view that adds
+    into its output (``csr_view``) an edgeless row has none, and
+    ``empty_row`` lists it, for the bucket mode's write form to zero.
     """
 
     seg_ptr: torch.Tensor    # int64[S+1] edge span of each segment
@@ -61,6 +72,7 @@ class Partition:
                              #            else its row of the partial scratch
     split_row: torch.Tensor  # int32[R]   rows cut into several segments
     split_ptr: torch.Tensor  # int32[R+1] their spans of partial slots
+    empty_row: torch.Tensor  # int32[K]   rows without a segment
     n_slots: int
 
     def to(self, device) -> "Partition":
@@ -118,9 +130,46 @@ class CSRGraph:
         return self.row_ptr, self.senders, self.weight, self.part
 
 
-def _partition(row_ptr: np.ndarray) -> Partition:
+@dataclasses.dataclass(frozen=True)
+class CSRView:
+    """One sorted view of a rectangular sparse block, for ``bucket_reduce``.
+
+    ``n_rows`` output rows gather from a table of ``n_cols`` rows.  Position
+    ``p`` is the block's edge ``p`` (``csr_view`` takes row-sorted edges),
+    so a message array in the block's edge order is in CSR order.  Only the
+    block's real edges are stored.
+    """
+
+    row_ptr: torch.Tensor  # int64[n_rows+1]
+    col: torch.Tensor      # int32[L] gathered table row of each position
+    weight: torch.Tensor   # f32[L]
+    part: Partition        # warp segments; edgeless rows have none
+    n_cols: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.row_ptr.shape[0] - 1
+
+    @property
+    def n_edge(self) -> int:
+        return self.col.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_ptr.device
+
+    def to(self, device) -> "CSRView":
+        return dataclasses.replace(
+            self, row_ptr=self.row_ptr.to(device), col=self.col.to(device),
+            weight=self.weight.to(device), part=self.part.to(device),
+        )
+
+
+def _partition(row_ptr: np.ndarray, *, skip_empty: bool = False) -> Partition:
     deg = np.diff(row_ptr)
-    n_seg = np.maximum(1, -(-deg // SEG_EDGES))
+    n_seg = -(-deg // SEG_EDGES)
+    if not skip_empty:
+        n_seg = np.maximum(1, n_seg)
     seg_row = np.repeat(np.arange(len(deg), dtype=np.int64), n_seg)
     first = np.zeros(len(deg) + 1, np.int64)
     np.cumsum(n_seg, out=first[1:])
@@ -138,6 +187,7 @@ def _partition(row_ptr: np.ndarray) -> Partition:
         seg_slot=torch.from_numpy(seg_slot.astype(np.int32)),
         split_row=torch.from_numpy(np.nonzero(split)[0].astype(np.int32)),
         split_ptr=torch.from_numpy(split_ptr.astype(np.int32)),
+        empty_row=torch.from_numpy(np.nonzero(n_seg == 0)[0].astype(np.int32)),
         n_slots=int(split_ptr[-1]),
     )
 
@@ -182,6 +232,29 @@ def prepare(g: Graph) -> CSRGraph:
         n_edge=g.n_edge,
     )
     return csr.to(g.device)
+
+
+def csr_view(rows, cols, weight, n_rows: int, n_cols: int) -> CSRView:
+    """Host-side build of a ``CSRView`` from a block's real edges (numpy).
+
+    ``rows`` (non-decreasing) and ``cols`` index the output rows and the
+    gathered table.
+    """
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    if np.any(np.diff(rows) < 0):
+        raise ValueError("csr_view takes edges sorted by row")
+    if rows.size and (rows.min() < 0 or rows.max() >= n_rows or cols.min() < 0
+                      or cols.max() >= n_cols):
+        raise ValueError(f"edge indices outside a [{n_rows}, {n_cols}] block")
+    row_ptr, col, w, _ = _build_view(rows, cols, np.asarray(weight, dtype=np.float32), n_rows)
+    return CSRView(
+        row_ptr=torch.from_numpy(row_ptr),
+        col=torch.from_numpy(col.astype(np.int32)),
+        weight=torch.from_numpy(w.astype(np.float32)),
+        part=_partition(row_ptr, skip_empty=True),
+        n_cols=int(n_cols),
+    )
 
 
 def row_ids(row_ptr: torch.Tensor, n_edge: int) -> torch.Tensor:
@@ -277,6 +350,72 @@ def csr_reduce(
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmm runs on CPU or CUDA tensors, not {x.device}")
     return _launch(part, col, weight, x, csr.n_node_pad, alpha, feat or 1)
+
+
+def _bucket_reduce_plain(view: CSRView, x, out, positional=False, accumulate=True):
+    """Plain PyTorch version of the bucket mode: gather, ``index_add_`` into
+    ``out`` (zeroed first when not ``accumulate``)."""
+    if not accumulate:
+        out.zero_()
+    rows = row_ids(view.row_ptr, view.n_edge)
+    if positional:
+        msgs = x[: view.n_edge]
+    else:
+        msgs = x.index_select(0, view.col) * view.weight.to(x.dtype)[:, None]
+    return out.index_add_(0, rows, msgs)
+
+
+def bucket_reduce(
+    view: CSRView, x: torch.Tensor, out: torch.Tensor, *, positional: bool = False,
+    accumulate: bool = True,
+) -> torch.Tensor:
+    """The bucket mode's wrapper: ``out += A x`` over ``view``, in place; or,
+    with ``accumulate=False``, ``out = A x`` (every row written, none read).
+
+    ``x`` is the gathered table, f32 contiguous ``[view.n_cols, F]``; or,
+    ``positional``, the block's message array ``[E >= view.n_edge, F]`` in
+    the view's edge order (column = position, weight 1; rows past
+    ``view.n_edge`` are padding and never read).  ``out`` is f32 contiguous
+    ``[view.n_rows, F]`` on the same device.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel.  Returns ``out``.
+    """
+    global bucket_launches
+    for name, t in (("x", x), ("out", out)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"bucket_reduce takes float32 {name}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"bucket_reduce takes a contiguous {name}")
+        if t.device != view.device:
+            raise ValueError(f"{name} is on {t.device} but the view is on {view.device}")
+    f = out.shape[1] if out.dim() == 2 else 0
+    table_ok = x.shape[0] >= view.n_edge if positional else x.shape[0] == view.n_cols
+    if x.dim() != 2 or out.dim() != 2 or f < 1 or x.shape[1] != f or not table_ok \
+            or out.shape[0] != view.n_rows:
+        want = f"[>={view.n_edge}, F]" if positional else f"[{view.n_cols}, F]"
+        raise ValueError(
+            f"bucket_reduce takes x {want} and out [{view.n_rows}, F>=1], "
+            f"got {tuple(x.shape)} and {tuple(out.shape)}"
+        )
+    if x.device.type == "cpu":
+        return _bucket_reduce_plain(view, x, out, positional, accumulate)
+    if x.device.type != "cuda":
+        raise ValueError(f"bucket_reduce runs on CPU or CUDA tensors, not {x.device}")
+    part = view.part
+    if accumulate and part.seg_row.shape[0] == 0:
+        return out  # no edge: nothing to add, nothing launched
+    partial = torch.empty((part.n_slots, f), dtype=torch.float32, device=x.device)
+    rc = _build.load_library("csr_spmm").gode_csr_bucket_f32(
+        _ptr(part.seg_ptr), _ptr(part.seg_row), _ptr(part.seg_slot), part.seg_row.shape[0],
+        _ptr(part.split_row), _ptr(part.split_ptr), part.split_row.shape[0],
+        _ptr(part.empty_row), part.empty_row.shape[0],
+        None if positional else _ptr(view.col), None if positional else _ptr(view.weight),
+        _ptr(x), _ptr(out), _ptr(partial) if part.n_slots else None, f, int(accumulate),
+        _stream(x.device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"csr_spmm bucket kernel launch failed: CUDA error {rc}")
+    bucket_launches += 1
+    return out
 
 
 class _SpMMCSR(torch.autograd.Function):

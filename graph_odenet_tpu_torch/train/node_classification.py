@@ -20,6 +20,7 @@ import torch
 from graph_odenet_tpu_torch.data.planetoid import NodeClassificationData
 from graph_odenet_tpu_torch.models import GAT, GATODE, GCN, GCNODE, ResGAT, ResGCN
 from graph_odenet_tpu_torch.ops.csr_spmm import prepare
+from graph_odenet_tpu_torch.utils.device import resolve_device
 from graph_odenet_tpu_torch.utils.logging import MetricsLogger
 from graph_odenet_tpu_torch.utils.metrics import masked_accuracy, masked_nll
 
@@ -105,16 +106,16 @@ def fit_node_classifier(
     cfg: NodeClassConfig,
     data: NodeClassificationData,
     *,
-    device=None,
+    device="cuda",
     init_state: Optional[dict] = None,
 ):
     """Train, early-stop on validation loss, and test.  Returns a results dict.
 
-    ``device`` defaults to the data's.  ``init_state`` replaces the seeded
-    initialisation, to continue from weights trained by the JAX package
-    (``convert.params_from_flax``).
+    Runs on the card unless ``device="cpu"``; without a card the default
+    raises.  ``init_state`` replaces the seeded initialisation, to continue
+    from weights trained by the JAX package (``convert.params_from_flax``).
     """
-    device = torch.device(device) if device is not None else data.features.device
+    device = resolve_device(device)
     data = data.to(device)
     model = build_model(
         cfg, data.n_class, data.features.shape[1],

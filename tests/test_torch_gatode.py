@@ -107,7 +107,7 @@ def test_three_adam_steps_match_jax_trainer(data):
     )["params"]
     tres = fit_node_classifier(
         NodeClassConfig(**common, representation="kernel"), td,
-        init_state=params_from_flax(_numpy_tree(jparams0)),
+        init_state=params_from_flax(_numpy_tree(jparams0)), device="cpu",
     )
 
     assert tres["representation"] == "kernel" and tres["epochs_run"] == 3

@@ -30,7 +30,8 @@ def test_port_imports_no_jax():
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {
         f"graph_odenet_tpu_torch/{name}.py"
-        for name in ("ops/dropmask", "ops/gat_attn", "ops/sddmm", "models/gat", "ode/adaptive")
+        for name in ("ops/dropmask", "ops/gat_attn", "ops/sddmm", "models/gat", "ode/adaptive",
+                     "data/ogbn", "parallel/halo", "parallel/partition", "parallel/trainer")
     } <= names
     bad = {
         (str(f.relative_to(ROOT)), mod)
@@ -79,9 +80,7 @@ def test_choose_representation():
     assert choose_representation(big, "gcnode") == "segment"  # CPU tensors
 
 
-@pytest.mark.parametrize("name,item", [
-    (3, "A15"), (4, "A16"), ("nbody-inode-rollout", "A15"), ("ogbn-arxiv-gcnode-sharded", "A16"),
-])
+@pytest.mark.parametrize("name,item", [(3, "A15"), ("nbody-inode-rollout", "A15")])
 def test_unported_configs_name_their_roadmap_item(name, item):
     with pytest.raises(NotImplementedError, match=item):
         get_config(name)
@@ -194,7 +193,33 @@ def test_pubmed_gcnode_config():
 
 
 def test_run_config_end_to_end_on_cpu():
-    res = run_config(1, scale=0.1, calibrated=True)
+    res = run_config(1, scale=0.1, calibrated=True, device="cpu")
     assert res["config"] == "cora-gcnode-rk4" and res["representation"] == "dense"
     assert 0 < res["epochs_run"] <= 200
     assert res["best"]["test_acc"] > 0.5
+
+
+def _entry_point_calls():
+    from graph_odenet_tpu_torch.data import synthetic_ogbn_arxiv, synthetic_planetoid
+    from graph_odenet_tpu_torch.parallel import ShardedTrainConfig, fit_sharded_node_classifier
+    from graph_odenet_tpu_torch.train import fit_node_classifier
+
+    return {
+        "run_config(1)": lambda: run_config(1, scale=0.1),
+        "run_config(4)": lambda: run_config(4, scale=0.004),
+        "fit_node_classifier": lambda: fit_node_classifier(
+            NodeClassConfig(epochs=1), synthetic_planetoid("cora", scale=0.1)),
+        "fit_sharded_node_classifier": lambda: fit_sharded_node_classifier(
+            ShardedTrainConfig(epochs=1), synthetic_ogbn_arxiv(scale=0.004)),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_entry_point_calls()))
+def test_entry_points_run_on_the_card_unless_asked(monkeypatch, entry):
+    """Without a card the default device raises; nothing trains on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    trained = []
+    monkeypatch.setattr(torch.optim.Adam, "step", lambda *a, **k: trained.append(1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_point_calls()[entry]()
+    assert not trained
