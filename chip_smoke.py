@@ -48,12 +48,36 @@ so the exit code is non-zero:
   config4    ``run_config(4)`` (edge-partitioned GCN-ODE, one part on one
              card) on the full arxiv twin through the bucket kernel, after
              one training step through the kernel held against the same step
-             through the plain versions (dropout 0; ``CONFIG4_RTOL``), and a
+             through the plain versions (dropout 0; ``CONFIG4_RTOL``; the
+             plain sums in a fixed order, see ``fixed_order_sums``), and a
              ``torch.profiler`` breakdown of three training steps.
   library    ``torch.sparse.mm`` on a CSR tensor (cuSPARSE) for the
              function B1 and B2 compute, fwd+bwd, at the bench shape, the
              Pubmed F = 16 shape and the arxiv F = 256 shape; used nowhere
              in the port.
+  bucket_weighted
+             the weighted bucket mode (B2-w) on the calibrated arxiv twin:
+             at P = 1 the sharded GAT-ODE's three shapes (H=4/F=64, H=1/F=256,
+             H=1/F=40), forward over the CSR view and backward over the CSC
+             view with the numerators permuted, written into NaNs and added
+             into a random output, and at P = 8 all 64 buckets at H=4/F=64,
+             each receiver block's buckets also in the ring's order, against
+             the plain version in float64 at TOL.  The numerators are each
+             receiver's softmax (positive, summing to 1) and the backward's
+             upstream is the gradient of ``sum(sin(·))``, so the hub rows'
+             sums do not cancel.  ms of fwd+bwd at P = 1 for the kernel, the
+             plain version (float32) and, for H = 1, cuSPARSE on CSR tensors
+             whose values are the numerators; ms of the backward's plain
+             ``dpv`` gathers.
+  config4_gat
+             the edge-partitioned GAT-ODE (hidden 64 × 4 heads, rk4 × 4,
+             dropout 0.6, ``ring_pallas``, ``remat``) on the full calibrated
+             arxiv twin through ``fit_sharded_node_classifier``, 6 epochs, one
+             part on one card, after one training step (dropout 0) through the
+             kernel held against the same step through the plain version of
+             the bucket mode and against ``mode="ring"`` (``CONFIG4_RTOL``);
+             peak device memory and ms of a step with ``remat`` on and off,
+             and a ``torch.profiler`` breakdown of three training steps.
 
 Then the kernel table (each kernel's launches on its main path, error,
 ms, plain ms, the bound of its work on an H100 and the library call's ms),
@@ -91,6 +115,15 @@ GAT_LAYERS = 3  # encoder, dynamics and readout: each epoch launches every kerne
 CONFIG4_RTOL = 1e-4
 BUCKET_PARTS = (8, 1)
 ARXIV_HIDDEN = 256  # config 4's width: the encoder's and the dynamics' aggregations
+# The sharded GAT-ODE at full width: 4 heads of 64 in the encoder, one head of
+# 256 in the dynamics, one head of 40 classes in the readout.
+GAT_HIDDEN, GAT_HEADS, GAT_STEPS, GAT_EPOCHS = 64, 4, 4, 6
+GAT_SHAPES = ((GAT_HEADS, GAT_HIDDEN), (1, GAT_HEADS * GAT_HIDDEN), (1, 40))
+# Per training step 1 + 4·steps + 1 attention layers: each launches B2-w once
+# forward and once backward, and the dynamics' layers once more when remat
+# recomputes them; an evaluation runs the forward alone.
+GAT_LAYERS_PER_FORWARD = 2 + 4 * GAT_STEPS
+GAT_MIN_TEST_ACC_SHARDED = 2.0 / 40
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM and f32 outside the
 # tensor cores.  A kernel's bound is the larger of its bytes and its flops over these.
 PEAK_BYTES_PER_S = 3.35e12
@@ -135,6 +168,15 @@ def spmm_work(n_rows, n_edge, f, accumulate=False):
     (read too when added into), int64 row pointers, int32 columns, f32 weights."""
     n_bytes = (3 if accumulate else 2) * n_rows * f * 4 + (n_rows + 1) * 8 + n_edge * 8
     return n_bytes, 2 * n_edge * f + (n_rows * f if accumulate else 0)
+
+
+def weighted_bucket_work(n_rows, n_edge, h, f, accumulate=False):
+    """(bytes, flops) of one weighted bucket reduction ``out (+)= A(pv) x`` at H
+    = ``h``, F = ``f``: x and out (read too when added into), int64 row
+    pointers, int32 columns, the f32 ``[L, H]`` numerators."""
+    n_bytes = ((3 if accumulate else 2) * n_rows * h * f * 4 + (n_rows + 1) * 8 + n_edge * 4
+               + n_edge * h * 4)
+    return n_bytes, 2 * n_edge * h * f + (n_rows * h * f if accumulate else 0)
 
 
 def attention_work(kernel, n, e, h, f):
@@ -715,6 +757,40 @@ def _sparse_csr(view):
                                    (view.n_rows, view.n_cols))
 
 
+class fixed_order_sums:
+    """Within the block ``index_add_`` sums in a fixed order instead of with
+    atomics in the order the card schedules them.
+
+    Config 4's encoder is ``relu(Â x W + b)`` with ``b = 0`` at the start, and
+    on the arxiv twin some of those pre-activations are sums that cancel to a
+    rounding residue (7e-12 at one node through the kernel, exactly 0.0 through
+    the plain version in about one run in twelve).  The sign of a residue
+    picks the ReLU's slope, so the plain step's gradient of ``w_in`` and
+    ``b_in`` jumped between two values 1.5 tolerances apart from run to run
+    while the kernel's, whose sums have one order, never moved.  A check of a
+    gradient across a kink needs both sides to be a function of their
+    inputs: with the order fixed the plain step is one too."""
+
+    def __enter__(self):
+        torch.use_deterministic_algorithms(True)
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(False)
+
+
+def _grads_close(got, want, rtol, what):
+    """``got`` against ``want`` at ``rtol``, atol relative to each gradient's
+    largest entry; the worst error over tolerance of each."""
+    errs = {}
+    for k, g in want.items():
+        atol = rtol * float(g.abs().max())
+        errs[k] = float(((got[k] - g).abs() / (atol + rtol * g.abs())).max())
+        torch.testing.assert_close(
+            got[k], g, rtol=rtol, atol=atol,
+            msg=lambda m, k=k: f"{what} {k}: {errs[k]} of the tolerance\n{m}")
+    return errs
+
+
 def phase_config4(dev, data):
     """Config 4 through ``run_config``; ``data`` is the same twin, for the one-step check."""
     from graph_odenet_tpu_torch.configs import get_config, run_config
@@ -743,14 +819,16 @@ def phase_config4(dev, data):
     before = csr_spmm.bucket_launches
     loss_k, grads_k = step(kernel_agg)
     check_launches = csr_spmm.bucket_launches - before
-    loss_p, grads_p = step(lambda h: spmm_csr_reference(csr, h))
+
+    def plain_agg(h):
+        with fixed_order_sums():
+            return spmm_csr_reference(csr, h)
+
+    loss_p, grads_p = step(plain_agg)
     torch.cuda.synchronize()
     step_err = {"loss": float((loss_k - loss_p).abs() / loss_p.abs())}
     torch.testing.assert_close(loss_k, loss_p, rtol=CONFIG4_RTOL, atol=0.0)
-    for k, g in grads_p.items():
-        atol = CONFIG4_RTOL * float(g.abs().max())
-        torch.testing.assert_close(grads_k[k], g, rtol=CONFIG4_RTOL, atol=atol, msg=k)
-        step_err[k] = float(((grads_k[k] - g).abs() / (atol + CONFIG4_RTOL * g.abs())).max())
+    step_err.update(_grads_close(grads_k, grads_p, CONFIG4_RTOL, "config4"))
     profile = profile_steps(model, lambda: step(kernel_agg), cfg)
     del model, csr, pg
 
@@ -780,10 +858,26 @@ def phase_config4(dev, data):
     return launches
 
 
-def profile_steps(model, loss_and_grads, cfg, steps=3):
+# Device kernels by what they do, matched on the kernel's name in this order.
+KERNEL_KINDS = (
+    ("bucket_kernel", ("segment_reduce_kernel", "split_rows_kernel", "zero_rows_kernel")),
+    ("matmul", ("gemm", "cutlass", "cublas")),
+    ("gather", ("indexSelect", "index_select", "gather")),
+    ("segment_ops", ("scatter", "indexFuncLargeIndex", "indexFuncSmallIndex", "index_add")),
+    ("reduce", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized")),
+)
+
+
+def kernel_kind(name):
+    return next((kind for kind, keys in KERNEL_KINDS if any(k in name for k in keys)), "other")
+
+
+def profile_steps(model, loss_and_grads, cfg, steps=3, top=8):
     """``torch.profiler`` over ``steps`` training steps (dropout 0, then
-    Adam): wall and device-busy ms per step and the kernels that take most
-    of the device time (single stream, so their times add up to busy)."""
+    Adam): wall and device-busy ms per step, the kernels that take most of
+    the device time (single stream, so their times add up to busy) and the
+    device time by kind of kernel (``KERNEL_KINDS``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -804,12 +898,248 @@ def profile_steps(model, loss_and_grads, cfg, steps=3):
     # Device events only: CPU ops also carry the device time of what they launched.
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    by_kind = {}
+    for e in kernels:
+        kind = kernel_kind(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     return dict(
         steps=steps, wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms,
-        busy_share=busy_ms / wall_ms,
+        busy_share=busy_ms / wall_ms, ms_per_step_by_kind=by_kind,
         top_kernels_ms_per_step={e.key[:90]: e.self_device_time_total / 1e3 / steps for e in top},
     )
+
+
+def _softmax_numerators(rng, rows, n_rows, heads, dev):
+    """Positive ``[L, H]`` weights that sum to 1 over each row's edges."""
+    u = torch.from_numpy((rng.random((rows.shape[0], heads)) + 0.5).astype(np.float32)).to(dev)
+    total = torch.zeros((n_rows, heads), device=dev).index_add_(0, rows, u)
+    return (u / total.index_select(0, rows)).contiguous()
+
+
+def phase_bucket_weighted(dev, graph, iters=10):
+    """B2-w on the arxiv twin at P = 1 and P = 8 (see the module doc)."""
+    from graph_odenet_tpu_torch.ops import csr_spmm
+    from graph_odenet_tpu_torch.ops.csr_spmm import _bucket_reduce_plain, bucket_reduce
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver
+
+    rng = np.random.default_rng(50)
+    n = graph.n_node_pad
+    errs = []
+
+    def check(view, x, pv, feat, out0):
+        """Write form into NaNs and add form into ``out0`` against float64."""
+        f = x.shape[1]
+        ref = _bucket_reduce_plain(view, x.double(), torch.empty_like(out0, dtype=torch.float64),
+                                   accumulate=False, alpha=pv.double(), feat=feat)
+        wrote = bucket_reduce(view, x, torch.full_like(out0, float("nan")), accumulate=False,
+                              alpha=pv, feat=feat)
+        added = bucket_reduce(view, x, out0.clone(), alpha=pv, feat=feat)
+        torch.cuda.synchronize()
+        errs.append(_err(wrote, ref, TOL))
+        errs.append(_err(added, out0.double() + ref, TOL))
+        assert wrote.shape == (view.n_rows, f)
+        return ref
+
+    # P = 1: the three shapes of the sharded GAT-ODE's layers.
+    pg = partition_by_receiver(graph, 1).to(dev)
+    bk, blk = pg.bucket(0, 0), pg.blocks[0]
+    rows = {}
+    for heads, feat in GAT_SHAPES:
+        f = heads * feat
+        x, out0 = _randn(rng, (n, f), dev), _randn(rng, (n, f), dev)
+        pv = _softmax_numerators(rng, blk.receivers, n, heads, dev)
+        pv_t = pv.index_select(0, bk.t_perm)
+        before = len(errs)
+        y64 = check(bk.fwd, x, pv, feat, out0)
+        g = torch.cos(y64).float()  # d sum(sin(y)) / dy
+        check(bk.bwd, g, pv_t, feat, out0)
+        worst = max(errs[before:], key=lambda e: e[1])
+
+        def fwd_bwd(reduce):
+            def run():
+                o, dx = torch.empty(n, f, device=dev), torch.empty(n, f, device=dev)
+                reduce(bk.fwd, x, o, accumulate=False, alpha=pv, feat=feat)
+                reduce(bk.bwd, g, dx, accumulate=False, alpha=pv_t, feat=feat)
+            return run
+
+        def dpv():  # the backward's plain part: gathers and a per-head dot
+            prod = x.index_select(0, bk.fwd.col) * g.index_select(0, blk.receivers)
+            return prod.view(-1, heads, feat).sum(-1)
+
+        fns = {"plain": fwd_bwd(_bucket_reduce_plain), "kernel": fwd_bwd(bucket_reduce), "dpv": dpv}
+        if heads == 1:  # one library call computes the same function: cuSPARSE with pv as values
+            a = torch.sparse_csr_tensor(bk.fwd.row_ptr, bk.fwd.col.long(), pv[:, 0].contiguous(), (n, n))
+            at = torch.sparse_csr_tensor(bk.bwd.row_ptr, bk.bwd.col.long(), pv_t[:, 0].contiguous(), (n, n))
+            lib_err = max(_err(torch.sparse.mm(a, x), y64, BENCH_ATT_TOL)[1],
+                          _err(torch.sparse.mm(at, g), _bucket_reduce_plain(
+                              bk.bwd, g.double(), torch.empty(n, f, device=dev, dtype=torch.float64),
+                              accumulate=False, alpha=pv_t.double(), feat=feat), BENCH_ATT_TOL)[1])
+            fns["library"] = lambda: (torch.sparse.mm(a, x), torch.sparse.mm(at, g))
+        times = alternate(fns, iters)
+        work = [weighted_bucket_work(n, bk.fwd.n_edge, heads, feat)] * 2  # fwd and bwd
+        rows[heads, feat] = dict(
+            n_parts=1, H=heads, F=feat, n_node_pad=n, n_edge=bk.fwd.n_edge,
+            max_row_edges=int(bk.fwd.row_ptr.diff().max()),
+            max_col_edges=int(bk.bwd.row_ptr.diff().max()),
+            split_rows=int(bk.fwd.part.split_row.numel()),
+            max_abs_err=worst[0], max_err_over_tol=worst[1],
+            ms=times["kernel"], plain_ms=times["plain"], dpv_plain_ms=times["dpv"],
+            library_ms=times.get("library"),
+            library_max_err_over_1e4=lib_err if heads == 1 else None,
+            **bound(sum(w[0] for w in work), sum(w[1] for w in work)),
+        )
+        emit("bucket_weighted", **rows[heads, feat])
+        del x, out0, pv, pv_t, y64, g
+
+    # P = 8: every bucket, and each receiver block's buckets in the ring's order.
+    heads, feat = GAT_SHAPES[0]
+    f = heads * feat
+    pg = partition_by_receiver(graph, 8).to(dev)
+    B = pg.block_size
+    x, up = _randn(rng, (n, f), dev), _randn(rng, (n, f), dev)
+    before, launched = len(errs), csr_spmm.bucket_weighted_launches
+    ring_errs = []
+    for p in range(8):
+        blk = pg.blocks[p]
+        pv = _softmax_numerators(rng, blk.receivers, B, heads, dev)
+        out = torch.full((B, f), float("nan"), device=dev)
+        ref = torch.zeros((B, f), device=dev, dtype=torch.float64)
+        for k in range(8):
+            b = (p + k) % 8
+            bucket, chunk, pv_b = pg.bucket(p, b), x[b * B:(b + 1) * B], pv[blk.bucket(b)]
+            y64 = check(bucket.fwd, chunk, pv_b, feat, up[p * B:(p + 1) * B])
+            ref += y64
+            check(bucket.bwd, torch.cos(y64).float(), pv_b.index_select(0, bucket.t_perm), feat,
+                  chunk)
+            bucket_reduce(bucket.fwd, chunk, out, accumulate=k > 0, alpha=pv_b, feat=feat)
+        torch.cuda.synchronize()
+        ring_errs.append(_err(out, ref, TOL))
+    worst, ring = max(errs[before:], key=lambda e: e[1]), max(ring_errs, key=lambda e: e[1])
+    rows["P8"] = dict(
+        n_parts=8, H=heads, F=feat, buckets=64, block_rows=B,
+        largest_bucket=int(pg.bucket_edges.max()), smallest_bucket=int(pg.bucket_edges.min()),
+        launches=csr_spmm.bucket_weighted_launches - launched,
+        max_abs_err=worst[0], max_err_over_tol=worst[1], ring_order_max_err_over_tol=ring[1],
+    )
+    emit("bucket_weighted", **rows["P8"])
+    bad = max(errs, key=lambda e: e[1])
+    if bad[1] > 1.0 or ring[1] > 1.0:
+        raise AssertionError(f"bucket_weighted: worst {bad}, ring order {ring}")
+    return rows
+
+
+class plain_bucket_mode:
+    """Within the block, ``parallel.halo`` reduces every bucket with the bucket
+    mode's plain version instead of the kernel: the yardstick of a whole step."""
+
+    def __enter__(self):
+        from graph_odenet_tpu_torch.ops.csr_spmm import _bucket_reduce_plain
+        from graph_odenet_tpu_torch.parallel import halo
+
+        self.halo, self.kernel = halo, halo.bucket_reduce
+        halo.bucket_reduce = lambda view, x, out, **kw: _bucket_reduce_plain(view, x, out, **kw)
+
+    def __exit__(self, *exc):
+        self.halo.bucket_reduce = self.kernel
+
+
+def phase_config4_gat(dev, data):
+    """The sharded GAT-ODE at full width through the trainer (see the module doc)."""
+    from graph_odenet_tpu_torch.ops import csr_spmm
+    from graph_odenet_tpu_torch.parallel import (
+        ShardedTrainConfig, fit_sharded_node_classifier, partition_by_receiver, sharded_gat,
+    )
+
+    cfg = ShardedTrainConfig(
+        model="gatode", hidden=GAT_HIDDEN, heads=GAT_HEADS, steps=GAT_STEPS, dropout=0.6, lr=0.01,
+        weight_decay=5e-4, mode="ring_pallas", remat=True, epochs=GAT_EPOCHS)
+    pg = partition_by_receiver(data.graph, 1).to(dev)
+    model = sharded_gat.init_gatode_params(
+        data.features.shape[1], cfg.hidden, cfg.heads, data.n_class,
+        generator=torch.Generator().manual_seed(0)).to(dev)
+    x, labels = data.features.to(dev), data.labels.to(dev)
+    y1h = torch.nn.functional.one_hot(labels.clamp(min=0), data.n_class).float()
+    w = torch.zeros(data.graph.n_node_pad, device=dev)
+    w[data.idx_train.to(dev)] = 1.0
+
+    def step(mode="ring_pallas", remat=True):
+        model.zero_grad(set_to_none=True)
+        lp = sharded_gat.gatode_forward(model, pg, x, steps=cfg.steps, t1=cfg.t1, mode=mode,
+                                        remat=remat)
+        loss = -(lp * y1h).sum(-1).mul(w).sum() / w.sum()
+        loss.backward()
+        return loss.detach(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    # One training step (dropout 0): the kernel against the bucket mode's plain
+    # version, and against the ring of online-softmax updates (no kernel).
+    before = csr_spmm.bucket_weighted_launches
+    loss_k, grads_k = step()
+    check_launches = csr_spmm.bucket_weighted_launches - before
+    with plain_bucket_mode():
+        loss_p, grads_p = step()
+    loss_r, grads_r = step(mode="ring")
+    torch.cuda.synchronize()
+    if csr_spmm.bucket_weighted_launches - before != check_launches:
+        raise AssertionError("the plain step or the ring step launched the kernel")
+    step_err = {}
+    for name, loss, grads in (("plain", loss_p, grads_p), ("ring", loss_r, grads_r)):
+        torch.testing.assert_close(loss_k, loss, rtol=CONFIG4_RTOL, atol=0.0, msg=name)
+        step_err[name] = {"loss": float((loss_k - loss).abs() / loss.abs()),
+                          **_grads_close(grads_k, grads, CONFIG4_RTOL, f"config4_gat {name}")}
+    del grads_k, grads_p, grads_r
+
+    # Peak device memory and ms of one step with and without remat; remat is
+    # needed where the step without it does not fit the card.
+    peak = {}
+    for remat in (True, False):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        step(remat=remat)
+        torch.cuda.synchronize()
+        peak["remat" if remat else "no_remat"] = dict(
+            resident_gb=resident / 1e9, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    peak.update(card_gb=card_gb, remat_needed=peak["no_remat"]["peak_gb"] > card_gb)
+    remat_ms = alternate({"remat": lambda: step(remat=True),
+                          "no_remat": lambda: step(remat=False)}, iters=2)
+    profile = profile_steps(model, step, cfg, top=12)
+    del model, pg, x, y1h, w
+
+    csr_spmm.bucket_weighted_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = fit_sharded_node_classifier(cfg, data)
+    launches = csr_spmm.bucket_weighted_launches
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    epochs = res["epochs_run"]
+    evals = len([e for e in range(epochs) if e % 5 == 0 or e == epochs - 1])
+    per_step = 2 * GAT_LAYERS_PER_FORWARD + 4 * GAT_STEPS  # forward, backward, remat's recompute
+    want = epochs * per_step + evals * GAT_LAYERS_PER_FORWARD
+    if not (np.isfinite(res["loss_first"]) and np.isfinite(res["loss_final"])):
+        raise AssertionError(f"config4_gat: non-finite loss {res}")
+    if not res["loss_final"] < res["loss_first"]:
+        raise AssertionError(f"config4_gat: the loss did not fall: {res}")
+    if not res["test_acc"] > GAT_MIN_TEST_ACC_SHARDED:
+        raise AssertionError(f"config4_gat: test accuracy {res['test_acc']} <= {GAT_MIN_TEST_ACC_SHARDED}")
+    if launches != want or check_launches != per_step:
+        raise AssertionError(
+            f"config4_gat: {launches} B2-w launches for {epochs} epochs and {evals} evaluations "
+            f"(expected {want}); {check_launches} in the checked step (expected {per_step})")
+    emit(
+        "config4_gat", model=cfg.model, hidden=cfg.hidden, heads=cfg.heads, steps=cfg.steps,
+        mode=cfg.mode, remat=cfg.remat, dropout=cfg.dropout, n_parts=res["n_parts"],
+        n_node_pad=data.graph.n_node_pad, n_edge=data.graph.n_edge, epochs_run=epochs,
+        best_epoch=res["best_epoch"], test_acc=res["test_acc"], val_acc=res["val_acc"],
+        val_loss=res["val_loss"], loss_first=res["loss_first"], loss_final=res["loss_final"],
+        step_ms=res["step_ms"], seconds=res["seconds"], seconds_per_epoch=res["seconds"] / epochs,
+        launches=launches, launches_per_step=per_step, train_peak_gb=train_peak_gb,
+        one_step_check=dict(rtol=CONFIG4_RTOL, launches=check_launches, err_over_tol=step_err),
+        step_peak_memory=peak, fwd_bwd_ms=remat_ms, profile=profile,
+    )
+    return launches
 
 
 def phase_library(dev, graphs, iters=20):
@@ -882,6 +1212,10 @@ def main():
         ("bench", bench_row, 128), ("pubmed-twin", data.graph, 16),
         ("arxiv-twin", arxiv.graph, ARXIV_HIDDEN),
     ])
+    del arxiv
+    arxiv_cal = synthetic_ogbn_arxiv(seed=0, calibrated=True)  # the sharded GAT-ODE's twin
+    weighted_buckets = timed("bucket_weighted", phase_bucket_weighted, dev, arxiv_cal.graph)
+    gat_bucket_launches = timed("config4_gat", phase_config4_gat, dev, arxiv_cal)
     emit("seconds", **times)
 
     def att_entry(kernel, source, replaces, row, launched):
@@ -903,6 +1237,7 @@ def main():
 
     main_row = rows[0]  # the slice's shape: Pubmed twin, F = 16
     cite_row, mask_row = att[0], att[7]  # config 2's encoder shape; the bench's no-hint shape
+    dyn_row = weighted_buckets[GAT_SHAPES[1]]  # the sharded GAT-ODE's dynamics: H = 1, F = 256
     gat_src = "graph_odenet_tpu_torch/csrc/gat_attn.cu"
     spmm_src = "graph_odenet_tpu_torch/csrc/csr_spmm.cu"
     print(json.dumps({"kernels": [
@@ -939,6 +1274,30 @@ def main():
             "bound_by": buckets[1]["bound_by"],
             "library_ms": buckets[1]["library_ms"],
             "shape": f"arxiv twin, P=1 (config 4 on one card), F={ARXIV_HIDDEN}, fwd+bwd",
+        },
+        {
+            "name": "csr_spmm_bucket_weighted",
+            "route": "cuda",
+            "source": spmm_src,
+            "replaces": "graph_odenet_tpu/ops/pallas_spmm.py:227",
+            "via": "weighted, graph_odenet_tpu/parallel/halo.py:147",
+            "launches": gat_bucket_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in weighted_buckets.values()),
+            "max_err_over_tol": max(
+                max(r["max_err_over_tol"], r.get("ring_order_max_err_over_tol", 0.0))
+                for r in weighted_buckets.values()),
+            "tolerance": "rtol=atol=1e-5 against the plain version in float64: three shapes at "
+                         "P=1, every bucket at P=8, written and added, CSR and CSC",
+            "ms": dyn_row["ms"],
+            "plain_ms": dyn_row["plain_ms"],
+            "bound_ms": dyn_row["bound_ms"],
+            "bound_by": dyn_row["bound_by"],
+            "library_ms": dyn_row["library_ms"],
+            "shape": "calibrated arxiv twin, P=1, H=1, F=256 (the dynamics' layers, 16 of the "
+                     "18 of a forward), fwd+bwd",
+            "other_shapes": {f"H={h},F={f}": {k: weighted_buckets[h, f][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dpv_plain_ms")}
+                for h, f in GAT_SHAPES},
         },
         att_entry("csr_spmm_weighted", spmm_src, "graph_odenet_tpu/ops/pallas_spmm.py:479",
                   mask_row, weighted),

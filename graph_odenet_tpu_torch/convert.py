@@ -21,8 +21,10 @@ flattened to ``[in, H·F]`` and transposed.
 ``params_from_sharded`` takes the flat dict of the JAX package's
 edge-parallel GCN-ODE (``parallel.sharded_gcn.init_params``: ``w_in``,
 ``b_in``, ``w_dyn``, ``b_dyn``, ``w_out``, ``b_out``), which the port's
-``ShardedGCNODE`` keeps by name and layout.  Only numpy is read, so this
-module needs no JAX.
+``ShardedGCNODE`` keeps by name and layout; ``params_from_sharded_gat`` the
+nine arrays of its edge-parallel GAT-ODE (``parallel.sharded_gat
+.init_gatode_params``), likewise kept by ``ShardedGATODE``.  Only numpy is
+read, so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -33,9 +35,10 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_flax", "params_from_sharded"]
+__all__ = ["params_from_flax", "params_from_sharded", "params_from_sharded_gat"]
 
 _SHARDED_GCN = ("w_in", "b_in", "w_dyn", "b_dyn", "w_out", "b_out")
+_SHARDED_GAT = tuple(f"{p}_{layer}" for layer in ("enc", "dyn", "out") for p in ("w", "a_src", "a_dst"))
 
 
 def _module_name(flax_name: str, in_dynamics: bool) -> str:
@@ -77,8 +80,17 @@ def params_from_flax(tree: Mapping) -> dict:
     return out
 
 
+def _flat_params(params: Mapping, names: tuple) -> dict:
+    if sorted(params) != sorted(names):
+        raise KeyError(f"expected the parameters {names}, got {sorted(params)}")
+    return {k: torch.from_numpy(np.array(params[k], dtype=np.float32)) for k in names}
+
+
 def params_from_sharded(params: Mapping) -> dict:
     """JAX sharded GCN-ODE params (mapping of numpy arrays) -> ``ShardedGCNODE`` ``state_dict``."""
-    if sorted(params) != sorted(_SHARDED_GCN):
-        raise KeyError(f"expected the parameters {_SHARDED_GCN}, got {sorted(params)}")
-    return {k: torch.from_numpy(np.array(params[k], dtype=np.float32)) for k in _SHARDED_GCN}
+    return _flat_params(params, _SHARDED_GCN)
+
+
+def params_from_sharded_gat(params: Mapping) -> dict:
+    """JAX sharded GAT-ODE params (mapping of numpy arrays) -> ``ShardedGATODE`` ``state_dict``."""
+    return _flat_params(params, _SHARDED_GAT)

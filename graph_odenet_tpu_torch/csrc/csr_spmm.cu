@@ -42,6 +42,15 @@
 //     row adds its partial rows in the second pass; empty rows are untouched;
 //   * write (the first bucket of a receiver block): out is written and never
 //     read; a third small kernel writes zeros to the empty rows.
+// Weighted bucket mode (alpha != null; B2-w): out[r, h*feat + f] (+)=
+// sum_{p in row r} alpha[p * H + h] * x[col[p], h*feat + f], the same kernel's
+// alpha3d mode that parallel/halo.py::_bucket_spmm_weighted runs per ring hop
+// of the edge-partitioned GAT: alpha holds the per-edge, per-head softmax
+// numerators in the view's edge order, forward over the bucket's CSR view and
+// backward (numerators permuted) over its CSC view.  It is the kAlpha lane
+// scaling above on the bucket's rectangular table, in both forms.  Bytes
+// bound it as they bound the unweighted mode: the numerators add 4*H bytes
+// per edge to the 4*H*feat of the gathered row.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -187,25 +196,32 @@ extern "C" int gode_csr_spmm_f32(const int64_t* seg_ptr, const int32_t* seg_row,
                                       feat, st);
 }
 
-// Bucket mode (see the header).  `col` and `w` both null selects the
-// positional form (x is the [E, F] message array); otherwise both are given.
-// `accumulate` nonzero adds into out; zero writes out, and `empty_row` lists
-// the n_empty rows that have no segment, which are written with zeros.  Same
-// return and stream contract as above.
+// Bucket mode (see the header).  `alpha` given selects the weighted form
+// (heads of `feat` lanes, feat divides F; `col` given, `w` unused).  Else
+// `col` and `w` both null selects the positional form (x is the [E, F]
+// message array); otherwise both are given.  `accumulate` nonzero adds into
+// out; zero writes out, and `empty_row` lists the n_empty rows that have no
+// segment, which are written with zeros.  Same return and stream contract as
+// above.
 extern "C" int gode_csr_bucket_f32(const int64_t* seg_ptr, const int32_t* seg_row,
                                    const int32_t* seg_slot, int64_t n_seg,
                                    const int32_t* split_row, const int32_t* split_ptr,
                                    int64_t n_split, const int32_t* empty_row, int64_t n_empty,
-                                   const int32_t* col, const float* w, const float* x,
-                                   float* out, float* partial, int64_t F, int accumulate,
-                                   void* stream) {
-  if (F < 1 || (col == nullptr) != (w == nullptr)) {
+                                   const int32_t* col, const float* w, const float* alpha,
+                                   const float* x, float* out, float* partial, int64_t F,
+                                   int64_t feat, int accumulate, void* stream) {
+  if (F < 1 || feat < 1 || F % feat != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (alpha != nullptr ? col == nullptr : (col == nullptr) != (w == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define GODE_BUCKET(MODE, ADD)                                                            \
   return launch<MODE, ADD>(seg_ptr, seg_row, seg_slot, n_seg, split_row, split_ptr, n_split, \
-                           col, w, nullptr, x, out, partial, F, 1, st, empty_row, n_empty)
+                           col, w, alpha, x, out, partial, F, feat, st, empty_row, n_empty)
+  if (alpha != nullptr) {
+    if (accumulate) GODE_BUCKET(Mode::kAlpha, true);
+    GODE_BUCKET(Mode::kAlpha, false);
+  }
   if (col == nullptr) {
     if (accumulate) GODE_BUCKET(Mode::kPositional, true);
     GODE_BUCKET(Mode::kPositional, false);

@@ -45,8 +45,8 @@ _SIGNATURES = {
             _p, _p, _p, _i64,          # seg_ptr, seg_row, seg_slot, n_seg
             _p, _p, _i64,              # split_row, split_ptr, n_split
             _p, _i64,                  # empty_row, n_empty
-            _p, _p, _p, _p, _p,        # col, w, x, out, partial
-            _i64, _i, _p,              # F, accumulate, stream
+            _p, _p, _p, _p, _p, _p,    # col, w, alpha, x, out, partial
+            _i64, _i64, _i, _p,        # F, feat, accumulate, stream
         ],
     },
     "gat_attn": {

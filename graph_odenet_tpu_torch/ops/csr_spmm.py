@@ -15,7 +15,10 @@ The GAT backward without the score hint reduces ``dWh`` with it.
 block of the edge-partitioned graph whose gathered table ``x`` has its own
 row count, or, positional, is the block's ``[E, F]`` message array itself.
 With ``accumulate=False`` it writes ``out = A x`` instead, reading nothing
-of ``out``: the first bucket of a receiver block.
+of ``out``: the first bucket of a receiver block.  With ``alpha=[L, H]`` and
+``feat=`` it is the weighted bucket mode (B2-w, ``_segment_reduce`` with
+``alpha3d``): lane ``f`` of edge ``p`` is scaled by ``alpha[p, f // feat]``,
+the per-head softmax numerators of the edge-partitioned GAT.
 
 On a CUDA tensor the reduction is the hand-written kernel in
 ``csrc/csr_spmm.cu``; on a CPU tensor it is the plain version
@@ -49,10 +52,11 @@ __all__ = [
 SEG_EDGES = 256
 
 #: Number of kernel launches made by ``csr_reduce`` in this process,
-#: unweighted and weighted, and by ``bucket_reduce``.
+#: unweighted and weighted, and by ``bucket_reduce``, unweighted and weighted.
 launches = 0
 weighted_launches = 0
 bucket_launches = 0
+bucket_weighted_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -310,6 +314,22 @@ def _launch(part: Partition, col, weight, x, n_rows, alpha=None, feat=1):
     return out
 
 
+def _check_alpha(who, alpha, feat, n_edge, f, device):
+    """The weighted mode's checks: f32 contiguous ``alpha [n_edge, f / feat]``
+    on ``device``, ``feat`` dividing ``f``."""
+    if alpha.dtype != torch.float32:
+        raise TypeError(f"{who} takes float32 alpha, got {alpha.dtype}")
+    if feat is None or feat < 1 or f % feat or alpha.shape != (n_edge, f // feat):
+        raise ValueError(
+            f"weighted {who} takes alpha [{n_edge}, F/feat] and feat dividing "
+            f"F={f}, got alpha {tuple(alpha.shape)}, feat={feat}"
+        )
+    if not alpha.is_contiguous():
+        raise ValueError(f"{who} takes contiguous alpha")
+    if alpha.device != device:
+        raise ValueError(f"alpha is on {alpha.device} but the adjacency is on {device}")
+
+
 def csr_reduce(
     csr: CSRGraph, x: torch.Tensor, *, transpose: bool = False,
     alpha: torch.Tensor | None = None, feat: int | None = None,
@@ -332,18 +352,7 @@ def csr_reduce(
     if x.device != csr.device:
         raise ValueError(f"x is on {x.device} but the adjacency is on {csr.device}")
     if alpha is not None:
-        if alpha.dtype != torch.float32:
-            raise TypeError(f"csr_spmm takes float32 alpha, got {alpha.dtype}")
-        if (feat is None or feat < 1 or x.shape[1] % feat
-                or alpha.shape != (csr.n_edge, x.shape[1] // feat)):
-            raise ValueError(
-                f"weighted csr_spmm takes alpha [{csr.n_edge}, F/feat] and feat dividing "
-                f"F={x.shape[1]}, got alpha {tuple(alpha.shape)}, feat={feat}"
-            )
-        if not alpha.is_contiguous():
-            raise ValueError("csr_spmm takes contiguous alpha")
-        if alpha.device != csr.device:
-            raise ValueError(f"alpha is on {alpha.device} but the adjacency is on {csr.device}")
+        _check_alpha("csr_spmm", alpha, feat, csr.n_edge, x.shape[1], csr.device)
     row_ptr, col, weight, part = csr.view(transpose)
     if x.device.type == "cpu":
         return _reduce_plain(row_ptr, col, weight, x, alpha, feat)
@@ -352,14 +361,19 @@ def csr_reduce(
     return _launch(part, col, weight, x, csr.n_node_pad, alpha, feat or 1)
 
 
-def _bucket_reduce_plain(view: CSRView, x, out, positional=False, accumulate=True):
+def _bucket_reduce_plain(view: CSRView, x, out, positional=False, accumulate=True,
+                         alpha=None, feat=None):
     """Plain PyTorch version of the bucket mode: gather, ``index_add_`` into
-    ``out`` (zeroed first when not ``accumulate``)."""
+    ``out`` (zeroed first when not ``accumulate``).  With ``alpha [L, H]``
+    lane ``f`` of edge ``p`` is scaled by ``alpha[p, f // feat]`` instead of
+    the edge weight."""
     if not accumulate:
         out.zero_()
     rows = row_ids(view.row_ptr, view.n_edge)
     if positional:
         msgs = x[: view.n_edge]
+    elif alpha is not None:
+        msgs = x.index_select(0, view.col) * alpha.to(x.dtype).repeat_interleave(feat, dim=1)
     else:
         msgs = x.index_select(0, view.col) * view.weight.to(x.dtype)[:, None]
     return out.index_add_(0, rows, msgs)
@@ -367,7 +381,7 @@ def _bucket_reduce_plain(view: CSRView, x, out, positional=False, accumulate=Tru
 
 def bucket_reduce(
     view: CSRView, x: torch.Tensor, out: torch.Tensor, *, positional: bool = False,
-    accumulate: bool = True,
+    accumulate: bool = True, alpha: torch.Tensor | None = None, feat: int | None = None,
 ) -> torch.Tensor:
     """The bucket mode's wrapper: ``out += A x`` over ``view``, in place; or,
     with ``accumulate=False``, ``out = A x`` (every row written, none read).
@@ -376,10 +390,14 @@ def bucket_reduce(
     ``positional``, the block's message array ``[E >= view.n_edge, F]`` in
     the view's edge order (column = position, weight 1; rows past
     ``view.n_edge`` are padding and never read).  ``out`` is f32 contiguous
-    ``[view.n_rows, F]`` on the same device.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel.  Returns ``out``.
+    ``[view.n_rows, F]`` on the same device.  With ``alpha`` (f32,
+    contiguous ``[view.n_edge, H]`` in the view's edge order) and ``feat``
+    (``F = H * feat``), the weighted mode: ``out[r, h·feat + f] (+)= Σ_p
+    alpha[p, h] · x[col[p], h·feat + f]``; it has no positional form.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel.
+    Returns ``out``.
     """
-    global bucket_launches
+    global bucket_launches, bucket_weighted_launches
     for name, t in (("x", x), ("out", out)):
         if t.dtype != torch.float32:
             raise TypeError(f"bucket_reduce takes float32 {name}, got {t.dtype}")
@@ -396,25 +414,39 @@ def bucket_reduce(
             f"bucket_reduce takes x {want} and out [{view.n_rows}, F>=1], "
             f"got {tuple(x.shape)} and {tuple(out.shape)}"
         )
+    if alpha is not None:
+        if positional:
+            raise ValueError("the weighted bucket mode has no positional form")
+        _check_alpha("bucket_reduce", alpha, feat, view.n_edge, f, view.device)
+    elif feat is not None:
+        raise ValueError("bucket_reduce takes feat only with alpha")
     if x.device.type == "cpu":
-        return _bucket_reduce_plain(view, x, out, positional, accumulate)
+        return _bucket_reduce_plain(view, x, out, positional, accumulate, alpha, feat)
     if x.device.type != "cuda":
         raise ValueError(f"bucket_reduce runs on CPU or CUDA tensors, not {x.device}")
     part = view.part
     if accumulate and part.seg_row.shape[0] == 0:
         return out  # no edge: nothing to add, nothing launched
     partial = torch.empty((part.n_slots, f), dtype=torch.float32, device=x.device)
+    # An edgeless view has null pointers to its empty arrays: the write form
+    # then only zeroes the rows, whatever the mode.
+    by_alpha = alpha is not None and view.n_edge > 0
     rc = _build.load_library("csr_spmm").gode_csr_bucket_f32(
         _ptr(part.seg_ptr), _ptr(part.seg_row), _ptr(part.seg_slot), part.seg_row.shape[0],
         _ptr(part.split_row), _ptr(part.split_ptr), part.split_row.shape[0],
         _ptr(part.empty_row), part.empty_row.shape[0],
-        None if positional else _ptr(view.col), None if positional else _ptr(view.weight),
-        _ptr(x), _ptr(out), _ptr(partial) if part.n_slots else None, f, int(accumulate),
-        _stream(x.device),
+        None if positional else _ptr(view.col),
+        None if positional or by_alpha else _ptr(view.weight),
+        _ptr(alpha) if by_alpha else None,
+        _ptr(x), _ptr(out), _ptr(partial) if part.n_slots else None, f, feat or 1,
+        int(accumulate), _stream(x.device),
     )
     if rc != 0:
         raise RuntimeError(f"csr_spmm bucket kernel launch failed: CUDA error {rc}")
-    bucket_launches += 1
+    if alpha is None:
+        bucket_launches += 1
+    else:
+        bucket_weighted_launches += 1
     return out
 
 

@@ -7,12 +7,15 @@ owning a receiver block of the graph's nodes.
   partition.py   receiver-block edge partitioning, sender-block buckets with
                  CSR and CSC views for the CSR kernel's bucket mode (B2)
   halo.py        sharded SpMM: all-gather halo exchange, and the ring that
-                 overlaps each hop with the bucket reduction
+                 overlaps each hop with the bucket reduction; the ring's
+                 differentiable pieces for the sharded GAT
   sharded_gcn.py the edge-parallel GCN-ODE (config 4's model)
-  trainer.py     its trainer
+  sharded_gat.py edge-partitioned attention (``gat_sharded``: the ring of
+                 attention-weighted bucket reductions, B2-w, or the ring of
+                 online-softmax updates) and the edge-parallel GAT-ODE
+  trainer.py     the trainer of both models
 
-Not ported yet: the sharded GAT (ROADMAP A19) and feature-axis tensor
-parallelism on a 2-D mesh (A20).
+Not ported yet: feature-axis tensor parallelism on a 2-D mesh (ROADMAP A20).
 """
 
 from graph_odenet_tpu_torch.parallel.halo import spmm_sharded  # noqa: F401
@@ -23,6 +26,7 @@ from graph_odenet_tpu_torch.parallel.partition import (  # noqa: F401
     padded_buckets,
     partition_by_receiver,
 )
+from graph_odenet_tpu_torch.parallel.sharded_gat import gat_sharded  # noqa: F401
 from graph_odenet_tpu_torch.parallel.trainer import (  # noqa: F401
     ShardedTrainConfig,
     fit_sharded_node_classifier,

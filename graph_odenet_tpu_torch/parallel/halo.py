@@ -22,6 +22,13 @@ on a CPU tensor.
 The first bucket reduced into an output writes it (``accumulate=False``);
 the others add into it, so no output is zero-filled and then read.  With
 one part (no process group) every mode is one bucket reduction.
+
+For the sharded GAT (``parallel.sharded_gat``), whose per-edge weights are
+traced, the ring is built from differentiable pieces instead of one
+Function: ``_bucket_spmm_weighted`` (one hop's attention-weighted bucket
+reduction, B2-w, with a hand-written backward), ``ring_hop`` (the exchange
+of one hop; its backward is the reverse exchange) and ``all_gather_rows``
+(its backward a reduce-scatter).
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from graph_odenet_tpu_torch.ops.csr_spmm import bucket_reduce, row_ids
 from graph_odenet_tpu_torch.parallel.mesh import check_backend, world
 from graph_odenet_tpu_torch.parallel.partition import Bucket, PartitionedGraph
 
-__all__ = ["spmm_sharded", "bucket_reduce_pallas", "MODES"]
+__all__ = ["spmm_sharded", "bucket_reduce_pallas", "ring_hop", "all_gather_rows", "MODES"]
 
 MODES = ("allgather", "ring", "ring_pallas")
 
@@ -86,12 +93,116 @@ def _bucket_spmm(chunk: torch.Tensor, bucket: Bucket) -> torch.Tensor:
     return _BucketSpMM.apply(chunk, bucket)
 
 
-def _exchange(send: torch.Tensor, recv: torch.Tensor, me: int, n_parts: int):
-    """Post the ring hop: ``send`` to rank me − 1, ``recv`` from rank me + 1."""
+class _BucketSpMMWeighted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, chunk, pv_h, acc, bucket, rows, feat):
+        ctx.bucket, ctx.rows, ctx.feat, ctx.added = bucket, rows, feat, acc is not None
+        ctx.save_for_backward(chunk, pv_h)  # pv_h at [L, H], never the H·F-lane broadcast
+        if acc is None:
+            out = chunk.new_empty((bucket.fwd.n_rows, chunk.shape[1]))
+            return bucket_reduce(bucket.fwd, chunk, out, accumulate=False, alpha=pv_h, feat=feat)
+        ctx.mark_dirty(acc)
+        return bucket_reduce(bucket.fwd, chunk, acc, alpha=pv_h, feat=feat)
+
+    @staticmethod
+    def backward(ctx, g):
+        chunk, pv_h = ctx.saved_tensors
+        bucket, feat = ctx.bucket, ctx.feat
+        g = g.contiguous()
+        dchunk = dpv = None
+        if ctx.needs_input_grad[0]:
+            # dchunk[s] = Σ_{e: s_e = s} pv[e] · g[r_e]: the numerators carried
+            # into CSC order, the same kernel over the sender-sorted view.
+            dchunk = g.new_empty((bucket.bwd.n_rows, g.shape[1]))
+            bucket_reduce(bucket.bwd, g, dchunk, accumulate=False,
+                          alpha=pv_h.index_select(0, bucket.t_perm), feat=feat)
+        if ctx.needs_input_grad[1]:
+            # dpv[e, h] = Σ_f chunk[s_e, hF+f] · g[r_e, hF+f]: gathers only.
+            prod = chunk.index_select(0, bucket.fwd.col) * g.index_select(0, ctx.rows)
+            dpv = prod.view(prod.shape[0], pv_h.shape[1], feat).sum(-1)
+        return dchunk, dpv, g if ctx.added else None, None, None, None
+
+
+def _bucket_spmm_weighted(
+    chunk: torch.Tensor, pv_h: torch.Tensor, bucket: Bucket, feat: int, *,
+    rows: torch.Tensor | None = None, acc: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Attention-weighted bucket reduction (B2-w): ``out[r, h·F+f] = Σ_{e: r_e
+    = r} pv_h[e, h] · chunk[s_e, h·F+f]``, differentiable in ``chunk [B,
+    H·F]`` (the ring's value chunk) and in ``pv_h [L, H]`` (the bucket's
+    softmax numerators, in its CSR edge order, real edges only).
+
+    With ``acc`` the result is added into it in place and ``acc`` is
+    returned (a later hop of the ring); without, a new ``[B, H·F]`` is
+    written.  ``rows`` is the receiver of each edge (int64 ``[L]``; worked
+    out from the view when not given).  The backward reduces ``dchunk``
+    through the bucket's CSC view with the same kernel.
+    """
+    if rows is None:
+        rows = row_ids(bucket.fwd.row_ptr, bucket.fwd.n_edge)
+    return _BucketSpMMWeighted.apply(chunk.contiguous(), pv_h.contiguous(), acc, bucket, rows, feat)
+
+
+def _exchange(send: torch.Tensor, recv: torch.Tensor, me: int, n_parts: int, step: int = -1):
+    """Post the ring hop: ``send`` to rank me − 1, ``recv`` from rank me + 1
+    (``step=1``: the reverse hop)."""
     return dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, (me - 1) % n_parts),
-        dist.P2POp(dist.irecv, recv, (me + 1) % n_parts),
+        dist.P2POp(dist.isend, send, (me + step) % n_parts),
+        dist.P2POp(dist.irecv, recv, (me - step) % n_parts),
     ])
+
+
+class _RingHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, me, n_parts, pending):
+        ctx.me, ctx.n_parts = me, n_parts
+        nxt = torch.empty_like(t)
+        pending.extend(_exchange(t, nxt, me, n_parts))
+        return nxt
+
+    @staticmethod
+    def backward(ctx, g):
+        back = torch.empty_like(g)
+        for req in _exchange(g.contiguous(), back, ctx.me, ctx.n_parts, step=1):
+            req.wait()
+        return back, None, None, None
+
+
+def ring_hop(t: torch.Tensor, pending: list) -> torch.Tensor:
+    """One differentiable hop of the ring: sends ``t`` to rank me − 1 and
+    returns what rank me + 1 sent.  The exchange is only posted: its
+    requests are appended to ``pending``, and the caller waits for them
+    before it reads the result, so the hop overlaps what runs in between.
+    The backward sends the gradient to rank me + 1 and receives from rank
+    me − 1 (what ``ppermute`` transposes to).  Every rank calls it in the
+    same order."""
+    n_parts, me = world()
+    return _RingHop.apply(t.contiguous(), me, n_parts, pending)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, n_parts):
+        full = t.new_empty((n_parts * t.shape[0], *t.shape[1:]))
+        dist.all_gather_into_tensor(full, t)
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[0] // dist.get_world_size()
+        dt = g.new_empty((n, *g.shape[1:]))
+        dist.reduce_scatter_tensor(dt, g.contiguous(), op=dist.ReduceOp.SUM)
+        return dt, None
+
+
+def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of ``t [B, ...]`` in rank order, ``[P·B, ...]``,
+    differentiable: the backward reduce-scatters the gathered gradient.
+    With one part it is ``t`` itself and posts nothing."""
+    n_parts, _ = world()
+    if n_parts == 1:
+        return t
+    return _AllGatherRows.apply(t.contiguous(), n_parts)
 
 
 class _RingSpMM(torch.autograd.Function):

@@ -11,6 +11,10 @@ kernel's bucket mode, built from the bucket's real edges only:
   fwd  rows = local receivers, gathered column = local sender
   bwd  rows = local senders,   gathered column = local receiver (the CSC view)
 
+and the permutation between their edge orders (``t_perm``), and each receiver
+block its edges' global sender and local receiver ids (``BlockEdges``), for
+the sharded GAT's per-edge softmax and dropout hash.
+
 It leaves out the JAX package's padded ``[P, P, E_b]`` arrays, which only
 the TPU kernel reads, and their tile layout (``tile_rel``,
 ``tile_blk_ptr``, ``t_tile_*``).  ``padded_buckets`` rebuilds the padded
@@ -28,7 +32,7 @@ import torch
 from graph_odenet_tpu_torch.graph import Graph
 from graph_odenet_tpu_torch.ops.csr_spmm import CSRView, csr_view
 
-__all__ = ["Bucket", "PartitionedGraph", "PaddedBuckets", "partition_by_receiver", "padded_buckets"]
+__all__ = ["Bucket", "BlockEdges", "PartitionedGraph", "PaddedBuckets", "partition_by_receiver", "padded_buckets"]
 
 
 def _round_up(x, m):
@@ -37,25 +41,52 @@ def _round_up(x, m):
 
 @dataclasses.dataclass(frozen=True)
 class Bucket:
-    """The CSR and CSC views of bucket ``[p, b]``, both ``B × B``."""
+    """The CSR and CSC views of bucket ``[p, b]``, both ``B × B``, and
+    ``t_perm`` (int64 ``[L]``): the CSR position of each CSC position, which
+    carries per-edge data such as attention numerators into CSC order."""
 
     fwd: CSRView
     bwd: CSRView
+    t_perm: torch.Tensor
 
     def to(self, device) -> "Bucket":
-        return Bucket(self.fwd.to(device), self.bwd.to(device))
+        return Bucket(self.fwd.to(device), self.bwd.to(device), self.t_perm.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockEdges:
+    """Every edge of receiver block ``p``, its buckets ``[p, 0] … [p, P-1]``
+    one after the other, each in its CSR order: what a per-edge pass over the
+    block's edges (the sharded GAT's softmax, its dropout hash) indexes with.
+
+      senders    int64[E_p]  global sender id
+      receivers  int64[E_p]  receiver − p·B
+      offsets    P + 1 ints  bucket ``b`` is ``[offsets[b], offsets[b + 1])``
+    """
+
+    senders: torch.Tensor
+    receivers: torch.Tensor
+    offsets: tuple
+
+    def to(self, device) -> "BlockEdges":
+        return BlockEdges(self.senders.to(device), self.receivers.to(device), self.offsets)
+
+    def bucket(self, b: int) -> slice:
+        return slice(self.offsets[b], self.offsets[b + 1])
 
 
 @dataclasses.dataclass(frozen=True)
 class PartitionedGraph:
     """Edges grouped by (receiver block, sender block).
 
-    ``bucket_edges [P, P]`` (host) counts each bucket's real edges, and
-    ``buckets[p][b]`` holds its views, which ``to`` moves to a device.
+    ``bucket_edges [P, P]`` (host) counts each bucket's real edges,
+    ``buckets[p][b]`` holds its views and ``blocks[p]`` the per-edge ids of
+    receiver block ``p``; ``to`` moves both to a device.
     """
 
     bucket_edges: torch.Tensor
     buckets: tuple
+    blocks: tuple
     block_size: int
     n_parts: int
     n_node_pad: int
@@ -66,7 +97,8 @@ class PartitionedGraph:
 
     def to(self, device) -> "PartitionedGraph":
         return dataclasses.replace(
-            self, buckets=tuple(tuple(bk.to(device) for bk in row) for row in self.buckets)
+            self, buckets=tuple(tuple(bk.to(device) for bk in row) for row in self.buckets),
+            blocks=tuple(blk.to(device) for blk in self.blocks),
         )
 
 
@@ -88,7 +120,9 @@ def partition_by_receiver(g: Graph, n_parts: int) -> PartitionedGraph:
 
     bucket_edges = np.zeros((n_parts, n_parts), dtype=np.int64)
     views = [[None] * n_parts for _ in range(n_parts)]
+    blocks = []
     for p in range(n_parts):
+        senders, receivers = [], []
         for b in range(n_parts):
             sel = (rb == p) & (sb == b)
             rp = r[sel] - p * B
@@ -99,10 +133,18 @@ def partition_by_receiver(g: Graph, n_parts: int) -> PartitionedGraph:
             views[p][b] = Bucket(
                 fwd=csr_view(rp, sp, wp, B, B),
                 bwd=csr_view(sp[t_order], rp[t_order], wp[t_order], B, B),
+                t_perm=torch.from_numpy(t_order.astype(np.int64)),
             )
+            senders.append(sp.astype(np.int64) + b * B)
+            receivers.append(rp.astype(np.int64))
+        blocks.append(BlockEdges(
+            senders=torch.from_numpy(np.concatenate(senders)),
+            receivers=torch.from_numpy(np.concatenate(receivers)),
+            offsets=tuple(int(v) for v in np.r_[0, np.cumsum(bucket_edges[p])]),
+        ))
     return PartitionedGraph(
         bucket_edges=torch.from_numpy(bucket_edges),
-        buckets=tuple(tuple(row) for row in views),
+        buckets=tuple(tuple(row) for row in views), blocks=tuple(blocks),
         block_size=B, n_parts=n_parts, n_node_pad=g.n_node_pad, n_edge=g.n_edge,
     )
 
@@ -166,7 +208,7 @@ def padded_buckets(pg: PartitionedGraph, *, edge_multiple: int = 1024) -> Padded
                             ("t_receivers_rel", bwd.col.cpu().numpy()),
                             ("t_weight", bwd.weight.cpu().numpy())):
                 arrays[name][p, b, :L] = v
-            t_perm[p, b, :L] = np.argsort(cols, kind="stable")
+            t_perm[p, b, :L] = pg.bucket(p, b).t_perm.cpu().numpy()
     return PaddedBuckets(
         **{k: torch.from_numpy(v) for k, v in arrays.items()},
         t_perm=torch.from_numpy(t_perm), block_size=pg.block_size,

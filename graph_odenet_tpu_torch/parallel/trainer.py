@@ -3,7 +3,8 @@
 Counterpart of ``graph_odenet_tpu/parallel/trainer.py``: Adam with weight
 decay as L2 in the gradient, full-batch NLL on the training nodes, early
 stopping on validation loss, test accuracy at the best epoch, over the
-edge-partitioned GCN-ODE (``parallel.sharded_gcn``).  Every rank runs this
+edge-partitioned GCN-ODE (``parallel.sharded_gcn``) or GAT-ODE
+(``parallel.sharded_gat``).  Every rank runs this
 function (SPMD): it partitions the graph on the host, keeps its node
 block's rows on its device, and holds a replica of the parameters.  Per
 step it all-reduces the parameter gradients once (SUM, before Adam) and
@@ -21,7 +22,7 @@ from typing import Optional
 import torch
 
 from graph_odenet_tpu_torch.data.planetoid import NodeClassificationData
-from graph_odenet_tpu_torch.parallel import sharded_gcn
+from graph_odenet_tpu_torch.parallel import sharded_gat, sharded_gcn
 from graph_odenet_tpu_torch.parallel.mesh import device_for, world
 from graph_odenet_tpu_torch.parallel.partition import partition_by_receiver
 
@@ -30,19 +31,24 @@ __all__ = ["ShardedTrainConfig", "fit_sharded_node_classifier"]
 
 @dataclasses.dataclass
 class ShardedTrainConfig:
-    model: str = "gcnode"        # gcnode (gatode, with heads and remat: ROADMAP A19)
-    hidden: int = 256
+    model: str = "gcnode"        # gcnode | gatode
+    hidden: int = 256            # gatode: per-head width (heads * hidden in all)
+    heads: int = 4               # gatode only
     steps: int = 4               # rk4 substeps
     t1: float = 1.0
-    mode: str = "ring"           # ring | ring_pallas | allgather
+    mode: str = "ring"           # ring | ring_pallas | allgather (gcnode only)
     lr: float = 0.01
     weight_decay: float = 5e-4
-    dropout: float = 0.0         # feature dropout; evaluation never drops
+    # Feature (and, gatode, attention) dropout; evaluation never drops.
+    dropout: float = 0.0
     epochs: int = 30
     patience: int = 100
     # None: evaluate every epoch below 200,000 edges, every 5 above.
     eval_every: Optional[int] = None
     seed: int = 0
+    # gatode: recompute each dynamics evaluation in the backward instead of
+    # keeping its per-edge activations.
+    remat: bool = False
     n_parts: Optional[int] = None  # default: the process group's size
     ckpt_dir: Optional[str] = None  # ROADMAP A17
 
@@ -66,12 +72,13 @@ def fit_sharded_node_classifier(
     without a card the default raises.  ``cfg.n_parts`` must equal the
     process group's size (1 without a process group).  ``init_state``
     replaces the seeded initialisation, e.g. with the JAX package's
-    (``convert.params_from_sharded``).
+    (``convert.params_from_sharded`` or ``params_from_sharded_gat``).
     """
-    if cfg.model == "gatode":
-        raise NotImplementedError("the sharded GAT-ODE is not ported yet (ROADMAP A19)")
-    if cfg.model != "gcnode":
+    if cfg.model not in ("gcnode", "gatode"):
         raise ValueError(f"unknown sharded model {cfg.model!r}")
+    gat = cfg.model == "gatode"
+    if gat and cfg.mode not in sharded_gat.MODES:
+        raise ValueError(f"unknown mode {cfg.mode!r} for gatode; one of {sharded_gat.MODES}")
     if cfg.ckpt_dir:
         raise NotImplementedError("sharded checkpoints are not ported yet (ROADMAP A17)")
     n_world, rank = world()
@@ -95,15 +102,26 @@ def fit_sharded_node_classifier(
     counts = sharded_gcn.all_reduce_sum(torch.stack([w_tr.sum(), w_va.sum(), w_te.sum()]))
     n_tr, n_va, n_te = torch.clamp(counts, min=1.0)
 
-    model = sharded_gcn.init_params(
-        x.shape[1], cfg.hidden, c, generator=torch.Generator().manual_seed(cfg.seed)
-    )
+    init_gen = torch.Generator().manual_seed(cfg.seed)
+    if gat:
+        model = sharded_gat.init_gatode_params(x.shape[1], cfg.hidden, cfg.heads, c,
+                                               generator=init_gen)
+    else:
+        model = sharded_gcn.init_params(x.shape[1], cfg.hidden, c, generator=init_gen)
     if init_state is not None:
         model.load_state_dict(init_state)
     model.to(dev)
     opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, weight_decay=cfg.weight_decay)
     drop_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    seed_gen = torch.Generator().manual_seed(cfg.seed + 1)  # attention-dropout seeds (CPU)
     common = dict(steps=cfg.steps, t1=cfg.t1, mode=cfg.mode)
+
+    def forward(train: bool):
+        kw = dict(common, dropout=cfg.dropout, generator=drop_gen) if train else common
+        if gat:
+            return sharded_gat.gatode_forward(model, pg, x, seed_generator=seed_gen,
+                                              remat=cfg.remat, **kw)
+        return sharded_gcn.forward(model, pg, x, **kw)
 
     def nll_sum(lp, w):
         return -(lp * y1h).sum(-1).mul(w).sum()
@@ -111,8 +129,7 @@ def fit_sharded_node_classifier(
     def train_step():
         model.train()
         opt.zero_grad(set_to_none=True)
-        loss = sharded_gcn.loss_fn(model, pg, x, y1h, w_tr, total_weight=n_tr,
-                                   dropout=cfg.dropout, generator=drop_gen, **common)
+        loss = nll_sum(forward(True), w_tr) / n_tr  # the rank's share of the global loss
         loss.backward()
         sharded_gcn.all_reduce_grads(model)
         opt.step()
@@ -121,7 +138,7 @@ def fit_sharded_node_classifier(
     @torch.no_grad()
     def evaluate():
         model.eval()
-        lp = sharded_gcn.forward(model, pg, x, **common)
+        lp = forward(False)
         hit = (lp.argmax(-1) == labels).to(torch.float32)
         sums = sharded_gcn.all_reduce_sum(torch.stack([
             nll_sum(lp, w_va), (hit * w_va).sum(), (hit * w_te).sum(),

@@ -1,5 +1,6 @@
-"""The CUDA kernels (CSR SpMM, weighted SpMM, GAT forward, α/dlogit backward,
-recompute-α dWh) against their plain PyTorch versions, on the card.
+"""The CUDA kernels (CSR SpMM, weighted SpMM, the bucket mode and its weighted
+form, GAT forward, α/dlogit backward, recompute-α dWh) against their plain
+PyTorch versions, on the card.
 
 Every test here needs a CUDA card and skips without one.  On the card
 (which has no JAX, so the repo's conftest cannot load):
@@ -305,6 +306,179 @@ def test_bucket_functions_and_one_part_spmm_sharded(cuda):
             torch.testing.assert_close(got, want, **TOL, msg=name)
 
 
+def test_config4_step_is_a_function_of_its_inputs(cuda):
+    """One training step of config 4 on the arxiv twin (dropout 0), as
+    ``chip_smoke.py`` checks it.  Through the kernel the gradients are
+    bit-equal from run to run.  Through the plain version they are not:
+    ``index_add_`` adds with atomics in the order the card schedules them,
+    and where an encoder pre-activation cancels to a rounding residue
+    (``b_in`` starts at 0) its sign, and with it the ReLU's slope, changes
+    with the order.  With the sums in a fixed order the plain step repeats
+    too and agrees with the kernel at rtol 1e-4 (atol relative to each
+    gradient's largest entry).  ``-s`` prints how many of 24 atomic-order
+    runs flip a ReLU against the kernel's, and where."""
+    from graph_odenet_tpu_torch.configs import get_config
+    from graph_odenet_tpu_torch.data import synthetic_ogbn_arxiv
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver, sharded_gcn, spmm_sharded
+
+    data = synthetic_ogbn_arxiv(seed=0)
+    _, cfg = get_config(4)
+    pg = partition_by_receiver(data.graph, 1).to(cuda)
+    csr = prepare(data.graph).to(cuda)
+    model = sharded_gcn.init_params(data.features.shape[1], cfg.hidden, data.n_class,
+                                    generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = data.features.to(cuda)
+    y1h = torch.nn.functional.one_hot(data.labels.to(cuda).clamp(min=0), data.n_class).float()
+    w = torch.zeros(data.graph.n_node_pad, device=cuda)
+    w[data.idx_train.to(cuda)] = 1.0
+
+    def step(agg):
+        """(encoder pre-activation, parameter gradients) of one step."""
+        seen = []
+
+        def recording(h):
+            seen.append(agg(h))
+            return seen[-1]
+
+        model.zero_grad(set_to_none=True)
+        lp = sharded_gcn.forward_with(model, recording, x, steps=cfg.steps, t1=cfg.t1)
+        (-(lp * y1h).sum(-1).mul(w).sum() / w.sum()).backward()
+        z = (seen[0] + model.b_in).detach()
+        return z, {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    def kernel(h):
+        return spmm_sharded(pg, h, mode=cfg.mode)
+
+    def plain(h):
+        return spmm_csr_reference(csr, h)
+
+    def plain_fixed_order(h):
+        torch.use_deterministic_algorithms(True)
+        try:
+            return spmm_csr_reference(csr, h)
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    z_k, g_k = step(kernel)
+    for _ in range(3):
+        z, g = step(kernel)
+        assert torch.equal(z, z_k) and all(torch.equal(g[k], g_k[k]) for k in g_k)
+    z_f, g_f = step(plain_fixed_order)
+    for _ in range(3):
+        assert torch.equal(step(plain_fixed_order)[0], z_f)
+    assert torch.equal(z_f > 0, z_k > 0)
+    for k, want in g_f.items():
+        torch.testing.assert_close(g_k[k], want, rtol=1e-4, atol=1e-4 * float(want.abs().max()),
+                                   msg=lambda m, k=k: f"{k}\n{m}")
+
+    flipped, worst = [], 0.0
+    for _ in range(24):
+        z, g = step(plain)
+        flips = ((z > 0) != (z_k > 0)).nonzero().tolist()
+        if flips:
+            flipped.append([(r, c, float(z_k[r, c]), float(z[r, c])) for r, c in flips])
+            worst = max(worst, max(
+                float(((g_k[k] - g[k]).abs() / (1e-4 * g[k].abs().max() + 1e-4 * g[k].abs())).max())
+                for k in g))
+    print(f"\n{len(flipped)} of 24 plain steps in atomic order flip a ReLU against the kernel's; "
+          f"worst gradient error {worst} of the tolerance; (node, lane, z kernel, z plain): {flipped}")
+
+
+# ------------------------------------------ B2-w: the weighted bucket mode
+
+
+def _softmax_weights(view, heads, rng, device):
+    """Positive ``[L, H]`` numerators that add up to 1 in each row, as a
+    softmax's: the hub row's sum of 2,000 terms does not cancel."""
+    rows = csr_spmm.row_ids(view.row_ptr, view.n_edge).cpu().numpy()
+    u = rng.random((view.n_edge, heads)) + 0.5
+    total = np.zeros((view.n_rows, heads))
+    np.add.at(total, rows, u)
+    return torch.from_numpy((u / total[rows]).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("accumulate", [True, False])
+@pytest.mark.parametrize("heads,feat", [(4, 64), (1, 256), (1, 40), (2, 3), (8, 8), (3, 5)])
+def test_bucket_weighted_kernel_matches_plain(cuda, heads, feat, accumulate):
+    """``out (+)= A(alpha) x`` on a block with a split hub row and empty rows,
+    into a nonzero ``out`` or into NaNs, against the plain version in
+    float64 on the same inputs."""
+    view = _bucket_view(np.random.default_rng(heads * feat)).to(cuda)
+    assert view.part.n_slots > 1
+    rng = np.random.default_rng(200 + heads * feat)
+    f = heads * feat
+    x = torch.from_numpy(rng.standard_normal((view.n_cols, f)).astype(np.float32)).to(cuda)
+    alpha = _softmax_weights(view, heads, rng, cuda)
+    out0 = torch.from_numpy(rng.standard_normal((view.n_rows, f)).astype(np.float32)).to(cuda)
+    if not accumulate:
+        out0.fill_(float("nan"))
+    before = csr_spmm.bucket_weighted_launches, csr_spmm.bucket_launches
+    got = csr_spmm.bucket_reduce(view, x, out0.clone(), accumulate=accumulate, alpha=alpha,
+                                 feat=feat)
+    torch.cuda.synchronize()
+    assert (csr_spmm.bucket_weighted_launches, csr_spmm.bucket_launches) == (
+        before[0] + 1, before[1])
+    want = csr_spmm._bucket_reduce_plain(view, x.double(), out0.double(), False, accumulate,
+                                         alpha.double(), feat)
+    torch.testing.assert_close(got, want.float(), **TOL)
+    empty = out0 if accumulate else torch.zeros_like(out0)
+    assert torch.equal(got[1:5], empty[1:5]) and torch.equal(got[200:], empty[200:])
+
+
+def test_bucket_weighted_kernel_empty_bucket_and_bad_input(cuda):
+    from graph_odenet_tpu_torch.ops.csr_spmm import csr_view
+
+    view = csr_view(np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0), 64, 64).to(cuda)
+    out0, x = torch.randn(64, 8, device=cuda), torch.randn(64, 8, device=cuda)
+    alpha = torch.zeros(0, 2, device=cuda)
+    before = csr_spmm.bucket_weighted_launches
+    got = csr_spmm.bucket_reduce(view, x, out0.clone(), alpha=alpha, feat=4)
+    assert torch.equal(got, out0) and csr_spmm.bucket_weighted_launches == before
+    got = csr_spmm.bucket_reduce(view, x, torch.full_like(out0, float("nan")), accumulate=False,
+                                 alpha=alpha, feat=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(out0))
+    assert csr_spmm.bucket_weighted_launches == before + 1
+    hub = _bucket_view(np.random.default_rng(0)).to(cuda)
+    xh, oh = torch.randn(hub.n_cols, 8, device=cuda), torch.randn(hub.n_rows, 8, device=cuda)
+    ah = torch.rand(hub.n_edge, 2, device=cuda)
+    for kw, err in ((dict(alpha=ah.double(), feat=4), TypeError),
+                    (dict(alpha=ah.cpu(), feat=4), ValueError),
+                    (dict(alpha=ah, feat=3), ValueError),
+                    (dict(alpha=ah, feat=4, positional=True), ValueError)):
+        with pytest.raises(err):
+            csr_spmm.bucket_reduce(hub, xh, oh, **kw)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_gat_sharded_kernel_path_matches_plain_path(cuda, rate):
+    """One-part ``gat_sharded`` in ``ring_pallas`` mode through the kernel
+    (two B2-w launches: forward, and ``dchunk`` in the backward) against the
+    same function on the CPU (the plain version) and against ``mode="ring"``
+    on the card (no kernel): values and the gradients of ``sum(sin(out))``."""
+    from graph_odenet_tpu_torch.parallel import gat_sharded, partition_by_receiver
+
+    g = _split_hub_graph(np.random.default_rng(5))
+    rng = np.random.default_rng(6)
+    n, heads, feat = g.n_node_pad, 4, 16
+    inputs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for s in ((n, heads), (n, heads), (n, heads, feat))]
+    kw = dict(attn_rate=rate, attn_seed=7) if rate else {}
+    results = {}
+    for name, dev, mode in (("kernel", cuda, "ring_pallas"), ("plain", torch.device("cpu"), "ring_pallas"),
+                            ("ring", cuda, "ring")):
+        pg = partition_by_receiver(g, 1).to(dev)
+        ts = [t.to(dev).requires_grad_(True) for t in inputs]
+        before = csr_spmm.bucket_weighted_launches
+        out = gat_sharded(pg, *ts, mode=mode, **kw)
+        grads = torch.autograd.grad(torch.sin(out).sum(), ts)
+        assert csr_spmm.bucket_weighted_launches - before == (2 if name == "kernel" else 0), name
+        results[name] = [out.detach().cpu()] + [t.cpu() for t in grads]
+    for other in ("plain", "ring"):
+        for got, want in zip(results["kernel"], results[other]):
+            torch.testing.assert_close(got, want, **TOL, msg=other)
+
+
 # ------------------------------------------- the ring over NCCL, across cards
 
 
@@ -333,6 +507,40 @@ def test_config4_across_cards_over_nccl(cuda, tmp_path):
     for r in ranks:
         assert max(r["err_over_tol"].values()) <= 1.0, r["err_over_tol"]
         assert r["n_parts"] == n_cards and r["launches"] >= 36 * cfg["epochs"]
+        for k in ("loss_first", "loss_final", "val_loss"):
+            np.testing.assert_allclose(r[k], one[k], rtol=1e-4, err_msg=k)
+        for k in ("val_acc", "test_acc"):
+            np.testing.assert_allclose(r[k], one[k], atol=2e-3, err_msg=k)
+
+
+def test_sharded_gat_across_cards_over_nccl(cuda, tmp_path):
+    """One rank per card (at most 8): ``gat_sharded`` in both modes with
+    attention dropout holds one part on one card (values at rtol = atol =
+    1e-5; gradients at rtol 1e-4 with atol 1e-4 of the largest entry, a hub
+    sender's gradient being a sum over some 1e5 edges), and the GAT-ODE
+    trainer over all ranks under ``remat`` tracks the same trainer on one
+    card: losses to rtol 1e-4, accuracies to 2e-3.  Skips with fewer than
+    two cards."""
+    from graph_odenet_tpu_torch.data import synthetic_ogbn_arxiv
+    from graph_odenet_tpu_torch.parallel import ShardedTrainConfig, fit_sharded_node_classifier
+
+    from torch_dist_worlds import run_world
+
+    n_cards = min(torch.cuda.device_count(), 8)
+    if n_cards < 2:
+        pytest.skip("needs two or more CUDA cards")
+    cfg = dict(model="gatode", hidden=64, heads=4, epochs=3, eval_every=1, dropout=0.6,
+               mode="ring_pallas", remat=True)
+    ranks = [r["gat_world"] for r in run_world(
+        n_cards, tmp_path, {"gat_world": dict(scale=1.0, heads=4, feat=64, cfg=cfg, device="cuda")},
+        backend="nccl", timeout=900)]
+    one = fit_sharded_node_classifier(
+        ShardedTrainConfig(**cfg), synthetic_ogbn_arxiv(seed=0, calibrated=True), device=cuda)
+    print({"cards": n_cards, "one_card": {k: v for k, v in one.items() if k != "params"},
+           "ranks": ranks})
+    for r in ranks:
+        assert max(r["err_over_tol"].values()) <= 1.0, r["err_over_tol"]
+        assert r["n_parts"] == n_cards and r["launches"] > 0
         for k in ("loss_first", "loss_final", "val_loss"):
             np.testing.assert_allclose(r[k], one[k], rtol=1e-4, err_msg=k)
         for k in ("val_acc", "test_acc"):

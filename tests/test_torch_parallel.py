@@ -321,9 +321,7 @@ def test_run_config_4_on_cpu():
     assert np.isfinite(res["loss_final"]) and res["step_ms"] > 0 and 0.0 <= res["test_acc"] <= 1.0
 
 
-@pytest.mark.parametrize("cfg,item", [
-    (dict(model="gatode"), "A19"), (dict(ckpt_dir="ckpt"), "A17"),
-])
+@pytest.mark.parametrize("cfg,item", [(dict(ckpt_dir="ckpt"), "A17")])
 def test_unported_trainer_options_name_their_roadmap_item(twins, cfg, item):
     from graph_odenet_tpu_torch.parallel import ShardedTrainConfig, fit_sharded_node_classifier
 

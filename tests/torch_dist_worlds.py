@@ -135,6 +135,60 @@ def sharded_gcn(rank, n_ranks, *, scale, params, steps, mode, drop_seed):
     return dict(lp=_np(lp), loss=float(loss), grads=grads, lp_drop=_np(lp_drop))
 
 
+def gat_modes(rank, n_ranks, *, scale, inputs, modes, rate, seed):
+    """Each mode's ``gat_sharded`` rows of this rank and the rows of the
+    gradients of ``sum(sin(out))`` (summed over every rank's rows) w.r.t.
+    ``s_src``, ``s_dst`` and ``wh``, with attention dropout ``rate``."""
+    from graph_odenet_tpu_torch.parallel import gat_sharded, partition_by_receiver
+    from graph_odenet_tpu_torch.parallel.sharded_gcn import shard_batch
+
+    pg = partition_by_receiver(_twin(scale).graph, n_ranks)
+    out = {}
+    for mode in modes:
+        ts = [t.clone().requires_grad_(True)
+              for t in shard_batch(n_ranks, rank, *(torch.from_numpy(a) for a in inputs))]
+        y = gat_sharded(pg, *ts, attn_rate=rate, attn_seed=seed, mode=mode)
+        torch.sin(y).sum().backward()
+        out[mode] = [_np(y)] + [_np(t.grad) for t in ts]
+    return out
+
+
+def sharded_gatode(rank, n_ranks, *, scale, params, hidden, heads, steps, modes, remat,
+                   drop_seed):
+    """Per mode: log-prob rows, all-reduced loss and parameter gradients of
+    this rank (dropout 0), and log-prob rows with dropout 0.4 from
+    ``drop_seed``."""
+    from graph_odenet_tpu_torch.convert import params_from_sharded_gat
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver, sharded_gat as sg
+    from graph_odenet_tpu_torch.parallel.sharded_gcn import (
+        all_reduce_grads, all_reduce_sum, shard_batch,
+    )
+
+    data = _twin(scale)
+    pg = partition_by_receiver(data.graph, n_ranks)
+    model = sg.init_gatode_params(data.features.shape[1], hidden, heads, data.n_class)
+    model.load_state_dict(params_from_sharded_gat(params))
+    y1h, w = _labels_weight(data)
+    total = w.sum()
+    x, y1h, w = shard_batch(n_ranks, rank, data.features, y1h, w)
+    out = {}
+    for mode in modes:
+        model.zero_grad(set_to_none=True)
+        lp = sg.gatode_forward(model, pg, x, steps=steps, mode=mode, remat=remat)
+        loss = -(lp * y1h).sum(-1).mul(w).sum() / total
+        loss.backward()
+        all_reduce_grads(model)
+        with torch.no_grad():
+            lp_drop = sg.gatode_forward(
+                model, pg, x, steps=steps, mode=mode, dropout=0.4,
+                generator=torch.Generator().manual_seed(drop_seed),
+                seed_generator=torch.Generator().manual_seed(drop_seed))
+        out[mode] = dict(lp=_np(lp), loss=float(all_reduce_sum(loss.detach())),
+                         grads={k: _np(p.grad) for k, p in model.named_parameters()},
+                         lp_drop=_np(lp_drop))
+    return out
+
+
 def _labels_weight(data):
     """One-hot labels (zeros on padding) and the training-node weight."""
     n_pad = data.graph.n_node_pad
@@ -197,6 +251,60 @@ def config4_world(rank, n_ranks, *, scale, f, cfg, device):
                 device=str(dev), **res)
 
 
+def gat_world(rank, n_ranks, *, scale, heads, feat, cfg, device):
+    """The calibrated arxiv twin over the world (on ``cuda:rank`` with
+    ``device="cuda"``): each ``gat_sharded`` mode's rows and the rows of the
+    gradients of ``sum(sin(out))``, with attention dropout 0.4, as error over
+    tolerance against one part on the same device (values rtol = atol =
+    1e-5; gradients rtol 1e-4, atol 1e-4 of the largest entry), then the
+    GAT-ODE trainer."""
+    from graph_odenet_tpu_torch.data import synthetic_ogbn_arxiv
+    from graph_odenet_tpu_torch.ops import csr_spmm
+    from graph_odenet_tpu_torch.ops.sddmm import attention_aggregate, edge_scores
+    from graph_odenet_tpu_torch.parallel import (
+        ShardedTrainConfig, fit_sharded_node_classifier, gat_sharded, partition_by_receiver,
+    )
+    from graph_odenet_tpu_torch.parallel.mesh import device_for
+    from graph_odenet_tpu_torch.parallel.sharded_gat import MODES
+
+    dev = device_for(device, rank)
+    data = synthetic_ogbn_arxiv(seed=0, scale=scale, calibrated=True)
+    g = data.graph
+    pg = partition_by_receiver(g, n_ranks).to(dev)
+    rng = np.random.default_rng(0)
+    inputs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+              for s in ((g.n_node_pad, heads), (g.n_node_pad, heads), (g.n_node_pad, heads, feat))]
+    rows = slice(rank * pg.block_size, (rank + 1) * pg.block_size)
+    kw = dict(attn_rate=0.4, attn_seed=99)
+
+    # One part on this device: the single-device segment path over the whole graph.
+    ss, sd, wh = (t.clone().requires_grad_(True) for t in inputs)
+    whole = data.to(dev).graph
+    want = attention_aggregate(whole, edge_scores(whole, ss, sd), wh, dropout_seed=99,
+                               dropout_rate=0.4)
+    want_grads = torch.autograd.grad(torch.sin(want).sum(), (ss, sd, wh))
+
+    def over_tol(a, b, rtol, atol):
+        a, b = a.detach(), b.detach()
+        return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+    errs = {}
+    for mode in MODES:
+        ts = [t[rows].clone().requires_grad_(True) for t in inputs]
+        y = gat_sharded(pg, *ts, mode=mode, **kw)
+        torch.sin(y).sum().backward()
+        errs[mode] = max(
+            [over_tol(y, want[rows], 1e-5, 1e-5)]
+            + [over_tol(t.grad, w[rows], 1e-4, 1e-4 * float(w.abs().max()))
+               for t, w in zip(ts, want_grads)])
+    del want, want_grads, whole
+    csr_spmm.bucket_weighted_launches = 0
+    res = fit_sharded_node_classifier(ShardedTrainConfig(**cfg), data, device=device)
+    res.pop("params")
+    return dict(err_over_tol=errs, launches=csr_spmm.bucket_weighted_launches, device=str(dev),
+                **res)
+
+
 def _wall_ms(fn, dev, iters=10):
     """Mean wall ms of ``fn()`` after one warm-up call, synchronised around the loop."""
     fn()
@@ -210,5 +318,6 @@ def _wall_ms(fn, dev, iters=10):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-TASKS = {"spmm_modes": spmm_modes, "sharded_gcn": sharded_gcn, "train": train,
-         "config4_world": config4_world}
+TASKS = {"spmm_modes": spmm_modes, "sharded_gcn": sharded_gcn, "train": train, "train_gat": train,
+         "config4_world": config4_world, "gat_modes": gat_modes, "sharded_gatode": sharded_gatode,
+         "gat_world": gat_world}
