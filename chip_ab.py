@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""The CSR kernel's rows (B1, B2, B2-w) of several package trees, in turns.
+
+    python3 chip_ab.py TREE ... [--out FILE]
+
+Each TREE is the root of a checkout whose ``graph_odenet_tpu_torch`` is built
+from its own sources and measured in a process of its own.  The trees run
+one after another in the order given, so that two versions alternate on one
+card (parent, change, change, parent).  A turn runs this checkout's
+``chip_smoke.py`` phases ``kernel`` (B1), ``bucket`` (B2) and
+``bucket_weighted`` (B2-w) with the tree's package, then, end to end,
+``pubmed-gcnode``'s s/epoch and config 4's ``step_ms`` on one card through
+``run_config``.  Each turn prints its phases' lines and one JSON line of its
+rows; ``--out`` also writes those to FILE.  Then one line per row compares
+the turns.  Needs one CUDA card.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def turn(tree):
+    """Every row, measured with the package of ``tree``."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from graph_odenet_tpu_torch.configs import get_config, run_config
+    from graph_odenet_tpu_torch.data import synthetic_ogbn_arxiv, synthetic_planetoid
+    from graph_odenet_tpu_torch.graph import from_edges
+    from graph_odenet_tpu_torch.ops import csr_spmm
+
+    if not csr_spmm.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {csr_spmm.__file__}, not the package of {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smoke.phase_build()
+    _, cfg = get_config("pubmed-gcnode")
+    pubmed = synthetic_planetoid("pubmed", seed=cfg.seed, calibrated=True).graph
+    rows = {f"B1 {r['graph']} F={r['F']}": r
+            for r in smoke.phase_kernel(dev, pubmed, smoke.bench_graph(from_edges))}
+    for p, r in smoke.phase_bucket(dev, synthetic_ogbn_arxiv(seed=0).graph).items():
+        rows[f"B2 arxiv P={p}"] = r
+    weighted = smoke.phase_bucket_weighted(dev, synthetic_ogbn_arxiv(seed=0, calibrated=True).graph)
+    for (h, f), r in ((k, r) for k, r in weighted.items() if k != "P8"):
+        rows[f"B2-w calibrated arxiv P=1 H={h} F={f}"] = r
+    res = run_config("pubmed-gcnode", calibrated=True, device=dev)
+    e2e = {"pubmed-gcnode s/epoch": res["seconds"] / res["epochs_run"],
+           "pubmed-gcnode test_acc": res["best"]["test_acc"]}
+    res = run_config(4, device=dev)
+    e2e.update({"config4 step_ms": res["step_ms"], "config4 test_acc": res["test_acc"]})
+    return dict(tree=tree, card=torch.cuda.get_device_name(0), rows=rows, end_to_end=e2e)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+", help="checkout roots, measured in this order")
+    ap.add_argument("--out", help="also write every turn's JSON line to this file")
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        print(json.dumps(turn(args.trees[0])), flush=True)
+        return
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                           "--id=0"], capture_output=True, text=True, check=True, timeout=60)
+    lines = [json.dumps({"card": card.stdout.strip()})]
+    print(lines[0], flush=True)
+    turns = []
+    for tree in args.trees:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+                              capture_output=True, text=True, timeout=1800)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr[-4000:])
+            raise SystemExit(f"turn {tree} exited with {proc.returncode}")
+        print(proc.stdout, end="", flush=True)
+        lines.append(proc.stdout.strip().splitlines()[-1])
+        turns.append(json.loads(lines[-1]))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as fh:
+            fh.writelines(line + "\n" for line in lines)
+    for key in turns[0]["rows"]:
+        print(key, "ms", " | ".join(f"{t['tree']} {t['rows'][key]['ms']:.4f}" for t in turns))
+    for key in turns[0]["end_to_end"]:
+        print(key, " | ".join(f"{t['tree']} {t['end_to_end'][key]:.4f}" for t in turns))
+
+
+if __name__ == "__main__":
+    main()

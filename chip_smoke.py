@@ -16,7 +16,18 @@ so the exit code is non-zero:
              F = 16 and F = 3, a
              hub graph and the bench graph (169,343 nodes, zipf(1.8)
              receivers, F = 128); ms per fwd+bwd for the kernel and for the
-             plain version in float32.
+             plain version in float32 through autograd, for the bare pair
+             ``csr_reduce(x)`` + ``csr_reduce(g, transpose=True)`` beside
+             the bare ``torch.sparse.mm`` pair, and for cuSPARSE through
+             autograd; each wrapper call's host µs, device µs and device
+             launches (``call_costs``).  The run fails if a call launches
+             more than one kernel or any kernel but ``csr_reduce_kernel``;
+             fewer launches than calls is reported as the profiler's miss
+             (``profiler_missed``), not failed.
+  host_parts the parts of a wrapper call's host cost, 10,000 calls each: the
+             current stream by three public routes, ``torch.empty``, and the
+             C entry called as the wrapper calls it, with F = 0 (it returns
+             before launching).
   attention  the GAT kernels (gat_fwd, gat_bwd, gat_dwh and the weighted
              SpMM) against their plain versions in float64 on the same
              inputs, and the Functions' values and gradients against the
@@ -44,7 +55,9 @@ so the exit code is non-zero:
              against the single-device ``spmm_csr``; ms of fwd+bwd over all
              buckets, kernel and plain version (float32) and cuSPARSE, and
              the kernel with zero-filled outputs that every bucket adds
-             into (``zero_fill_add_ms``), the form without the write.
+             into (``zero_fill_add_ms``), the form without the write; host
+             µs, device µs and device launches per call of the write and the
+             add form (``call_costs``).
   config4    ``run_config(4)`` (edge-partitioned GCN-ODE, one part on one
              card) on the full arxiv twin through the bucket kernel, after
              one training step through the kernel held against the same step
@@ -67,8 +80,10 @@ so the exit code is non-zero:
              upstream is the gradient of ``sum(sin(·))``, so the hub rows'
              sums do not cancel.  ms of fwd+bwd at P = 1 for the kernel, the
              plain version (float32) and, for H = 1, cuSPARSE on CSR tensors
-             whose values are the numerators; ms of the backward's plain
-             ``dpv`` gathers.
+             whose values are the numerators (and the kernel against
+             cuSPARSE alone, in turns over ``LONG_ITERS`` iterations); ms of
+             the backward's plain ``dpv`` gathers; host µs, device µs and
+             device launches per forward call.
   config4_gat
              the edge-partitioned GAT-ODE (hidden 64 × 4 heads, rk4 × 4,
              dropout 0.6, ``ring_pallas``, ``remat``) on the full calibrated
@@ -124,6 +139,9 @@ GAT_SHAPES = ((GAT_HEADS, GAT_HIDDEN), (1, GAT_HEADS * GAT_HIDDEN), (1, 40))
 # recomputes them; an evaluation runs the forward alone.
 GAT_LAYERS_PER_FORWARD = 2 + 4 * GAT_STEPS
 GAT_MIN_TEST_ACC_SHARDED = 2.0 / 40
+# B2-w against cuSPARSE at H = 1, alternated in one call: at F = 40 ten
+# iterations read 0.39 and 0.56 ms in two runs, either side of cuSPARSE.
+LONG_ITERS = 100
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM and f32 outside the
 # tensor cores.  A kernel's bound is the larger of its bytes and its flops over these.
 PEAK_BYTES_PER_S = 3.35e12
@@ -152,6 +170,88 @@ def alternate(fns, iters):
     for n in names + names[::-1]:
         runs[n].append(timed_ms(fns[n], iters))
     return {n: sum(v) / len(v) for n, v in runs.items()}
+
+
+def profiled(fn, calls):
+    """``torch.profiler`` over ``calls`` calls of ``fn``: device µs and device
+    launches per call, and the names of the kernels launched.  The profiler
+    records a second round of the calls, with idle time before and after
+    them (it can miss kernels in its first round and near the ends of its
+    window), and its step marks are not kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            time.sleep(0.02)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            prof.step()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
+    return dict(device_us=sum(e.self_device_time_total for e in kernels) / calls,
+                launches_per_call=sum(e.count for e in kernels) / calls,
+                kernels=sorted({e.key[:60] for e in kernels}))
+
+
+def call_costs(fn, calls=1000, per=1, profile_calls=20):
+    """What one wrapper call costs, ``fn()`` making ``per`` calls: host µs per
+    call (``time.perf_counter`` around ``calls`` unsynchronised calls, the
+    queue drained before; the clock stops before the closing drain), wall µs
+    per call (the clock stops after it), and device µs and device launches
+    per call from ``torch.profiler`` over ``profile_calls`` calls.  The
+    profiler drops kernels now and then (3 of 64 in one run, 63 of 64 in
+    another): a round that shows fewer launches than calls is profiled
+    again, up to three times."""
+    rounds = max(1, calls // per)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        fn()
+    issued = time.perf_counter()
+    torch.cuda.synchronize()
+    done = time.perf_counter()
+    for _ in range(3):  # a round that shows fewer launches than calls lost some: again
+        dev = profiled(fn, max(1, profile_calls // per))
+        if dev["launches_per_call"] >= per:
+            break
+    return dict(calls=rounds * per, host_us=(issued - t0) * 1e6 / (rounds * per),
+                wall_us=(done - t0) * 1e6 / (rounds * per),
+                device_us=dev["device_us"] / per, launches_per_call=dev["launches_per_call"] / per,
+                kernels=dev["kernels"])
+
+
+def phase_host_parts(dev, calls=10_000):
+    """µs per call of the parts of a wrapper call's host cost (see the module doc)."""
+    from graph_odenet_tpu_torch.ops import _build
+    from graph_odenet_tpu_torch.ops.csr_spmm import csr_view
+
+    def us(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t0) * 1e6 / calls
+
+    x = torch.zeros(64, 64, device=dev)
+    ptr, stream = x.data_ptr(), torch.cuda.current_stream(dev.index).cuda_stream
+    plan = csr_view([0], [0], [1.0], 1, 1).to(dev).plan
+    entry = _build.load_library("csr_spmm").gode_csr_reduce_f32
+    parts = {
+        "current_stream(device)": us(lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "current_stream(index)": us(lambda: torch.cuda.current_stream(dev.index).cuda_stream),
+        "current_stream()": us(lambda: torch.cuda.current_stream().cuda_stream),
+        "torch.empty": us(lambda: torch.empty((64, 64), device=dev)),
+        "C entry, as the wrapper calls it": us(
+            lambda: entry(plan.address, ptr, None, ptr, None, 0, 1, 0, 32, 4, 0, stream)),
+    }
+    emit("host_parts", calls=calls, us_per_call=parts)
+    return parts
 
 
 def bound(n_bytes, n_flops):
@@ -247,6 +347,7 @@ def check_kernel(name, g, f, dev, iters, seed):
     terms to a value near 1, and f32 rounding in any order exceeds 1e-5.
     """
     from graph_odenet_tpu_torch.ops import prepare, spmm_csr, spmm_csr_reference
+    from graph_odenet_tpu_torch.ops.csr_spmm import csr_reduce
 
     rng = np.random.default_rng(seed)
     csr = prepare(g).to(dev)
@@ -254,13 +355,13 @@ def check_kernel(name, g, f, dev, iters, seed):
     up = torch.from_numpy(rng.standard_normal((g.n_node_pad, f)).astype(np.float32)).to(dev)
 
     def sin_probe(fn, dtype):
-        x = x0.to(dtype).requires_grad_(True)
+        x = x0.detach().to(dtype).requires_grad_(True)  # x0 itself stays without grad
         out = fn(csr, x)
         (dx,) = torch.autograd.grad(torch.sin(out).sum(), x)
         return out.detach(), dx
 
     def fwd_bwd(fn, dtype=torch.float32):
-        x = x0.to(dtype).requires_grad_(True)
+        x = x0.detach().to(dtype).requires_grad_(True)  # x0 itself stays without grad
         return torch.autograd.grad(fn(csr, x), x, up.to(dtype))[0]
 
     def max_err(a, b):
@@ -275,17 +376,32 @@ def check_kernel(name, g, f, dev, iters, seed):
     torch.testing.assert_close(out, ref.float(), **TOL)
     torch.testing.assert_close(dx, dref.float(), **TOL)
     stress_ref = fwd_bwd(spmm_csr_reference, torch.float64)
+    a, at = _sparse_csr_pair(csr)
+
+    def library_autograd():
+        x = x0.clone().requires_grad_(True)
+        return torch.autograd.grad(torch.sparse.mm(a, x), x, up)[0]
+
     times = alternate({
         "plain": lambda: fwd_bwd(spmm_csr_reference),
         "kernel": lambda: fwd_bwd(spmm_csr),
+        "kernel_bare": lambda: (csr_reduce(csr, x0), csr_reduce(csr, up, transpose=True)),
+        "library_bare": lambda: (torch.sparse.mm(a, x0), torch.sparse.mm(at, up)),
+        "library_autograd": library_autograd,
     }, iters)
+    costs = {
+        "csr_fwd": call_costs(lambda: csr_reduce(csr, x0)),
+        "csr_bwd": call_costs(lambda: csr_reduce(csr, up, transpose=True)),
+    }
     row = dict(
         graph=name, n_node_pad=g.n_node_pad, n_edge=g.n_edge, F=f,
         max_abs_err=max(max_err(out, ref), max_err(dx, dref)),
         max_err_over_tol=max(err_over_tol(out, ref), err_over_tol(dx, dref)),
         stress_bwd_max_abs_err=max_err(fwd_bwd(spmm_csr), stress_ref),
         plain_f32_stress_bwd_max_abs_err=max_err(fwd_bwd(spmm_csr_reference), stress_ref),
-        ms=times["kernel"], plain_ms=times["plain"],
+        ms=times["kernel"], plain_ms=times["plain"], bare_ms=times["kernel_bare"],
+        library_bare_ms=times["library_bare"], library_autograd_ms=times["library_autograd"],
+        call_costs=costs,
         max_row_edges=int(csr.row_ptr.diff().max()), split_rows=int(csr.part.split_row.numel()),
         **bound(*(2 * v for v in spmm_work(g.n_node_pad, csr.n_edge, f))),
     )
@@ -734,6 +850,21 @@ def phase_bucket(dev, graph, f=ARXIV_HIDDEN, iters=10):
         times = alternate({"plain": fwd_bwd(_bucket_reduce_plain), "kernel": fwd_bwd(bucket_reduce),
                            "zero_fill_add": fwd_bwd(bucket_reduce, write=False),
                            "library": library}, iters)
+
+        def forward_calls(write):
+            """One forward call per bucket, each written or each added."""
+            o = torch.zeros(n, f, device=dev)
+
+            def run():
+                for p in range(n_parts):
+                    for b in range(n_parts):
+                        bucket_reduce(pg.bucket(p, b).fwd, x[b * B:(b + 1) * B],
+                                      o[p * B:(p + 1) * B], accumulate=not write)
+            return run
+
+        calls = 1024 if n_parts > 1 else 100
+        costs = {form: call_costs(forward_calls(form == "write"), calls=calls, per=n_parts ** 2)
+                 for form in ("write", "add")}
         work = [spmm_work(B, int(pg.bucket_edges[p, b]), f, accumulate=acc)
                 for p in range(n_parts) for b in range(n_parts) for acc in (b > 0, p > 0)]
         n_bytes, n_flops = (sum(w[i] for w in work) for i in (0, 1))  # fwd and bwd
@@ -745,7 +876,7 @@ def phase_bucket(dev, graph, f=ARXIV_HIDDEN, iters=10):
             split_rows=sum(int(pg.bucket(p, b).fwd.part.split_row.numel())
                            for p in range(n_parts) for b in range(n_parts)),
             ms=times["kernel"], plain_ms=times["plain"], library_ms=times["library"],
-            zero_fill_add_ms=times["zero_fill_add"], **bound(n_bytes, n_flops),
+            zero_fill_add_ms=times["zero_fill_add"], call_costs=costs, **bound(n_bytes, n_flops),
         )
         emit("bucket", **rows[n_parts])
     return rows
@@ -860,7 +991,7 @@ def phase_config4(dev, data):
 
 # Device kernels by what they do, matched on the kernel's name in this order.
 KERNEL_KINDS = (
-    ("bucket_kernel", ("segment_reduce_kernel", "split_rows_kernel", "zero_rows_kernel")),
+    ("bucket_kernel", ("csr_reduce_kernel",)),
     ("matmul", ("gemm", "cutlass", "cublas")),
     ("gather", ("indexSelect", "index_select", "gather")),
     ("segment_ops", ("scatter", "indexFuncLargeIndex", "indexFuncSmallIndex", "index_add")),
@@ -977,6 +1108,12 @@ def phase_bucket_weighted(dev, graph, iters=10):
                               accumulate=False, alpha=pv_t.double(), feat=feat), BENCH_ATT_TOL)[1])
             fns["library"] = lambda: (torch.sparse.mm(a, x), torch.sparse.mm(at, g))
         times = alternate(fns, iters)
+        if heads == 1:  # the kernel against cuSPARSE alone, in turns, many times
+            times.update({f"{k}_long": v for k, v in alternate(
+                {"kernel": fns["kernel"], "library": fns["library"]}, LONG_ITERS).items()})
+        o = torch.empty(n, f, device=dev)
+        costs = call_costs(lambda: bucket_reduce(bk.fwd, x, o, accumulate=False, alpha=pv,
+                                                 feat=feat), calls=100)
         work = [weighted_bucket_work(n, bk.fwd.n_edge, heads, feat)] * 2  # fwd and bwd
         rows[heads, feat] = dict(
             n_parts=1, H=heads, F=feat, n_node_pad=n, n_edge=bk.fwd.n_edge,
@@ -986,11 +1123,13 @@ def phase_bucket_weighted(dev, graph, iters=10):
             max_abs_err=worst[0], max_err_over_tol=worst[1],
             ms=times["kernel"], plain_ms=times["plain"], dpv_plain_ms=times["dpv"],
             library_ms=times.get("library"),
+            long_ms=times.get("kernel_long"), library_long_ms=times.get("library_long"),
+            long_iters=LONG_ITERS if heads == 1 else None, call_costs=costs,
             library_max_err_over_1e4=lib_err if heads == 1 else None,
             **bound(sum(w[0] for w in work), sum(w[1] for w in work)),
         )
         emit("bucket_weighted", **rows[heads, feat])
-        del x, out0, pv, pv_t, y64, g
+        del x, out0, pv, pv_t, y64, g, o
 
     # P = 8: every bucket, and each receiver block's buckets in the ring's order.
     heads, feat = GAT_SHAPES[0]
@@ -1142,6 +1281,13 @@ def phase_config4_gat(dev, data):
     return launches
 
 
+def _sparse_csr_pair(csr):
+    """Â and Âᵀ of a ``CSRGraph`` as torch CSR tensors (cuSPARSE's operands)."""
+    n = csr.n_node_pad
+    return (torch.sparse_csr_tensor(csr.row_ptr, csr.senders.long(), csr.weight, (n, n)),
+            torch.sparse_csr_tensor(csr.t_row_ptr, csr.t_receivers.long(), csr.t_weight, (n, n)))
+
+
 def phase_library(dev, graphs, iters=20):
     """cuSPARSE (``torch.sparse.mm`` on CSR tensors) for ``Â x`` and ``Âᵀ g``:
     ms per fwd+bwd at each ``(name, graph, F)``, checked against ``spmm_csr``."""
@@ -1151,10 +1297,7 @@ def phase_library(dev, graphs, iters=20):
     out = {}
     for name, g, f in graphs:
         csr = prepare(g).to(dev)
-        a = torch.sparse_csr_tensor(csr.row_ptr, csr.senders.long(), csr.weight,
-                                    (g.n_node_pad, g.n_node_pad))
-        at = torch.sparse_csr_tensor(csr.t_row_ptr, csr.t_receivers.long(), csr.t_weight,
-                                     (g.n_node_pad, g.n_node_pad))
+        a, at = _sparse_csr_pair(csr)
         x, up = _randn(rng, (g.n_node_pad, f), dev), _randn(rng, (g.n_node_pad, f), dev)
         xr = x.clone().requires_grad_(True)
         y = spmm_csr(csr, xr)
@@ -1197,6 +1340,7 @@ def main():
     data = synthetic_planetoid("pubmed", seed=cfg.seed, calibrated=True).to(dev)
     bench_row = bench_graph(from_edges)
     rows = timed("kernel", phase_kernel, dev, data.graph, bench_row)
+    timed("host_parts", phase_host_parts, dev)
     bench = bench_graph(from_edges, normalize=None)
     att = timed("attention", phase_attention, dev, bench)
     launches = timed("slice", phase_slice, dev, data)
@@ -1217,6 +1361,17 @@ def main():
     weighted_buckets = timed("bucket_weighted", phase_bucket_weighted, dev, arxiv_cal.graph)
     gat_bucket_launches = timed("config4_gat", phase_config4_gat, dev, arxiv_cal)
     emit("seconds", **times)
+    per_call = [(r["graph"], k, c) for r in rows for k, c in r["call_costs"].items()]
+    per_call += [(f"P={p}", k, c) for p, r in buckets.items() for k, c in r["call_costs"].items()]
+    per_call += [(f"weighted {k}", "write", r["call_costs"]) for k, r in weighted_buckets.items()
+                 if "call_costs" in r]
+    for shape, form, c in per_call:
+        if c["launches_per_call"] > 1 or any("csr_reduce_kernel" not in k for k in c["kernels"]):
+            raise AssertionError(f"{shape} {form}: {c['launches_per_call']} device launches a "
+                                 f"call, kernels {c['kernels']}")
+    # The profiler drops kernels now and then; fewer launches than calls is its miss.
+    emit("profiler_missed", calls=[(shape, form, c["launches_per_call"])
+                                   for shape, form, c in per_call if c["launches_per_call"] < 1])
 
     def att_entry(kernel, source, replaces, row, launched):
         checked = [r for r in att if kernel in r["max_abs_err"]]
@@ -1256,6 +1411,10 @@ def main():
             "bound_by": main_row["bound_by"],
             "library_ms": library["pubmed-twin"]["ms"],
             "shape": "Pubmed twin, F=16, fwd+bwd",
+            "bare_ms": main_row["bare_ms"], "library_bare_ms": main_row["library_bare_ms"],
+            "host_us": {k: c["host_us"] for k, c in main_row["call_costs"].items()},
+            "device_launches_per_call": max(
+                c["launches_per_call"] for r in rows for c in r["call_costs"].values()),
         },
         {
             "name": "csr_spmm_bucket",
@@ -1274,6 +1433,9 @@ def main():
             "bound_by": buckets[1]["bound_by"],
             "library_ms": buckets[1]["library_ms"],
             "shape": f"arxiv twin, P=1 (config 4 on one card), F={ARXIV_HIDDEN}, fwd+bwd",
+            "host_us_P8": {k: c["host_us"] for k, c in buckets[8]["call_costs"].items()},
+            "device_launches_per_call": max(
+                c["launches_per_call"] for r in buckets.values() for c in r["call_costs"].values()),
         },
         {
             "name": "csr_spmm_bucket_weighted",

@@ -5,228 +5,359 @@
 // view and backward over the sender-sorted (CSC) view.  The TPU kernel left
 // the gather x[senders] * w outside, materialised an [E, F] message array
 // and reduced it with one-hot MXU matmuls.  Here gather, weight and
-// reduction are one pass: no message array, no atomics, and each output
-// row is written once.
+// reduction are one pass: no message array, and each output row is written
+// once.
 //
 // What bounds it on the card: the bytes of the gather.  Each edge reads one
 // row of x (4*F bytes from a random row) plus 8 bytes of column and weight;
 // there are 2 flops per gathered float, far below what the card could
 // compute per byte.  What the design does about it:
-//   * a warp owns a segment of at most SEG_EDGES edges of one row
-//     (ops/csr_spmm.py::prepare cuts the rows).  Its lanes split into
-//     32/G edge slots of G feature lanes, G the smallest power of two >= F
-//     (at most 32).  So at F = 16 or F = 3 a warp still reads 32 useful
-//     floats per step from 2 or 8 edges at once instead of idling lanes,
-//     and neighbouring lanes read neighbouring floats of one x row;
-//   * sums stay in f32 registers; the edge slots are added with warp
-//     shuffles, so no shared memory and no atomics are needed;
-//   * a hub row longer than one segment is spread over several warps,
-//     which write partial rows to scratch; a second small kernel adds
-//     them in segment order.  The result does not depend on scheduling.
-// Weighted mode (alpha != null): lane f of edge p is scaled by
+//   * a warp item is one warp segment (at most SEG_EDGES edges of one row;
+//     ops/csr_spmm.py::prepare cuts the rows) times one feature chunk.  Its
+//     lanes split into 32/G edge slots of G feature lanes, each lane holding
+//     V consecutive features, so a chunk is G*V features wide.  The wrapper
+//     picks G and V from F (ops/csr_spmm.py::_lanes): at F >= 32 (F a
+//     multiple of 4, 16-byte aligned rows) a lane loads a float4, a 16-byte
+//     gather, and a chunk holds up to 128 features; below, V = 1 and G is
+//     the smallest power of two >= F, so at F = 16 or F = 3 a warp still
+//     reads 32 useful floats per step from 2 or 8 edges at once.  The chunk
+//     is the slowest axis of the grid.  (Chunks of 32 features, whose column
+//     slice of x fits the 50 MB L2 at arxiv size, were slower: more warp
+//     items, each reading its columns again.)
+//   * with float4 lanes a warp loads 32 columns and weights at once, one per
+//     lane, and broadcasts them with shuffles; four accumulators per lane
+//     keep four gathers in flight.  With single lanes each edge slot loads
+//     its own edges' columns and weights: a Pubmed row has about 5 edges,
+//     too few to pay for a batch of 32 and its shuffles.  The edge slots are
+//     added with shuffles;
+//   * a hub row longer than one segment is spread over several warps, which
+//     write partial rows to scratch.  The last of them to arrive (an integer
+//     arrival counter per split row and chunk, after a __threadfence) adds
+//     the partial rows in slot order and resets the counter to 0.  So the
+//     sum never depends on scheduling, repeated calls are bit-equal, and the
+//     call is one launch that a CUDA graph can capture.
+// Weighted mode (kAlpha): lane f of edge p is scaled by
 // alpha[p * (F / feat) + f / feat] instead of w[p].  It replaces the same
 // kernel's alpha3d mode, which the GAT backward without the score hint
-// (pallas_gat.py::_dwh_csc) runs over the CSC view.  The head index of a lane
-// is fixed for a feature chunk, so the mode costs one more load per edge.
+// (pallas_gat.py::_dwh_csc) runs over the CSC view.  A lane's head is fixed
+// for its chunk (the vector form needs feat % 4 == 0), so the mode costs one
+// more load per edge.
 //
-// Bucket mode (gode_csr_bucket_f32): out[r, :] (+)= sum_{p in row r} w[p] * x[col[p], :]
-// over one bucket of the edge-partitioned graph.  It replaces
+// Bucket mode: out[r, :] (+)= sum_{p in row r} w[p] * x[col[p], :] over one
+// bucket of the edge-partitioned graph.  It replaces
 // pallas_spmm.py::_segment_reduce_kernel (B2), which parallel/halo.py runs per
 // bucket of a receiver block: forward over the bucket's CSR view, backward over
 // its CSC view.  The gathered table x is rectangular: a [B, F] feature chunk of
-// the sender block, or, with col == null, the bucket's [E, F] message array
-// itself (column = edge position, weight 1).  The bucket's segments skip rows
-// without edges, so an empty row costs no warp.  Two forms:
+// the sender block, or, positional (kPositional), the bucket's [E, F] message
+// array itself (column = edge position, weight 1).  The bucket's segments
+// skip rows without edges, so an empty row costs no warp item.  Two forms:
 //   * accumulate: the result is added into out, so a ring hop folds into the
-//     running sum without a temporary: a whole row adds its sum, and a split
-//     row adds its partial rows in the second pass; empty rows are untouched;
+//     running sum without a temporary; empty rows are untouched;
 //   * write (the first bucket of a receiver block): out is written and never
-//     read; a third small kernel writes zeros to the empty rows.
-// Weighted bucket mode (alpha != null; B2-w): out[r, h*feat + f] (+)=
-// sum_{p in row r} alpha[p * H + h] * x[col[p], h*feat + f], the same kernel's
-// alpha3d mode that parallel/halo.py::_bucket_spmm_weighted runs per ring hop
-// of the edge-partitioned GAT: alpha holds the per-edge, per-head softmax
-// numerators in the view's edge order, forward over the bucket's CSR view and
-// backward (numerators permuted) over its CSC view.  It is the kAlpha lane
-// scaling above on the bucket's rectangular table, in both forms.  Bytes
-// bound it as they bound the unweighted mode: the numerators add 4*H bytes
-// per edge to the 4*H*feat of the gathered row.
+//     read; extra warps of the same grid write zeros to the empty rows.
+// Weighted bucket mode (kAlpha on a bucket; B2-w): out[r, h*feat + f] (+)=
+// sum_{p in row r} alpha[p * H + h] * x[col[p], h*feat + f], the same
+// kernel's alpha3d mode that parallel/halo.py::_bucket_spmm_weighted runs per
+// ring hop of the edge-partitioned GAT, forward over the bucket's CSR view and
+// backward (numerators permuted) over its CSC view.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "segments.cuh"
 
+// The launch plan of one view: what never changes between calls, built once
+// per view by ops/csr_spmm.py::LaunchPlan.  Field order and types match
+// _PlanStruct there.
+struct CsrPlan {
+  const int64_t* seg_ptr;     // [S+1] edge span of each segment
+  const int32_t* seg_row;     // [S]   output row of each segment
+  const int32_t* seg_slot;    // [S]   -1: whole row; else its partial slot
+  const int32_t* split_row;   // [R]   rows cut into several segments
+  const int32_t* split_ptr;   // [R+1] their spans of partial slots
+  const int32_t* slot_split;  // [n_slots] split row (index into split_row) of each slot
+  const int32_t* empty_row;   // [K]   rows without a segment
+  const int32_t* col;         // [L]   gathered table row of each position
+  const float* w;             // [L]   edge weights
+  int32_t* arrivals;          // [n_arrivals] zero between calls
+  int64_t n_seg;
+  int64_t n_split;
+  int64_t n_empty;
+  int64_t n_arrivals;
+};
+
 namespace {
 
+using gode::kFullMask;
 using gode::kThreads;
 using gode::kWarpsPerBlock;
 
 // kScaled: w[p] * x[col[p]].  kAlpha: alpha-scaled lanes.  kPositional: x[p].
-// kAdd: a whole row's sum is added into out instead of written.
-enum class Mode { kScaled, kAlpha, kPositional };
+// Values match the wrapper's.
+enum class Mode : int { kScaled = 0, kAlpha = 1, kPositional = 2 };
 
-template <int G, Mode kMode, bool kAdd>
-__global__ void __launch_bounds__(kThreads)
-segment_reduce_kernel(const int64_t* __restrict__ seg_ptr,
-                      const int32_t* __restrict__ seg_row,
-                      const int32_t* __restrict__ seg_slot,
-                      int64_t n_seg,
-                      const int32_t* __restrict__ col,
-                      const float* __restrict__ w,
-                      const float* __restrict__ alpha,
-                      const float* __restrict__ x,
-                      float* __restrict__ out,
-                      float* __restrict__ partial,
-                      int64_t F,
-                      int64_t feat) {
+// V consecutive floats of one lane: a float or a float4 (16-byte loads).
+template <int V> struct Lane;
+
+template <> struct Lane<1> {
+  float v;
+  __device__ __forceinline__ static Lane zero() { return {0.f}; }
+  __device__ __forceinline__ static Lane ldg(const float* p) { return {__ldg(p)}; }
+  __device__ __forceinline__ static Lane ldcg(const float* p) { return {__ldcg(p)}; }
+  __device__ __forceinline__ static Lane ld(const float* p) { return {*p}; }
+  __device__ __forceinline__ void st(float* p) const { *p = v; }
+  __device__ __forceinline__ void fma(float a, const Lane& b) { v = fmaf(a, b.v, v); }
+  __device__ __forceinline__ void add(const Lane& b) { v += b.v; }
+  __device__ __forceinline__ Lane shfl_xor(int off) const {
+    return {__shfl_xor_sync(kFullMask, v, off)};
+  }
+};
+
+template <> struct Lane<4> {
+  float4 v;
+  __device__ __forceinline__ static Lane zero() { return {make_float4(0.f, 0.f, 0.f, 0.f)}; }
+  __device__ __forceinline__ static Lane ldg(const float* p) {
+    return {__ldg(reinterpret_cast<const float4*>(p))};
+  }
+  __device__ __forceinline__ static Lane ldcg(const float* p) {
+    return {__ldcg(reinterpret_cast<const float4*>(p))};
+  }
+  __device__ __forceinline__ static Lane ld(const float* p) {
+    return {*reinterpret_cast<const float4*>(p)};
+  }
+  __device__ __forceinline__ void st(float* p) const { *reinterpret_cast<float4*>(p) = v; }
+  __device__ __forceinline__ void fma(float a, const Lane& b) {
+    v.x = fmaf(a, b.v.x, v.x);
+    v.y = fmaf(a, b.v.y, v.y);
+    v.z = fmaf(a, b.v.z, v.z);
+    v.w = fmaf(a, b.v.w, v.w);
+  }
+  __device__ __forceinline__ void add(const Lane& b) {
+    v.x += b.v.x;
+    v.y += b.v.y;
+    v.z += b.v.z;
+    v.w += b.v.w;
+  }
+  __device__ __forceinline__ Lane shfl_xor(int off) const {
+    return {make_float4(__shfl_xor_sync(kFullMask, v.x, off), __shfl_xor_sync(kFullMask, v.y, off),
+                        __shfl_xor_sync(kFullMask, v.z, off), __shfl_xor_sync(kFullMask, v.w, off))};
+  }
+};
+
+// Adds the lanes of the warp's 32/G edge slots: lane l ends with the sum over
+// the slots of its feature lane l % G, in a fixed order.
+template <int G, int V>
+__device__ __forceinline__ Lane<V> sum_slots(Lane<V> acc) {
+#pragma unroll
+  for (int off = 16; off >= G; off >>= 1) acc.add(acc.shfl_xor(off));
+  return acc;
+}
+
+// One lane's share of a segment's sum, over the edges [p0, p1), at features
+// f .. f+V-1 (`live`: f < F).  Every lane runs the same number of steps, so
+// the shuffles see the whole warp.  Single lanes (V = 1): each edge slot
+// loads its own edges' columns and weights.
+template <int G, int V, Mode kMode>
+__device__ __forceinline__ Lane<V> gather_segment(const CsrPlan& plan, const float* __restrict__ x,
+                                                  const float* __restrict__ alpha, int64_t F,
+                                                  int64_t heads, int64_t head, int64_t p0,
+                                                  int64_t p1, int lane, int64_t f, bool live) {
   constexpr int kSlots = 32 / G;
-  const int64_t s = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-  if (s >= n_seg) return;  // uniform across the warp
-  const int lane = threadIdx.x & 31;
   const int sub = lane / G;
-  const int fl = lane % G;
-  const int64_t p0 = seg_ptr[s];
-  const int64_t p1 = seg_ptr[s + 1];
-  const int slot = seg_slot[s];
-  float* dst = slot < 0 ? out + static_cast<int64_t>(seg_row[s]) * F
-                        : partial + static_cast<int64_t>(slot) * F;
-  for (int64_t f0 = 0; f0 < F; f0 += G) {
-    const int64_t f = f0 + fl;
-    float acc = 0.f;
-    if (f < F) {
-      if constexpr (kMode == Mode::kAlpha) {
-        const int64_t heads = F / feat;
-        const int64_t h = f / feat;
-        for (int64_t p = p0 + sub; p < p1; p += kSlots) {
-          const int64_t c = __ldg(col + p);
-          acc = fmaf(__ldg(alpha + p * heads + h), __ldg(x + c * F + f), acc);
-        }
-      } else if constexpr (kMode == Mode::kPositional) {
-        for (int64_t p = p0 + sub; p < p1; p += kSlots) {
-          acc += __ldg(x + p * F + f);
-        }
+  if constexpr (V == 1) {
+    Lane<V> acc = Lane<V>::zero();
+    for (int64_t p = p0 + sub; live && p < p1; p += kSlots) {
+      if constexpr (kMode == Mode::kPositional) {
+        acc.add(Lane<V>::ldg(x + p * F + f));
       } else {
-        for (int64_t p = p0 + sub; p < p1; p += kSlots) {
-          const int64_t c = __ldg(col + p);
-          acc = fmaf(__ldg(w + p), __ldg(x + c * F + f), acc);
+        const float* row = x + static_cast<int64_t>(__ldg(plan.col + p)) * F + f;
+        acc.fma(kMode == Mode::kScaled ? __ldg(plan.w + p) : __ldg(alpha + p * heads + head),
+                Lane<V>::ldg(row));
+      }
+    }
+    return sum_slots<G, V>(acc);
+  } else {  // float4 lanes: batches of 32 edges, four gathers in flight per lane
+    constexpr int kUnroll = 4;  // kSlots <= 4, so kSlots * kUnroll divides 32
+    Lane<V> acc[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc[u] = Lane<V>::zero();
+    for (int64_t pb = p0; pb < p1; pb += 32) {
+      const int n = static_cast<int>(p1 - pb < 32 ? p1 - pb : 32);
+      // One lane per edge of the batch loads its column and weight.
+      int c_mine = 0;
+      float w_mine = 0.f;
+      if constexpr (kMode != Mode::kPositional) {
+        if (lane < n) {
+          c_mine = __ldg(plan.col + pb + lane);
+          if constexpr (kMode == Mode::kScaled) w_mine = __ldg(plan.w + pb + lane);
+        }
+      }
+      for (int e0 = 0; e0 < n; e0 += kSlots * kUnroll) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int e = e0 + u * kSlots + sub;  // < 32
+          if constexpr (kMode == Mode::kPositional) {
+            if (live && e < n) acc[u].add(Lane<V>::ldg(x + (pb + e) * F + f));
+          } else {
+            const int64_t c = __shfl_sync(kFullMask, c_mine, e);
+            if constexpr (kMode == Mode::kScaled) {
+              const float wt = __shfl_sync(kFullMask, w_mine, e);
+              if (live && e < n) acc[u].fma(wt, Lane<V>::ldg(x + c * F + f));
+            } else {
+              if (live && e < n) {
+                acc[u].fma(__ldg(alpha + (pb + e) * heads + head), Lane<V>::ldg(x + c * F + f));
+              }
+            }
+          }
         }
       }
     }
 #pragma unroll
-    for (int off = 16; off >= G; off >>= 1) {
-      acc += __shfl_xor_sync(gode::kFullMask, acc, off);
-    }
-    if (sub == 0 && f < F) {
-      // A split row's partial rows are written; the second pass adds them.
-      dst[f] = (kAdd && slot < 0) ? dst[f] + acc : acc;
-    }
+    for (int u = 1; u < kUnroll; ++u) acc[0].add(acc[u]);
+    return sum_slots<G, V>(acc[0]);
   }
 }
 
-// out[empty_row[j], :] = 0.
+// Grid: warp items (segment s, chunk k) with the chunk slowest, then, in the
+// write form, one warp per empty row.  A chunk is G*V features wide.
+template <int G, int V, Mode kMode>
 __global__ void __launch_bounds__(kThreads)
-zero_rows_kernel(const int32_t* __restrict__ empty_row, int64_t n_empty,
-                 float* __restrict__ out, int64_t F) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n_empty * F) return;
-  const int64_t j = i / F;
-  out[static_cast<int64_t>(empty_row[j]) * F + (i - j * F)] = 0.f;
+csr_reduce_kernel(const CsrPlan plan, const float* __restrict__ x, const float* __restrict__ alpha,
+                  float* __restrict__ out, float* __restrict__ partial, int64_t F, int64_t feat,
+                  int64_t n_chunks, int add) {
+  constexpr int kSlots = 32 / G;
+  constexpr int64_t kWidth = G * V;
+  const int64_t item = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t n_items = plan.n_seg * n_chunks;
+  if (item >= n_items) {  // the write form's empty rows: zeros
+    const int64_t j = item - n_items;
+    if (add || j >= plan.n_empty) return;
+    float* dst = out + static_cast<int64_t>(plan.empty_row[j]) * F;
+    for (int64_t f = static_cast<int64_t>(lane) * V; f < F; f += 32 * V) Lane<V>::zero().st(dst + f);
+    return;
+  }
+  const int64_t chunk = item / plan.n_seg;
+  const int64_t s = item - chunk * plan.n_seg;
+  const int sub = lane / G;
+  const int64_t f = chunk * kWidth + (lane % G) * V;
+  const bool live = f < F;  // F % V == 0, so the lane's V features are all in range
+  const int64_t heads = kMode == Mode::kAlpha ? F / feat : 1;
+  const int64_t head = kMode == Mode::kAlpha ? (live ? f / feat : 0) : 0;
+  const Lane<V> acc = gather_segment<G, V, kMode>(plan, x, alpha, F, heads, head, plan.seg_ptr[s],
+                                                  plan.seg_ptr[s + 1], lane, f, live);
+  const int slot = plan.seg_slot[s];
+  if (slot < 0) {  // a whole row
+    if (sub == 0 && live) {
+      float* dst = out + static_cast<int64_t>(plan.seg_row[s]) * F + f;
+      Lane<V> v = acc;
+      if (add) v.add(Lane<V>::ld(dst));
+      v.st(dst);
+    }
+    return;
+  }
+  // A segment of a split row: write its partial row, then count the arrival.
+  if (sub == 0 && live) acc.st(partial + static_cast<int64_t>(slot) * F + f);
+  __threadfence();
+  __syncwarp();
+  const int j = plan.slot_split[slot];
+  const int k0 = plan.split_ptr[j];
+  const int k1 = plan.split_ptr[j + 1];
+  int32_t* counter = plan.arrivals + chunk * plan.n_split + j;
+  int before = 0;
+  if (lane == 0) before = atomicAdd(counter, 1);
+  before = __shfl_sync(kFullMask, before, 0);
+  if (before != k1 - k0 - 1) return;  // not the last to arrive (uniform across the warp)
+  // The last: every partial row of this split row and chunk is written.
+  __threadfence();
+  if (lane == 0) *counter = 0;  // the next call starts from zero
+  Lane<V> sum = Lane<V>::zero();
+  if (live) {
+#pragma unroll 4
+    for (int k = k0 + sub; k < k1; k += kSlots) {
+      sum.add(Lane<V>::ldcg(partial + static_cast<int64_t>(k) * F + f));
+    }
+  }
+  sum = sum_slots<G, V>(sum);
+  if (sub == 0 && live) {
+    float* dst = out + static_cast<int64_t>(plan.split_row[j]) * F + f;
+    if (add) sum.add(Lane<V>::ld(dst));
+    sum.st(dst);
+  }
 }
 
-template <Mode kMode, bool kAdd>
-int launch(const int64_t* seg_ptr, const int32_t* seg_row, const int32_t* seg_slot,
-           int64_t n_seg, const int32_t* split_row, const int32_t* split_ptr, int64_t n_split,
-           const int32_t* col, const float* w, const float* alpha, const float* x, float* out,
-           float* partial, int64_t F, int64_t feat, cudaStream_t st,
-           const int32_t* empty_row = nullptr, int64_t n_empty = 0) {
-  const int64_t max_blocks = 0x7fffffff;
-  if (n_seg > 0) {
-    const int64_t blocks = (n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    if (blocks > max_blocks) return static_cast<int>(cudaErrorInvalidValue);
-#define GODE_SEGMENTS(G)                                                                      \
-  segment_reduce_kernel<G, kMode, kAdd><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>( \
-      seg_ptr, seg_row, seg_slot, n_seg, col, w, alpha, x, out, partial, F, feat)
-    switch (gode::lanes_for(F)) {
-      case 1: GODE_SEGMENTS(1); break;
-      case 2: GODE_SEGMENTS(2); break;
-      case 4: GODE_SEGMENTS(4); break;
-      case 8: GODE_SEGMENTS(8); break;
-      case 16: GODE_SEGMENTS(16); break;
-      default: GODE_SEGMENTS(32); break;
-    }
-#undef GODE_SEGMENTS
-  }
-  if (n_split > 0) {
-    const int64_t blocks = (n_split * F + kThreads - 1) / kThreads;
-    if (blocks > max_blocks) return static_cast<int>(cudaErrorInvalidValue);
-    gode::split_rows_kernel<kAdd><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        split_row, split_ptr, n_split, partial, out, F);
-  }
-  if (!kAdd && n_empty > 0) {
-    const int64_t blocks = (n_empty * F + kThreads - 1) / kThreads;
-    if (blocks > max_blocks) return static_cast<int>(cudaErrorInvalidValue);
-    zero_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(empty_row, n_empty,
-                                                                          out, F);
+template <int G, int V>
+int launch(const CsrPlan& plan, const float* x, const float* alpha, float* out, float* partial,
+           int64_t F, int64_t feat, int mode, int add, cudaStream_t st) {
+  const int64_t n_chunks = (F + G * V - 1) / (G * V);
+  if (plan.n_split * n_chunks > plan.n_arrivals) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t warps = plan.n_seg * n_chunks + (add ? 0 : plan.n_empty);
+  const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;
+  const unsigned nb = static_cast<unsigned>(blocks);
+  switch (static_cast<Mode>(mode)) {
+    case Mode::kScaled:
+      csr_reduce_kernel<G, V, Mode::kScaled>
+          <<<nb, kThreads, 0, st>>>(plan, x, alpha, out, partial, F, feat, n_chunks, add);
+      break;
+    case Mode::kAlpha:
+      csr_reduce_kernel<G, V, Mode::kAlpha>
+          <<<nb, kThreads, 0, st>>>(plan, x, alpha, out, partial, F, feat, n_chunks, add);
+      break;
+    default:
+      csr_reduce_kernel<G, V, Mode::kPositional>
+          <<<nb, kThreads, 0, st>>>(plan, x, alpha, out, partial, F, feat, n_chunks, add);
+      break;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launches (0 on success).  Launches on
-// `stream` and does not synchronise.  `partial` holds one row of F floats per
-// slot of the split rows and may be null when n_split is 0.  `alpha` null
-// selects the unweighted mode (w); otherwise the weighted mode, with heads of
-// `feat` lanes (feat divides F).
-extern "C" int gode_csr_spmm_f32(const int64_t* seg_ptr, const int32_t* seg_row,
-                                 const int32_t* seg_slot, int64_t n_seg,
-                                 const int32_t* split_row, const int32_t* split_ptr,
-                                 int64_t n_split, const int32_t* col, const float* w,
-                                 const float* alpha, const float* x, float* out,
-                                 float* partial, int64_t F, int64_t feat, void* stream) {
-  if (F < 1 || feat < 1 || F % feat != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (alpha != nullptr) {
-    return launch<Mode::kAlpha, false>(seg_ptr, seg_row, seg_slot, n_seg, split_row,
-                                       split_ptr, n_split, col, w, alpha, x, out, partial, F,
-                                       feat, st);
-  }
-  return launch<Mode::kScaled, false>(seg_ptr, seg_row, seg_slot, n_seg, split_row,
-                                      split_ptr, n_split, col, w, alpha, x, out, partial, F,
-                                      feat, st);
-}
-
-// Bucket mode (see the header).  `alpha` given selects the weighted form
-// (heads of `feat` lanes, feat divides F; `col` given, `w` unused).  Else
-// `col` and `w` both null selects the positional form (x is the [E, F]
-// message array); otherwise both are given.  `accumulate` nonzero adds into
-// out; zero writes out, and `empty_row` lists the n_empty rows that have no
-// segment, which are written with zeros.  Same return and stream contract as
-// above.
-extern "C" int gode_csr_bucket_f32(const int64_t* seg_ptr, const int32_t* seg_row,
-                                   const int32_t* seg_slot, int64_t n_seg,
-                                   const int32_t* split_row, const int32_t* split_ptr,
-                                   int64_t n_split, const int32_t* empty_row, int64_t n_empty,
-                                   const int32_t* col, const float* w, const float* alpha,
-                                   const float* x, float* out, float* partial, int64_t F,
-                                   int64_t feat, int accumulate, void* stream) {
-  if (F < 1 || feat < 1 || F % feat != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (alpha != nullptr ? col == nullptr : (col == nullptr) != (w == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// One launch: out (+)= A x over the view of `plan` (see the header).  `mode`:
+// 0 scaled by the plan's weights, 1 weighted by alpha [L, F / feat] (feat
+// divides F), 2 positional (x is the view's [>= L, F] message array).
+// `lanes` (G, a power of two <= 32) and `vec` (V, 1 or 4) shape a warp item;
+// V = 4 needs F % 4 == 0, G >= 8, x and out 16-byte aligned and, weighted,
+// feat % 4 == 0.  `accumulate` nonzero adds into out; zero writes every row
+// of out (the plan's empty rows with zeros) and reads none.  `partial` holds
+// one row of F floats per slot of the split rows and may be null when the
+// plan has none; the plan's arrival counters must cover n_split times the
+// number of chunks.  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int gode_csr_reduce_f32(const CsrPlan* plan, const float* x, const float* alpha,
+                                   float* out, float* partial, int64_t F, int64_t feat, int mode,
+                                   int lanes, int vec, int accumulate, void* stream) {
+  const auto bad = static_cast<int>(cudaErrorInvalidValue);
+  if (F < 1 || feat < 1 || F % feat != 0 || mode < 0 || mode > 2) return bad;
+  if (plan->n_split > 0 && partial == nullptr) return bad;
+  if (vec == 4) {
+    const auto misaligned = [](const void* p) {
+      return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+    };
+    if (F % 4 != 0 || misaligned(x) || misaligned(out) || misaligned(partial)) return bad;
+    if (mode == static_cast<int>(Mode::kAlpha) && feat % 4 != 0) return bad;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GODE_BUCKET(MODE, ADD)                                                            \
-  return launch<MODE, ADD>(seg_ptr, seg_row, seg_slot, n_seg, split_row, split_ptr, n_split, \
-                           col, w, alpha, x, out, partial, F, feat, st, empty_row, n_empty)
-  if (alpha != nullptr) {
-    if (accumulate) GODE_BUCKET(Mode::kAlpha, true);
-    GODE_BUCKET(Mode::kAlpha, false);
+  const int add = accumulate != 0;
+#define GODE_LAUNCH(G_, V_) return launch<G_, V_>(*plan, x, alpha, out, partial, F, feat, mode, add, st)
+  if (vec == 4) {
+    switch (lanes) {
+      case 8: GODE_LAUNCH(8, 4);
+      case 16: GODE_LAUNCH(16, 4);
+      case 32: GODE_LAUNCH(32, 4);
+      default: return bad;
+    }
   }
-  if (col == nullptr) {
-    if (accumulate) GODE_BUCKET(Mode::kPositional, true);
-    GODE_BUCKET(Mode::kPositional, false);
+  if (vec != 1) return bad;
+  switch (lanes) {
+    case 1: GODE_LAUNCH(1, 1);
+    case 2: GODE_LAUNCH(2, 1);
+    case 4: GODE_LAUNCH(4, 1);
+    case 8: GODE_LAUNCH(8, 1);
+    case 16: GODE_LAUNCH(16, 1);
+    case 32: GODE_LAUNCH(32, 1);
+    default: return bad;
   }
-  if (accumulate) GODE_BUCKET(Mode::kScaled, true);
-  GODE_BUCKET(Mode::kScaled, false);
-#undef GODE_BUCKET
+#undef GODE_LAUNCH
 }

@@ -2,8 +2,10 @@
 //
 // ops/csr_spmm.py::prepare cuts every row of a CSR (or CSC) view into warp
 // segments of at most SEG_EDGES edges.  A row cut into several segments is a
-// split row: each of its segments writes a partial row to scratch, and
-// split_rows_kernel adds the partial rows in segment order.  No atomics.
+// split row: each of its segments writes a partial row to scratch.  In the
+// GAT kernels (gat_attn.cu) split_rows_kernel, a second launch, adds the
+// partial rows in segment order; the CSR kernel (csr_spmm.cu) adds them in
+// its own grid, by the last warp of the row to arrive.
 #pragma once
 
 #include <cstdint>

@@ -35,18 +35,10 @@ _u32, _f32 = ctypes.c_uint32, ctypes.c_float
 # argtypes of every C entry point, by library.
 _SIGNATURES = {
     "csr_spmm": {
-        "gode_csr_spmm_f32": [
-            _p, _p, _p, _i64,          # seg_ptr, seg_row, seg_slot, n_seg
-            _p, _p, _i64,              # split_row, split_ptr, n_split
-            _p, _p, _p, _p, _p, _p,    # col, w, alpha, x, out, partial
-            _i64, _i64, _p,            # F, feat, stream
-        ],
-        "gode_csr_bucket_f32": [
-            _p, _p, _p, _i64,          # seg_ptr, seg_row, seg_slot, n_seg
-            _p, _p, _i64,              # split_row, split_ptr, n_split
-            _p, _i64,                  # empty_row, n_empty
-            _p, _p, _p, _p, _p, _p,    # col, w, alpha, x, out, partial
-            _i64, _i64, _i, _p,        # F, feat, accumulate, stream
+        "gode_csr_reduce_f32": [
+            _p, _p, _p, _p, _p,        # plan, x, alpha, out, partial
+            _i64, _i64, _i, _i, _i,    # F, feat, mode, lanes, vec
+            _i, _p,                    # accumulate, stream
         ],
     },
     "gat_attn": {

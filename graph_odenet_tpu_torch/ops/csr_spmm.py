@@ -28,14 +28,25 @@ tensor launches the kernel or raises.
 ``prepare`` also cuts each view into warp segments of at most
 ``SEG_EDGES`` edges, so that a hub row with many thousands of edges is
 spread over many warps.  A row cut into several segments writes partial
-sums to scratch, and a second pass adds them up.  Nothing is atomic, so the
-result does not depend on scheduling.
+sums to scratch, and the last of its warps to arrive adds them up in slot
+order, so the result does not depend on scheduling.
+
+Each call is one launch.  What never changes for a view (its device
+pointers and counts, and the split rows' arrival counters) is a
+``LaunchPlan``, built at the view's first CUDA call and cached on the view
+(``CSRGraph.plans``, ``CSRView.plan``); ``.to()`` makes a new view and so a
+new plan.  A call passes the plan and only what varies.  The counters are
+back at 0 after every launch, so a launch can be captured in a CUDA graph
+after an eager call at the same width has built the plan and sized its
+counters; calls on one view are ordered on one stream, as PyTorch orders
+them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -44,8 +55,8 @@ from graph_odenet_tpu_torch.graph import Graph
 from graph_odenet_tpu_torch.ops import _build
 
 __all__ = [
-    "CSRGraph", "CSRView", "Partition", "prepare", "csr_view", "csr_reduce", "bucket_reduce",
-    "spmm_csr", "spmm_csr_reference", "SEG_EDGES",
+    "CSRGraph", "CSRView", "Partition", "LaunchPlan", "prepare", "csr_view", "csr_reduce",
+    "bucket_reduce", "spmm_csr", "spmm_csr_reference", "SEG_EDGES",
 ]
 
 #: Most edges one warp reduces; longer rows are cut into several segments.
@@ -76,6 +87,7 @@ class Partition:
                              #            else its row of the partial scratch
     split_row: torch.Tensor  # int32[R]   rows cut into several segments
     split_ptr: torch.Tensor  # int32[R+1] their spans of partial slots
+    slot_split: torch.Tensor  # int32[n_slots] split row (index into split_row) of each slot
     empty_row: torch.Tensor  # int32[K]   rows without a segment
     n_slots: int
 
@@ -86,6 +98,58 @@ class Partition:
                 for f in dataclasses.fields(self) if f.name != "n_slots"
             },
         )
+
+
+class _PlanStruct(ctypes.Structure):
+    """``CsrPlan`` of ``csrc/csr_spmm.cu``, field for field."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p) for name in (
+            "seg_ptr", "seg_row", "seg_slot", "split_row", "split_ptr", "slot_split",
+            "empty_row", "col", "w", "arrivals")
+    ] + [(name, ctypes.c_int64) for name in ("n_seg", "n_split", "n_empty", "n_arrivals")]
+
+
+class LaunchPlan:
+    """What the kernel reads of one view and what never changes between calls.
+
+    Holds the view's tensors (so that their device pointers stay valid), the
+    ``CsrPlan`` struct of their pointers and counts that the C entry takes
+    by pointer, and the split rows' arrival counters (int32, zero between
+    calls, one per split row and feature chunk).  Counters that a wider call
+    outgrew stay referenced: a CUDA graph captured before holds their address.
+    """
+
+    def __init__(self, part: Partition, col: torch.Tensor, weight: torch.Tensor):
+        self.part, self.col, self.weight = part, col, weight
+        self.device = part.seg_ptr.device
+        self.index = self.device.index
+        self.n_seg = part.seg_row.shape[0]
+        self.n_split = part.split_row.shape[0]
+        self.n_empty = part.empty_row.shape[0]
+        self.n_slots = part.n_slots
+        self.arrivals = torch.zeros(self.n_split, dtype=torch.int32, device=self.device)
+        self.outgrown = []
+        self.struct = _PlanStruct(
+            *(t.data_ptr() for t in (part.seg_ptr, part.seg_row, part.seg_slot, part.split_row,
+                                     part.split_ptr, part.slot_split, part.empty_row, col, weight,
+                                     self.arrivals)),
+            self.n_seg, self.n_split, self.n_empty, self.n_split,
+        )
+        self.address = ctypes.addressof(self.struct)
+
+    def reserve(self, n_chunks: int) -> None:
+        """Arrival counters for ``n_chunks`` feature chunks (zeroed when new)."""
+        need = self.n_split * n_chunks
+        if need > self.struct.n_arrivals:
+            if self.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"a call of {n_chunks} feature chunks needs new arrival counters, which "
+                    "cannot be made during a CUDA graph capture: make one eager call of "
+                    "this width on the view first")
+            self.outgrown.append(self.arrivals)
+            self.arrivals = torch.zeros(need, dtype=torch.int32, device=self.device)
+            self.struct.arrivals, self.struct.n_arrivals = self.arrivals.data_ptr(), need
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,9 +179,15 @@ class CSRGraph:
     n_node_pad: int
     n_edge: int
 
-    @property
+    @functools.cached_property
     def device(self) -> torch.device:
         return self.row_ptr.device
+
+    @functools.cached_property
+    def plans(self) -> tuple:
+        """(fwd, bwd) ``LaunchPlan``s, built at first use."""
+        return (LaunchPlan(self.part, self.senders, self.weight),
+                LaunchPlan(self.t_part, self.t_receivers, self.t_weight))
 
     def to(self, device) -> "CSRGraph":
         moved = {
@@ -158,9 +228,14 @@ class CSRView:
     def n_edge(self) -> int:
         return self.col.shape[0]
 
-    @property
+    @functools.cached_property
     def device(self) -> torch.device:
         return self.row_ptr.device
+
+    @functools.cached_property
+    def plan(self) -> LaunchPlan:
+        """The view's ``LaunchPlan``, built at first use."""
+        return LaunchPlan(self.part, self.col, self.weight)
 
     def to(self, device) -> "CSRView":
         return dataclasses.replace(
@@ -185,12 +260,14 @@ def _partition(row_ptr: np.ndarray, *, skip_empty: bool = False) -> Partition:
     seg_slot[is_split_seg] = np.arange(int(is_split_seg.sum()))
     split_ptr = np.zeros(int(split.sum()) + 1, np.int64)
     np.cumsum(n_seg[split], out=split_ptr[1:])
+    slot_split = np.repeat(np.arange(len(split_ptr) - 1, dtype=np.int32), np.diff(split_ptr))
     return Partition(
         seg_ptr=torch.from_numpy(seg_ptr),
         seg_row=torch.from_numpy(seg_row.astype(np.int32)),
         seg_slot=torch.from_numpy(seg_slot.astype(np.int32)),
         split_row=torch.from_numpy(np.nonzero(split)[0].astype(np.int32)),
         split_ptr=torch.from_numpy(split_ptr.astype(np.int32)),
+        slot_split=torch.from_numpy(slot_split),
         empty_row=torch.from_numpy(np.nonzero(n_seg == 0)[0].astype(np.int32)),
         n_slots=int(split_ptr[-1]),
     )
@@ -292,26 +369,38 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _launch(part: Partition, col, weight, x, n_rows, alpha=None, feat=1):
-    global launches, weighted_launches
+_SCALED, _ALPHA, _POSITIONAL = 0, 1, 2  # the C entry's modes
+
+
+def _lanes(f: int, vector: bool) -> tuple:
+    """(G, V) of a call at F = ``f``: G feature lanes per edge slot, V floats
+    per lane.  ``vector`` (F a multiple of 4, 16-byte aligned rows, heads of
+    a multiple of 4 lanes): at F >= 32 a lane loads a float4, and G is the
+    smallest power of two that covers F / 4, at most 32 (a chunk of 128
+    features).  Otherwise V = 1 and G is the smallest power of two >= F, at
+    most 32."""
+    if vector and f >= 32:
+        return min(32, 1 << (-(-f // 4) - 1).bit_length()), 4
+    return min(32, 1 << (f - 1).bit_length()), 1
+
+
+def _run(plan: LaunchPlan, x, out, alpha, feat, mode, accumulate):
+    """One launch of the kernel over ``plan``'s view into ``out``."""
     f = x.shape[1]
-    out = torch.empty((n_rows, f), dtype=torch.float32, device=x.device)
-    partial = torch.empty((part.n_slots, f), dtype=torch.float32, device=x.device)
-    rc = _build.load_library("csr_spmm").gode_csr_spmm_f32(
-        _ptr(part.seg_ptr), _ptr(part.seg_row), _ptr(part.seg_slot),
-        part.seg_row.shape[0],
-        _ptr(part.split_row), _ptr(part.split_ptr), part.split_row.shape[0],
-        _ptr(col), _ptr(weight), None if alpha is None else _ptr(alpha),
-        _ptr(x), _ptr(out), _ptr(partial) if part.n_slots else None,
-        f, feat, _stream(x.device),
+    x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
+    lanes, vec = _lanes(f, f % 4 == 0 and (x_ptr | out_ptr) % 16 == 0
+                        and (alpha is None or feat % 4 == 0))
+    partial = None
+    if plan.n_split:
+        plan.reserve(-(-f // (lanes * vec)))
+        partial = torch.empty((plan.n_slots, f), dtype=torch.float32, device=x.device)
+    rc = _build.load_library("csr_spmm").gode_csr_reduce_f32(
+        plan.address, x_ptr, None if alpha is None else alpha.data_ptr(), out_ptr,
+        None if partial is None else partial.data_ptr(), f, feat or 1, mode, lanes, vec,
+        accumulate, torch.cuda.current_stream(plan.index).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"csr_spmm kernel launch failed: CUDA error {rc}")
-    if alpha is None:
-        launches += 1
-    else:
-        weighted_launches += 1
-    return out
 
 
 def _check_alpha(who, alpha, feat, n_edge, f, device):
@@ -339,8 +428,9 @@ def csr_reduce(
     Takes f32, contiguous ``x [n_node_pad, F]`` on the adjacency's device.
     With ``alpha`` (f32, contiguous ``[E, H]`` in the view's edge order) and
     ``feat`` (``F = H * feat``), the weighted mode.  A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel.
+    plain version; a CUDA tensor launches the kernel, one launch.
     """
+    global launches, weighted_launches
     if x.dtype != torch.float32:
         raise TypeError(f"csr_spmm takes float32 features, got {x.dtype}")
     if x.dim() != 2 or x.shape[0] != csr.n_node_pad or x.shape[1] < 1:
@@ -353,12 +443,18 @@ def csr_reduce(
         raise ValueError(f"x is on {x.device} but the adjacency is on {csr.device}")
     if alpha is not None:
         _check_alpha("csr_spmm", alpha, feat, csr.n_edge, x.shape[1], csr.device)
-    row_ptr, col, weight, part = csr.view(transpose)
-    if x.device.type == "cpu":
-        return _reduce_plain(row_ptr, col, weight, x, alpha, feat)
-    if x.device.type != "cuda":
+    if x.is_cuda:
+        out = torch.empty_like(x)
+        _run(csr.plans[transpose], x, out, alpha, feat, _SCALED if alpha is None else _ALPHA, 0)
+        if alpha is None:
+            launches += 1
+        else:
+            weighted_launches += 1
+        return out
+    if x.device.type != "cpu":
         raise ValueError(f"csr_spmm runs on CPU or CUDA tensors, not {x.device}")
-    return _launch(part, col, weight, x, csr.n_node_pad, alpha, feat or 1)
+    row_ptr, col, weight, _ = csr.view(transpose)
+    return _reduce_plain(row_ptr, col, weight, x, alpha, feat)
 
 
 def _bucket_reduce_plain(view: CSRView, x, out, positional=False, accumulate=True,
@@ -394,17 +490,18 @@ def bucket_reduce(
     contiguous ``[view.n_edge, H]`` in the view's edge order) and ``feat``
     (``F = H * feat``), the weighted mode: ``out[r, h·feat + f] (+)= Σ_p
     alpha[p, h] · x[col[p], h·feat + f]``; it has no positional form.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel.
-    Returns ``out``.
+    tensor takes the plain version; a CUDA tensor launches the kernel, one
+    launch (none when an add form has no edge to add).  Returns ``out``.
     """
     global bucket_launches, bucket_weighted_launches
+    device = view.device
     for name, t in (("x", x), ("out", out)):
         if t.dtype != torch.float32:
             raise TypeError(f"bucket_reduce takes float32 {name}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"bucket_reduce takes a contiguous {name}")
-        if t.device != view.device:
-            raise ValueError(f"{name} is on {t.device} but the view is on {view.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device} but the view is on {device}")
     f = out.shape[1] if out.dim() == 2 else 0
     table_ok = x.shape[0] >= view.n_edge if positional else x.shape[0] == view.n_cols
     if x.dim() != 2 or out.dim() != 2 or f < 1 or x.shape[1] != f or not table_ok \
@@ -417,32 +514,18 @@ def bucket_reduce(
     if alpha is not None:
         if positional:
             raise ValueError("the weighted bucket mode has no positional form")
-        _check_alpha("bucket_reduce", alpha, feat, view.n_edge, f, view.device)
+        _check_alpha("bucket_reduce", alpha, feat, view.n_edge, f, device)
     elif feat is not None:
         raise ValueError("bucket_reduce takes feat only with alpha")
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"bucket_reduce runs on CPU or CUDA tensors, not {x.device}")
         return _bucket_reduce_plain(view, x, out, positional, accumulate, alpha, feat)
-    if x.device.type != "cuda":
-        raise ValueError(f"bucket_reduce runs on CPU or CUDA tensors, not {x.device}")
-    part = view.part
-    if accumulate and part.seg_row.shape[0] == 0:
+    plan = view.plan
+    if accumulate and plan.n_seg == 0:
         return out  # no edge: nothing to add, nothing launched
-    partial = torch.empty((part.n_slots, f), dtype=torch.float32, device=x.device)
-    # An edgeless view has null pointers to its empty arrays: the write form
-    # then only zeroes the rows, whatever the mode.
-    by_alpha = alpha is not None and view.n_edge > 0
-    rc = _build.load_library("csr_spmm").gode_csr_bucket_f32(
-        _ptr(part.seg_ptr), _ptr(part.seg_row), _ptr(part.seg_slot), part.seg_row.shape[0],
-        _ptr(part.split_row), _ptr(part.split_ptr), part.split_row.shape[0],
-        _ptr(part.empty_row), part.empty_row.shape[0],
-        None if positional else _ptr(view.col),
-        None if positional or by_alpha else _ptr(view.weight),
-        _ptr(alpha) if by_alpha else None,
-        _ptr(x), _ptr(out), _ptr(partial) if part.n_slots else None, f, feat or 1,
-        int(accumulate), _stream(x.device),
-    )
-    if rc != 0:
-        raise RuntimeError(f"csr_spmm bucket kernel launch failed: CUDA error {rc}")
+    mode = _POSITIONAL if positional else _SCALED if alpha is None else _ALPHA
+    _run(plan, x, out, alpha, feat, mode, int(accumulate))
     if alpha is None:
         bucket_launches += 1
     else:

@@ -11,7 +11,12 @@ The reference is the plain version run in float64 on the same f32 weights
 and features, so that what is compared is the kernel's own rounding: the
 plain version in float32 adds a hub row's terms one by one in atomic order,
 and its error alone can exceed the tolerance.  Tolerance rtol = atol = 1e-5.
+Each call of the CSR kernel's wrappers is also held to one device launch,
+to bit-equal repeats on split rows, and to bit-equal replays of a captured
+CUDA graph.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -382,6 +387,172 @@ def test_config4_step_is_a_function_of_its_inputs(cuda):
                 for k in g))
     print(f"\n{len(flipped)} of 24 plain steps in atomic order flip a ReLU against the kernel's; "
           f"worst gradient error {worst} of the tolerance; (node, lane, z kernel, z plain): {flipped}")
+
+
+# ---------------------------------- one launch per call, a plan per view
+
+
+def _device_kernels(fn):
+    """Names of the device kernels that ``fn()`` launches, by ``torch.profiler``:
+    the second of two calls, with idle time around it (the profiler can miss
+    a kernel of its first round or near the ends of its window), again up to
+    three times while it shows none; its step marks are not kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                time.sleep(0.02)
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(0.02)
+                prof.step()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")]
+        if names:
+            return names
+    return names
+
+
+def _split_calls(cuda, f):
+    """Calls of every wrapper form on views with split rows (and, in the
+    bucket, empty rows): name -> (make the output, fn(output) returning it)."""
+    g = _split_hub_graph(np.random.default_rng(7))
+    csr = prepare(g).to(cuda)
+    view = _bucket_view(np.random.default_rng(8)).to(cuda)
+    rng = np.random.default_rng(9)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    x, xt, out0 = randn(g.n_node_pad, f), randn(view.n_cols, f), randn(view.n_rows, f)
+    heads = 2 if f % 2 == 0 else 1
+    alpha = _softmax_weights(view, heads, rng, cuda)
+    a_csr = torch.rand(csr.n_edge, heads, device=cuda)
+    nothing, empty, copy = (lambda: None), (lambda: torch.empty_like(out0)), out0.clone
+    return {
+        "csr_fwd": (nothing, lambda _: csr_spmm.csr_reduce(csr, x)),
+        "csr_bwd": (nothing, lambda _: csr_spmm.csr_reduce(csr, x, transpose=True)),
+        "csr_weighted": (nothing, lambda _: csr_spmm.csr_reduce(csr, x, alpha=a_csr,
+                                                                feat=f // heads)),
+        "bucket_write": (empty, lambda o: csr_spmm.bucket_reduce(view, xt, o, accumulate=False)),
+        "bucket_add": (copy, lambda o: csr_spmm.bucket_reduce(view, xt, o)),
+        "bucket_weighted": (empty, lambda o: csr_spmm.bucket_reduce(
+            view, xt, o, accumulate=False, alpha=alpha, feat=f // heads)),
+    }, (csr, view)
+
+
+@pytest.mark.parametrize("f", [3, 16, 40, 256])
+def test_each_call_is_one_launch_and_repeats_bit_for_bit(cuda, f):
+    """Every wrapper form on views with split rows is one device launch (by
+    the profiler), 20 back-to-back calls give bit-equal results (the last
+    warp of a split row adds its partial rows in slot order, whoever it is),
+    and every arrival counter is back at 0 after the calls."""
+    calls, (csr, view) = _split_calls(cuda, f)
+    assert csr.part.split_row.numel() > 0 and view.part.split_row.numel() > 0
+    for name, (make, call) in calls.items():
+        first = call(make())  # builds the plan and its counters
+        out = make()
+        kernels = _device_kernels(lambda: call(out))
+        assert len(kernels) == 1 and "csr_reduce_kernel" in kernels[0], (name, kernels)
+        outs = [make() for _ in range(20)]
+        for got in [call(o) for o in outs]:
+            assert torch.equal(got, first), name
+    torch.cuda.synchronize()
+    for plan in (*csr.plans, view.plan):
+        assert plan.arrivals.numel() >= plan.n_split and not plan.arrivals.any()
+
+
+def test_captured_graph_replays_bit_equal_to_eager_calls(cuda):
+    """``spmm_csr`` forward and backward, and a ring of ``bucket_reduce`` calls
+    (each block's first bucket written, the rest added), captured in a CUDA
+    graph: its replays equal the eager calls bit for bit."""
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver
+
+    g = _split_hub_graph(np.random.default_rng(10))
+    rng = np.random.default_rng(11)
+    csr, pg = prepare(g).to(cuda), partition_by_receiver(g, 2).to(cuda)
+    n, f, B = g.n_node_pad, 256, pg.block_size
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(cuda)
+    up = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(cuda)
+    xr = x.clone().requires_grad_(True)
+
+    def work():
+        y = spmm_csr(csr, xr)
+        (dx,) = torch.autograd.grad(y, xr, up)
+        ring = torch.empty((n, f), device=cuda)
+        for p in range(2):
+            for k in range(2):
+                b = (p + k) % 2
+                csr_spmm.bucket_reduce(pg.bucket(p, b).fwd, x[b * B:(b + 1) * B],
+                                       ring[p * B:(p + 1) * B], accumulate=k > 0)
+        return y.detach(), dx, ring
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = work()  # builds every plan before the capture
+        torch.cuda.synchronize()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = work()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+    for got, want in zip(work(), eager):
+        assert torch.equal(got, want)
+
+
+def test_captured_graph_outlives_a_wider_eager_call(cuda):
+    """A graph captured at F = 40 (one feature chunk) replays bit-equal after
+    an eager call at F = 256 (two chunks) gave the same views new arrival
+    counters; every counter is back at 0; a capture that would need new
+    counters raises."""
+    g = _split_hub_graph(np.random.default_rng(12))
+    csr = prepare(g).to(cuda)
+    view = _bucket_view(np.random.default_rng(13)).to(cuda)
+    rng = np.random.default_rng(14)
+
+    def inputs(f):
+        return tuple(torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(cuda)
+                     for n in (g.n_node_pad, view.n_cols))
+
+    def work(x, xt):
+        out = torch.empty((view.n_rows, x.shape[1]), device=cuda)
+        return csr_spmm.csr_reduce(csr, x), csr_spmm.bucket_reduce(view, xt, out, accumulate=False)
+
+    narrow, wide = inputs(40), inputs(256)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = work(*narrow)  # builds the plans before the capture
+        torch.cuda.synchronize()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = work(*narrow)
+    wide_eager = work(*wide)
+    plans = (csr.plans[0], view.plan)
+    assert all(len(p.outgrown) == 1 for p in plans)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+    for got, want in zip(work(*wide), wide_eager):
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert not any(t.any() for p in plans for t in (*p.outgrown, p.arrivals))
+    widest = inputs(512)  # four chunks: more counters than the plans hold
+    with pytest.raises(RuntimeError, match="eager call"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            work(*widest)
 
 
 # ------------------------------------------ B2-w: the weighted bucket mode
