@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The CSR kernel's rows (B1, B2, B2-w) of several package trees, in turns.
+"""The kernels' rows (B1, B2, B2-w, B3–B5) of several package trees, in turns.
 
     python3 chip_ab.py TREE ... [--out FILE]
 
@@ -7,10 +7,13 @@ Each TREE is the root of a checkout whose ``graph_odenet_tpu_torch`` is built
 from its own sources and measured in a process of its own.  The trees run
 one after another in the order given, so that two versions alternate on one
 card (parent, change, change, parent).  A turn runs this checkout's
-``chip_smoke.py`` phases ``kernel`` (B1), ``bucket`` (B2) and
-``bucket_weighted`` (B2-w) with the tree's package, then, end to end,
-``pubmed-gcnode``'s s/epoch and config 4's ``step_ms`` on one card through
-``run_config``.  Each turn prints its phases' lines and one JSON line of its
+``chip_smoke.py`` phases ``kernel`` (B1), ``bucket`` (B2),
+``bucket_weighted`` (B2-w) and ``attention`` (B3 ``gat_dwh``, B4 ``gat_fwd``,
+B5 ``gat_bwd`` and B1-w: ms, plain ms, bound, and host µs, device µs and
+device launches per call at each shape) with the tree's package, then, end
+to end, ``pubmed-gcnode``'s s/epoch, config 2's s/epoch (GAT-ODE on the
+Citeseer twin) and config 4's ``step_ms`` on one card through
+``run_config``, each with its test accuracy.  Each turn prints its phases' lines and one JSON line of its
 rows; ``--out`` also writes those to FILE.  Then one line per row compares
 the turns.  Needs one CUDA card.
 """
@@ -52,9 +55,20 @@ def turn(tree):
     weighted = smoke.phase_bucket_weighted(dev, synthetic_ogbn_arxiv(seed=0, calibrated=True).graph)
     for (h, f), r in ((k, r) for k, r in weighted.items() if k != "P8"):
         rows[f"B2-w calibrated arxiv P=1 H={h} F={f}"] = r
+    names = {"gat_fwd": "B4", "gat_bwd": "B5", "gat_dwh": "B3", "csr_spmm_weighted": "B1-w"}
+    for r in smoke.phase_attention(dev, smoke.bench_graph(from_edges, normalize=None)):
+        for k, ms in r["kernel_ms"].items():
+            c = r["call_costs"][k]
+            rows[f"{names[k]} {k} {r['graph']} H={r['H']} F={r['F']} {r['mode']}"] = dict(
+                ms=ms, plain_ms=r["kernel_plain_ms"][k], bound_ms=r["bound_ms"][k],
+                host_us=c["host_us"], wall_us=c["wall_us"], device_us=c["device_us"],
+                launches_per_call=c["launches_per_call"], kernels=c["kernels"])
     res = run_config("pubmed-gcnode", calibrated=True, device=dev)
     e2e = {"pubmed-gcnode s/epoch": res["seconds"] / res["epochs_run"],
            "pubmed-gcnode test_acc": res["best"]["test_acc"]}
+    res = run_config(2, calibrated=True, device=dev)
+    e2e.update({"config2 s/epoch": res["seconds"] / res["epochs_run"],
+                "config2 test_acc": res["best"]["test_acc"]})
     res = run_config(4, device=dev)
     e2e.update({"config4 step_ms": res["step_ms"], "config4 test_acc": res["test_acc"]})
     return dict(tree=tree, card=torch.cuda.get_device_name(0), rows=rows, end_to_end=e2e)
@@ -88,7 +102,10 @@ def main():
         with open(args.out, "w") as fh:
             fh.writelines(line + "\n" for line in lines)
     for key in turns[0]["rows"]:
-        print(key, "ms", " | ".join(f"{t['tree']} {t['rows'][key]['ms']:.4f}" for t in turns))
+        for what in ("ms", "host_us", "device_us", "launches_per_call"):
+            if what in turns[0]["rows"][key]:
+                print(key, what, " | ".join(f"{t['tree']} {t['rows'][key][what]:.4f}"
+                                             for t in turns))
     for key in turns[0]["end_to_end"]:
         print(key, " | ".join(f"{t['tree']} {t['end_to_end'][key]:.4f}" for t in turns))
 

@@ -35,7 +35,11 @@ so the exit code is non-zero:
              on the Citeseer twin (H=8/F=8 with dropout 0.6, H=1/F=64,
              H=1/F=6), two hub graphs and the bench graph; ms per fwd+bwd
              of ``attention_aggregate`` through the kernels and through the
-             plain version in float32.
+             plain version in float32; each kernel wrapper's host µs, device
+             µs and device launches per call (``call_costs``).  The run fails
+             if a ``gat_fwd`` or ``gat_bwd`` call launches more than one
+             kernel or any kernel but its own, at any shape (the hub graphs'
+             split rows included).
   slice      trains ``pubmed-gcnode`` (GCN-ODE, rk4, 200 epochs with early
              stop) on the card, checks that it went through the kernel and
              reached test accuracy >= 0.65, and holds the trained model's
@@ -437,7 +441,7 @@ def _err(a, b, tol):
     return float(d.max()), float((d / (tol["atol"] + tol["rtol"] * b.abs())).max())
 
 
-def check_attention(name, g, heads, feat, mode, dev, iters, seed, tol=ATT_TOL):
+def check_attention(name, g, heads, feat, mode, dev, iters, seed, tol=ATT_TOL, cost_calls=1000):
     """The GAT kernels at one shape.  ``mode``: "hint" (score hint, the
     config-2 path), "hint_hash" (plus the counter-hash dropout 0.6) or
     "mask" (no hint, an explicit [E, H] dropout mask 0.6: the weighted SpMM
@@ -452,7 +456,9 @@ def check_attention(name, g, heads, feat, mode, dev, iters, seed, tol=ATT_TOL):
     Both at ``tol``; the plain version in float32 is held to the same
     references and reported.  Then ms per fwd+bwd through the entry point,
     for the kernels and for the plain version in float32, and of each kernel
-    alone; the kernel launches of the timed entry-point runs are counted.
+    alone; the kernel launches of the timed entry-point runs are counted;
+    each kernel wrapper's host µs, wall µs, device µs and device launches per
+    call over ``cost_calls`` calls (``call_costs``).
     """
     from graph_odenet_tpu_torch.ops import csr_spmm, gat_attn, prepare
     from graph_odenet_tpu_torch.ops.dropmask import attention_dropout_scale
@@ -529,12 +535,16 @@ def check_attention(name, g, heads, feat, mode, dev, iters, seed, tol=ATT_TOL):
     got = probe(torch.float32, True)
     torch.cuda.synchronize()
     want = probe(torch.float64, False)
-    errs["entry"] = max((_err(x, y, tol) for x, y in zip(got, want)), key=lambda e: e[1])
-    plain_errs["entry"] = max(
-        (_err(x, y, tol) for x, y in zip(probe(torch.float32, False), want)), key=lambda e: e[1])
+    outputs = ("out", "d_s_src", "d_s_dst", "d_wh")
+    entry_errs = {k: _err(x, y, tol) for k, x, y in zip(outputs, got, want)}
+    plain_entry_errs = {
+        k: _err(x, y, tol) for k, x, y in zip(outputs, probe(torch.float32, False), want)}
+    errs["entry"] = max(entry_errs.values(), key=lambda e: e[1])
+    plain_errs["entry"] = max(plain_entry_errs.values(), key=lambda e: e[1])
     worst = max(errs.values(), key=lambda e: e[1])
     if worst[1] > 1.0:
-        raise AssertionError(f"attention {name} H={heads} F={feat} {mode}: {errs}")
+        raise AssertionError(f"attention {name} H={heads} F={feat} {mode}: {errs}; entry by "
+                             f"output {entry_errs}, plain f32 {plain_entry_errs}")
 
     # Each kernel alone against its plain version, both in float32.
     per_kernel = {
@@ -565,6 +575,8 @@ def check_attention(name, g, heads, feat, mode, dev, iters, seed, tol=ATT_TOL):
             "kernel": lambda: gat_attn.gat_dwh(csr, s_src0, s_dst0, m, l, up, slope, drop=drop),
         }
     kernel_ms = {k: alternate(fns, iters) for k, fns in per_kernel.items()}
+    # What one call of each kernel's wrapper costs: host, wall, device, launches.
+    costs = {k: call_costs(fns["kernel"], calls=cost_calls) for k, fns in per_kernel.items()}
 
     def fwd_bwd(kernel):
         def run():
@@ -583,10 +595,13 @@ def check_attention(name, g, heads, feat, mode, dev, iters, seed, tol=ATT_TOL):
         max_abs_err={k: e[0] for k, e in errs.items()},
         max_err_over_tol={k: e[1] for k, e in errs.items()},
         plain_f32_max_err_over_tol={k: e[1] for k, e in plain_errs.items()},
+        entry_max_err_over_tol={k: e[1] for k, e in entry_errs.items()},
+        plain_f32_entry_max_err_over_tol={k: e[1] for k, e in plain_entry_errs.items()},
         ms=times["kernel"], plain_ms=times["plain"],
         edges_per_s=csr.n_edge / (times["kernel"] * 1e-3), launches=launched,
         kernel_ms={k: t["kernel"] for k, t in kernel_ms.items()},
         kernel_plain_ms={k: t["plain"] for k, t in kernel_ms.items()},
+        call_costs=costs,
     )
     bounds = {k: bound(*attention_work(k, n, csr.n_edge, heads, feat)) for k in kernel_ms}
     row["bound_ms"] = {k: b["bound_ms"] for k, b in bounds.items()}
@@ -608,9 +623,12 @@ def phase_attention(dev, bench, iters=50, bench_iters=10):
         check_attention("citeseer-twin", cite, 1, 6, "hint", dev, iters, seed=12),
         check_attention("hub-receiver", hub_in, 8, 8, "hint", dev, iters, seed=13),
         check_attention("hub-sender", hub_out, 8, 8, "hint", dev, iters, seed=14),
-        check_attention("bench", bench, 8, 8, "hint_hash", dev, bench_iters, 15, BENCH_ATT_TOL),
-        check_attention("bench", bench, 1, 128, "hint", dev, bench_iters, 16, BENCH_ATT_TOL),
-        check_attention("bench", bench, 8, 8, "mask", dev, bench_iters, 17, BENCH_ATT_TOL),
+        check_attention("bench", bench, 8, 8, "hint_hash", dev, bench_iters, 15, BENCH_ATT_TOL,
+                        cost_calls=100),
+        check_attention("bench", bench, 1, 128, "hint", dev, bench_iters, 16, BENCH_ATT_TOL,
+                        cost_calls=100),
+        check_attention("bench", bench, 8, 8, "mask", dev, bench_iters, 17, BENCH_ATT_TOL,
+                        cost_calls=100),
     ]
 
 
@@ -1365,19 +1383,25 @@ def main():
     per_call += [(f"P={p}", k, c) for p, r in buckets.items() for k, c in r["call_costs"].items()]
     per_call += [(f"weighted {k}", "write", r["call_costs"]) for k, r in weighted_buckets.items()
                  if "call_costs" in r]
+    own = {k: "csr_reduce_kernel" for _, k, _ in per_call}
+    # gat_fwd and gat_bwd: one launch of their own kernel a call, split rows too.
+    att_calls = [(f"{r['graph']} H={r['H']} F={r['F']} {r['mode']}", k, r["call_costs"][k])
+                 for r in att for k in ("gat_fwd", "gat_bwd")]
+    own.update({k: f"{k}_kernel" for _, k, _ in att_calls})
+    per_call += att_calls
     for shape, form, c in per_call:
-        if c["launches_per_call"] > 1 or any("csr_reduce_kernel" not in k for k in c["kernels"]):
+        if c["launches_per_call"] > 1 or any(own[form] not in k for k in c["kernels"]):
             raise AssertionError(f"{shape} {form}: {c['launches_per_call']} device launches a "
                                  f"call, kernels {c['kernels']}")
     # The profiler drops kernels now and then; fewer launches than calls is its miss.
     emit("profiler_missed", calls=[(shape, form, c["launches_per_call"])
                                    for shape, form, c in per_call if c["launches_per_call"] < 1])
 
-    def att_entry(kernel, source, replaces, row, launched):
+    def att_entry(kernel, source, replaces, row, launched, costs=False):
         checked = [r for r in att if kernel in r["max_abs_err"]]
         h, f = row["H"], row["F"]
         # Worst error over tolerance of all shapes, each at its own tolerance.
-        return {
+        entry = {
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launched,
             "max_abs_err": max(r["max_abs_err"][kernel] for r in checked),
@@ -1389,6 +1413,21 @@ def main():
             "library_ms": None,
             "shape": f"{row['graph']}, H={h}, F={f}, {row['mode']}, one call",
         }
+        if costs:  # per call at this shape, and every figure at the other shapes
+            c = row["call_costs"][kernel]
+            entry.update(
+                host_us=c["host_us"], device_us=c["device_us"],
+                device_launches_per_call=max(r["call_costs"][kernel]["launches_per_call"]
+                                             for r in checked),
+                other_shapes={
+                    f"{r['graph']} H={r['H']} F={r['F']} {r['mode']}": dict(
+                        ms=r["kernel_ms"][kernel], plain_ms=r["kernel_plain_ms"][kernel],
+                        bound_ms=r["bound_ms"][kernel], bound_by=r["bound_by"][kernel],
+                        host_us=r["call_costs"][kernel]["host_us"],
+                        device_us=r["call_costs"][kernel]["device_us"],
+                        device_launches_per_call=r["call_costs"][kernel]["launches_per_call"])
+                    for r in checked if r is not row})
+        return entry
 
     main_row = rows[0]  # the slice's shape: Pubmed twin, F = 16
     cite_row, mask_row = att[0], att[7]  # config 2's encoder shape; the bench's no-hint shape
@@ -1464,9 +1503,9 @@ def main():
         att_entry("csr_spmm_weighted", spmm_src, "graph_odenet_tpu/ops/pallas_spmm.py:479",
                   mask_row, weighted),
         att_entry("gat_fwd", gat_src, "graph_odenet_tpu/ops/pallas_gat.py:206",
-                  cite_row, gat_launches["gat_fwd"]),
+                  cite_row, gat_launches["gat_fwd"], costs=True),
         att_entry("gat_bwd", gat_src, "graph_odenet_tpu/ops/pallas_gat.py:890",
-                  cite_row, gat_launches["gat_bwd"]),
+                  cite_row, gat_launches["gat_bwd"], costs=True),
         att_entry("gat_dwh", gat_src, "graph_odenet_tpu/ops/pallas_spmm.py:736",
                   cite_row, gat_launches["gat_dwh"]),
     ]}))

@@ -65,92 +65,17 @@
 
 #include "segments.cuh"
 
-// The launch plan of one view: what never changes between calls, built once
-// per view by ops/csr_spmm.py::LaunchPlan.  Field order and types match
-// _PlanStruct there.
-struct CsrPlan {
-  const int64_t* seg_ptr;     // [S+1] edge span of each segment
-  const int32_t* seg_row;     // [S]   output row of each segment
-  const int32_t* seg_slot;    // [S]   -1: whole row; else its partial slot
-  const int32_t* split_row;   // [R]   rows cut into several segments
-  const int32_t* split_ptr;   // [R+1] their spans of partial slots
-  const int32_t* slot_split;  // [n_slots] split row (index into split_row) of each slot
-  const int32_t* empty_row;   // [K]   rows without a segment
-  const int32_t* col;         // [L]   gathered table row of each position
-  const float* w;             // [L]   edge weights
-  int32_t* arrivals;          // [n_arrivals] zero between calls
-  int64_t n_seg;
-  int64_t n_split;
-  int64_t n_empty;
-  int64_t n_arrivals;
-};
-
 namespace {
 
 using gode::kFullMask;
 using gode::kThreads;
 using gode::kWarpsPerBlock;
+using gode::Lane;
+using gode::sum_slots;
 
 // kScaled: w[p] * x[col[p]].  kAlpha: alpha-scaled lanes.  kPositional: x[p].
 // Values match the wrapper's.
 enum class Mode : int { kScaled = 0, kAlpha = 1, kPositional = 2 };
-
-// V consecutive floats of one lane: a float or a float4 (16-byte loads).
-template <int V> struct Lane;
-
-template <> struct Lane<1> {
-  float v;
-  __device__ __forceinline__ static Lane zero() { return {0.f}; }
-  __device__ __forceinline__ static Lane ldg(const float* p) { return {__ldg(p)}; }
-  __device__ __forceinline__ static Lane ldcg(const float* p) { return {__ldcg(p)}; }
-  __device__ __forceinline__ static Lane ld(const float* p) { return {*p}; }
-  __device__ __forceinline__ void st(float* p) const { *p = v; }
-  __device__ __forceinline__ void fma(float a, const Lane& b) { v = fmaf(a, b.v, v); }
-  __device__ __forceinline__ void add(const Lane& b) { v += b.v; }
-  __device__ __forceinline__ Lane shfl_xor(int off) const {
-    return {__shfl_xor_sync(kFullMask, v, off)};
-  }
-};
-
-template <> struct Lane<4> {
-  float4 v;
-  __device__ __forceinline__ static Lane zero() { return {make_float4(0.f, 0.f, 0.f, 0.f)}; }
-  __device__ __forceinline__ static Lane ldg(const float* p) {
-    return {__ldg(reinterpret_cast<const float4*>(p))};
-  }
-  __device__ __forceinline__ static Lane ldcg(const float* p) {
-    return {__ldcg(reinterpret_cast<const float4*>(p))};
-  }
-  __device__ __forceinline__ static Lane ld(const float* p) {
-    return {*reinterpret_cast<const float4*>(p)};
-  }
-  __device__ __forceinline__ void st(float* p) const { *reinterpret_cast<float4*>(p) = v; }
-  __device__ __forceinline__ void fma(float a, const Lane& b) {
-    v.x = fmaf(a, b.v.x, v.x);
-    v.y = fmaf(a, b.v.y, v.y);
-    v.z = fmaf(a, b.v.z, v.z);
-    v.w = fmaf(a, b.v.w, v.w);
-  }
-  __device__ __forceinline__ void add(const Lane& b) {
-    v.x += b.v.x;
-    v.y += b.v.y;
-    v.z += b.v.z;
-    v.w += b.v.w;
-  }
-  __device__ __forceinline__ Lane shfl_xor(int off) const {
-    return {make_float4(__shfl_xor_sync(kFullMask, v.x, off), __shfl_xor_sync(kFullMask, v.y, off),
-                        __shfl_xor_sync(kFullMask, v.z, off), __shfl_xor_sync(kFullMask, v.w, off))};
-  }
-};
-
-// Adds the lanes of the warp's 32/G edge slots: lane l ends with the sum over
-// the slots of its feature lane l % G, in a fixed order.
-template <int G, int V>
-__device__ __forceinline__ Lane<V> sum_slots(Lane<V> acc) {
-#pragma unroll
-  for (int off = 16; off >= G; off >>= 1) acc.add(acc.shfl_xor(off));
-  return acc;
-}
 
 // One lane's share of a segment's sum, over the edges [p0, p1), at features
 // f .. f+V-1 (`live`: f < F).  Every lane runs the same number of steps, so

@@ -1,10 +1,10 @@
 // Fused GAT attention for Hopper (sm_90a): forward, α/dlogit backward and
-// recompute-α dWh.  f32 only; index math is 64-bit; nothing is atomic, so
-// every result is deterministic.
+// recompute-α dWh.  f32 only; index math is 64-bit where it indexes edges.
+// Every sum is taken in a fixed order, so every result is deterministic.
 //
 // Replaces, in graph_odenet_tpu/ops/:
 //   gat_fwd  pallas_gat.py::_gat_kernel / _gat_kernel_packed (B4): per
-//            receiver and head an online softmax of the edge logits,
+//            receiver and head the softmax of the edge logits,
 //            out = Σ α·D·Wh[s], and the softmax state m (max logit) and
 //            l = Σ exp(logit − m) over every real edge, dropped ones
 //            included (D scales numerators only).  Edgeless rows write
@@ -18,26 +18,53 @@
 // D is the dropout scale of dropmask.cuh: none, an explicit [E, H] array, or
 // the counter hash regenerated in place.
 //
-// What bounds them on the card: the gathers.  Per edge, gat_fwd reads one
-// Wh row (4·H·F bytes from a random sender) and H logits; gat_bwd reads the
-// same Wh row and writes H dlogits; gat_dwh reads one g row of a random
-// receiver plus 3·H floats of its node tables.  A few flops per gathered
-// float, far below what the card computes per byte.  What the designs do:
-//   * a warp owns a segment of at most SEG_EDGES edges of one row (cut by
-//     ops/csr_spmm.py::prepare, the same partition as the SpMM kernel).  Its
-//     lanes split into 32/G edge slots of G lanes; neighbouring lanes read
-//     neighbouring floats of one gathered row;
-//   * gat_fwd keeps the online-softmax state (m, l, acc) of each lane in
-//     registers and merges the slots with shuffles.  A hub row longer than
-//     one segment is spread over several warps, each writing a partial
-//     (m, l, acc); a second kernel merges them, rescaling by exp(m_i − m);
-//   * gat_bwd needs a dot product per head, so its lanes are laid out by
-//     head: each head takes Fp lanes (F rounded up to a power of two, or to
-//     a multiple of 32 above 32) and the dot is a shuffle reduction over
-//     them.  Edges are independent, so warps take flat runs of edges and a
-//     hub row is spread over as many warps as it needs;
-//   * gat_dwh is the SpMM kernel over the CSC view with the weight
-//     recomputed per lane; hub senders take the split-row pass.
+// What bounds them on the card: bytes.  Per edge, gat_fwd reads one Wh row
+// (4·H·F bytes from a random sender) and H logits; gat_bwd reads the same Wh
+// row and writes H dlogits; gat_dwh reads one g row of a random receiver plus
+// 3·H floats of its node tables.  About two flops per gathered float, from
+// random rows: there is no matrix product for the tensor cores (wgmma) to
+// take, and TMA copies rectangular tiles, not scattered rows, so neither is
+// used.  What the designs of gat_fwd and gat_bwd do about the bytes:
+//   * the host path: both take the receiver-sorted view's LaunchPlan
+//     (segments.cuh::CsrPlan, built once per view by ops/csr_spmm.py) by
+//     pointer, plus only what varies, and each call is one launch;
+//   * a warp item is one warp segment (at most SEG_EDGES edges of one row;
+//     ops/csr_spmm.py::prepare cuts the rows) times one feature chunk, the
+//     chunk the grid's slowest axis, as in the CSR kernel.  Its lanes split
+//     into 32/G edge slots of G lanes; at F % 4 == 0, H·F >= 32 and 16-byte
+//     aligned rows a lane loads a float4 of one head (a 16-byte gather) and a
+//     chunk holds up to 128 features; otherwise lanes are single floats;
+//   * the softmax weight is computed once per (edge, head), not per feature
+//     lane: the warp loads a batch of up to 32 edges' senders and logits,
+//     coalesced, takes the batch's max per head with shuffles, and computes
+//     exp and the dropout hash once per (edge, head) into a per-warp tile of
+//     shared memory, from which every lane reads its head's weight and its
+//     sender as a broadcast.  gat_fwd first passes over the segment's logits
+//     alone for the max and the sum per head (rescaled once a batch), then
+//     gathers with the normalised weight α·D; a segment of one batch (every
+//     row of up to 32 edges) keeps its exps in the tile between the passes;
+//   * four independent gathers of Wh in flight per lane, added in edge order
+//     into one accumulator;
+//   * gat_fwd: a hub row cut into several segments is merged in the same
+//     grid.  Each segment writes its partial (out, m, l), its own softmax of
+//     its edges, to the slot of its split row; after a __threadfence it counts its arrival on
+//     the plan's counter of (split row, chunk); the last warp to arrive reads
+//     the partial states through L2 in slot order, its lanes striding over
+//     the slots, adds them weighted by l_k·exp(m_k − m) in a fixed shuffle
+//     tree, writes the row and resets the counter to 0.  So the result does
+//     not depend on scheduling, repeated calls are bit-equal, and the launch
+//     can be captured in a CUDA graph;
+//   * gat_bwd walks the same receiver segments: a warp loads its receiver's
+//     g row (its lanes' float4s), m, l and β once per segment and keeps them
+//     in registers, so per edge it gathers only Wh[s] and the logits.  Lanes
+//     are laid out by head: each head takes Lh lanes (a power of two, at most
+//     32; a lane adds several float4 of its head where the head is wider), a
+//     head never spans warps, and the per-head dot is a shuffle tree over its
+//     lanes.  Edges are independent, so a split row needs no merge.  Extra
+//     warps of the same grid write zeros to the padding rows of dlogits;
+//   * gat_dwh (not redesigned) is the SpMM over the CSC view with the weight
+//     recomputed per lane; hub senders take split_rows_kernel, a second
+//     launch.
 
 #include <cmath>
 #include <cstdint>
@@ -52,181 +79,323 @@ using gode::DropMask;
 using gode::kFullMask;
 using gode::kThreads;
 using gode::kWarpsPerBlock;
+using gode::Lane;
+using gode::sum_slots;
+
+constexpr int kUnroll = 4;  // gathers in flight per lane
+
+// Heads that the chunk [c·W, (c+1)·W) of an H·F row touches, and the first.
+__host__ __device__ __forceinline__ int chunk_heads(int c, int W, int H, int F, int* first) {
+  const int f0 = c * W;
+  const int f1 = (f0 + W < H * F ? f0 + W : H * F) - 1;
+  *first = f0 / F;
+  return f1 / F - f0 / F + 1;
+}
 
 // ---------------------------------------------------------------- gat_fwd
 
-// One warp per CSR segment; lane fl of slot `sub` handles feature f of the
-// flattened [H·F] row, head f / F.
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-gat_fwd_kernel(const int64_t* __restrict__ seg_ptr, const int32_t* __restrict__ seg_row,
-               const int32_t* __restrict__ seg_slot, int64_t n_seg,
-               const int32_t* __restrict__ senders, const float* __restrict__ logits,
-               const float* __restrict__ wh, DropMask mask,
-               float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
-               float* __restrict__ p_acc, float* __restrict__ p_m, float* __restrict__ p_l,
-               int64_t H, int64_t F) {
+// acc += Σ tile[j·Hp + hf] · row(j) over the j < n of this lane's edge slot
+// (j ≡ l / G mod 32/G), in order, four rows loaded at a time.
+template <int G, int V, class Row>
+__device__ __forceinline__ void add_weighted(Lane<V>& acc, const float* tile, int Hp, int hf,
+                                             int n, int sub, bool live, Row row) {
   constexpr int kSlots = 32 / G;
-  const int64_t s = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-  if (s >= n_seg) return;  // uniform across the warp
-  const int lane = threadIdx.x & 31;
-  const int sub = lane / G;
-  const int fl = lane % G;
-  const int64_t p0 = seg_ptr[s];
-  const int64_t p1 = seg_ptr[s + 1];
-  const int32_t row = seg_row[s];
-  const int slot = seg_slot[s];
-  const int64_t HF = H * F;
-  for (int64_t f0 = 0; f0 < HF; f0 += G) {
-    const int64_t f = f0 + fl;
-    const bool live = f < HF;
-    const int64_t h = live ? f / F : 0;
-    float m = -INFINITY;
-    float l = 0.f;
-    float acc = 0.f;
-    if (live) {
-      for (int64_t p = p0 + sub; p < p1; p += kSlots) {
-        const float x = __ldg(logits + p * H + h);
-        const int32_t c = __ldg(senders + p);
-        if (x > m) {  // rescale the running sums to the new max
-          const float sc = expf(m - x);
-          l *= sc;
-          acc *= sc;
-          m = x;
-        }
-        const float e = expf(x - m);
-        l += e;
-        acc = fmaf(e * mask.at(p, H, h, c, row), __ldg(wh + static_cast<int64_t>(c) * HF + f), acc);
-      }
-    }
-    // Merge the edge slots: every lane ends with the state of all of them.
+  for (int j0 = 0; j0 < n; j0 += kSlots * kUnroll) {
+    Lane<V> x[kUnroll];
 #pragma unroll
-    for (int off = 16; off >= G; off >>= 1) {
-      const float m2 = __shfl_xor_sync(kFullMask, m, off);
-      const float l2 = __shfl_xor_sync(kFullMask, l, off);
-      const float acc2 = __shfl_xor_sync(kFullMask, acc, off);
-      const float mn = fmaxf(m, m2);
-      const float a = m == -INFINITY ? 0.f : expf(m - mn);
-      const float b = m2 == -INFINITY ? 0.f : expf(m2 - mn);
-      l = l * a + l2 * b;
-      acc = acc * a + acc2 * b;
-      m = mn;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kSlots + sub;
+      x[u] = live && j < n ? row(j) : Lane<V>::zero();
     }
-    if (sub == 0 && live) {
-      const bool head_lane = f % F == 0;
-      if (slot < 0) {
-        out[static_cast<int64_t>(row) * HF + f] = l > 0.f ? acc / l : 0.f;
-        if (head_lane) {
-          m_out[static_cast<int64_t>(row) * H + h] = l > 0.f ? m : 0.f;
-          l_out[static_cast<int64_t>(row) * H + h] = l;
-        }
-      } else {
-        p_acc[static_cast<int64_t>(slot) * HF + f] = acc;
-        if (head_lane) {
-          p_m[static_cast<int64_t>(slot) * H + h] = m;
-          p_l[static_cast<int64_t>(slot) * H + h] = l;
-        }
-      }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kSlots + sub;
+      if (live && j < n) acc.fma(tile[j * Hp + hf], x[u]);
     }
   }
 }
 
-// Merge the partial softmax states of the split rows, in segment order.
-// Every segment of a split row holds edges, so every m_k is finite.
+// A warp item is (segment s, chunk c): lane l covers the V features
+// f = c·G·V + (l % G)·V of head f / F, for the edges of slot l / G.  The tile
+// holds a batch's weights [32][Hp] (Hp: a power of two >= the chunk's heads)
+// and its senders [32].  The (edge, head) pairs of a batch are taken as
+// j = l / Hp + k·(32 / Hp), head l % Hp: every lane keeps the softmax state
+// (m, l) of head l % Hp of the chunk, and a shuffle over offsets >= Hp
+// reduces over the edges of one head.  Two passes over the segment:
+//   1. its logits only: the max per head per batch and the sum l of
+//      exp(logit − m), rescaled once a batch when the max grows;
+//   2. the gather, each edge weighted by α·D = exp(logit − m) / l · D, the
+//      same value gat_bwd computes, so out needs no division at the end.
+// A segment of one batch (every row of at most 32 edges) keeps its exps in
+// the tile from pass 1; a longer one reads its logits again and takes the
+// exp again in pass 2.  Normalised weights make the rounding of each
+// product depend on its row: with unnormalised ones the max edge weighs
+// exactly D, so a sender that dominates many rows rounds its D·Wh the same
+// way in each of them, and the backward's sums over that sender (its dWh)
+// add those errors up instead of averaging them out.
+template <int G, int V>
 __global__ void __launch_bounds__(kThreads)
-gat_fwd_split_kernel(const int32_t* __restrict__ split_row, const int32_t* __restrict__ split_ptr,
-                     int64_t n_split, const float* __restrict__ p_acc,
-                     const float* __restrict__ p_m, const float* __restrict__ p_l,
-                     float* __restrict__ out, float* __restrict__ m_out,
-                     float* __restrict__ l_out, int64_t H, int64_t F) {
-  const int64_t HF = H * F;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n_split * HF) return;
-  const int64_t j = i / HF;
-  const int64_t f = i - j * HF;
-  const int64_t h = f / F;
-  const int64_t k0 = split_ptr[j];
-  const int64_t k1 = split_ptr[j + 1];
-  float m = -INFINITY;
-  for (int64_t k = k0; k < k1; ++k) m = fmaxf(m, p_m[k * H + h]);
-  float l = 0.f;
-  float acc = 0.f;
-  for (int64_t k = k0; k < k1; ++k) {
-    const float sc = expf(p_m[k * H + h] - m);
-    l = fmaf(p_l[k * H + h], sc, l);
-    acc = fmaf(p_acc[k * HF + f], sc, acc);
+gat_fwd_kernel(const CsrPlan plan, const float* __restrict__ logits,
+               const float* __restrict__ wh, DropMask mask, float* __restrict__ out,
+               float* __restrict__ m_out, float* __restrict__ l_out,
+               float* __restrict__ p_acc, float* __restrict__ p_stat, int H, int F, int Hp,
+               int n_chunks) {
+  constexpr int kSlots = 32 / G;
+  constexpr int kWidth = G * V;
+  const int64_t item = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  if (item >= plan.n_seg * n_chunks) return;  // uniform across the warp
+  const int lane = threadIdx.x & 31;
+  extern __shared__ float4 gode_smem[];
+  float* tile = reinterpret_cast<float*>(gode_smem) + (threadIdx.x >> 5) * 32 * (Hp + 1);
+  int32_t* cols = reinterpret_cast<int32_t*>(tile + 32 * Hp);
+  const int chunk = static_cast<int>(item / plan.n_seg);
+  const int64_t s = item - static_cast<int64_t>(chunk) * plan.n_seg;
+  const int HF = H * F;
+  int h0;
+  const int n_heads = chunk_heads(chunk, kWidth, H, F, &h0);
+  const int sub = lane / G;
+  const int f = chunk * kWidth + (lane % G) * V;
+  const bool live = f < HF;  // F % V == 0: the lane's V features are in one head
+  const int hf = live ? f / F - h0 : 0;  // the lane's head, within the chunk
+  const int hs = lane % Hp;              // the head whose softmax state the lane keeps
+  const bool hs_live = hs < n_heads;
+  const int per = 32 / Hp;
+  const int64_t p0 = plan.seg_ptr[s];
+  const int64_t p1 = plan.seg_ptr[s + 1];
+  const int32_t row = plan.seg_row[s];
+
+  // Pass 1: max and sum per head, exp once per (edge, head).
+  float m_run = -INFINITY;
+  float l_run = 0.f;
+  for (int64_t pb = p0; pb < p1; pb += 32) {
+    const int n = static_cast<int>(p1 - pb < 32 ? p1 - pb : 32);
+    float bmax = -INFINITY;
+    for (int j = lane / Hp; hs_live && j < n; j += per) {
+      const float x = __ldg(logits + (pb + j) * H + h0 + hs);
+      tile[j * Hp + hs] = x;  // each lane reads back only its own pairs
+      bmax = fmaxf(bmax, x);
+    }
+    for (int off = 16; off >= Hp; off >>= 1) {
+      bmax = fmaxf(bmax, __shfl_xor_sync(kFullMask, bmax, off));
+    }
+    const float m_new = fmaxf(m_run, bmax);
+    float lsum = 0.f;
+    for (int j = lane / Hp; hs_live && j < n; j += per) {
+      const float e = expf(tile[j * Hp + hs] - m_new);
+      tile[j * Hp + hs] = e;
+      lsum += e;
+    }
+    for (int off = 16; off >= Hp; off >>= 1) lsum += __shfl_xor_sync(kFullMask, lsum, off);
+    l_run = m_run == -INFINITY ? lsum : fmaf(l_run, expf(m_run - m_new), lsum);
+    m_run = m_new;
   }
-  const int64_t row = split_row[j];
-  out[row * HF + f] = acc / l;
-  if (f % F == 0) {
-    m_out[row * H + h] = m;
-    l_out[row * H + h] = l;
+  // Pass 2: the weights α·D, then the gather.  Four rows in flight per lane,
+  // added in edge order into one accumulator.
+  const bool one_batch = p1 - p0 <= 32;
+  Lane<V> acc = Lane<V>::zero();
+  for (int64_t pb = p0; pb < p1; pb += 32) {
+    const int n = static_cast<int>(p1 - pb < 32 ? p1 - pb : 32);
+    if (lane < n) cols[lane] = __ldg(plan.col + pb + lane);
+    __syncwarp();  // the senders are in the tile
+    for (int j = lane / Hp; hs_live && j < n; j += per) {
+      const float e = one_batch ? tile[j * Hp + hs]
+                                : expf(__ldg(logits + (pb + j) * H + h0 + hs) - m_run);
+      tile[j * Hp + hs] = e / l_run * mask.at(pb + j, H, h0 + hs, cols[j], row);
+    }
+    __syncwarp();  // the weights are in the tile
+    add_weighted<G, V>(acc, tile, Hp, hf, n, sub, live, [&](int e) {
+      return Lane<V>::ldg(wh + static_cast<int64_t>(cols[e]) * HF + f);
+    });
+    __syncwarp();  // the next batch overwrites the tile
+  }
+  const Lane<V> sum = sum_slots<G, V>(acc);
+  const float m_f = __shfl_sync(kFullMask, m_run, hf);
+  const float l_f = __shfl_sync(kFullMask, l_run, hf);
+  const bool first_of_head = live && f % F == 0;
+  const int slot = plan.seg_slot[s];
+  if (slot < 0) {  // a whole row; an edgeless one writes zeros
+    if (sub == 0 && live) {
+      sum.st(out + static_cast<int64_t>(row) * HF + f);
+      if (first_of_head) {
+        m_out[static_cast<int64_t>(row) * H + h0 + hf] = l_f > 0.f ? m_f : 0.f;
+        l_out[static_cast<int64_t>(row) * H + h0 + hf] = l_f;
+      }
+    }
+    return;
+  }
+  // A segment of a split row: its partial state (its own softmax of its
+  // edges), then its arrival.  The state of slot k and chunk c: p_acc[k, f]
+  // and p_stat[(k·n_chunks + c)·2Hp + {0, Hp} + head within the chunk].
+  if (sub == 0 && live) sum.st(p_acc + static_cast<int64_t>(slot) * HF + f);
+  const int64_t stat_stride = 2 * static_cast<int64_t>(Hp);
+  if (lane < n_heads) {  // hs == lane
+    float* st = p_stat + (static_cast<int64_t>(slot) * n_chunks + chunk) * stat_stride;
+    st[lane] = m_run;
+    st[Hp + lane] = l_run;
+  }
+  __threadfence();
+  __syncwarp();
+  const int j = plan.slot_split[slot];
+  const int k0 = plan.split_ptr[j];
+  const int k1 = plan.split_ptr[j + 1];
+  int32_t* counter = plan.arrivals + static_cast<int64_t>(chunk) * plan.n_split + j;
+  int before = 0;
+  if (lane == 0) before = atomicAdd(counter, 1);
+  before = __shfl_sync(kFullMask, before, 0);
+  if (before != k1 - k0 - 1) return;  // not the last to arrive (uniform across the warp)
+  // The last: every partial state of this split row and chunk is written.
+  __threadfence();
+  if (lane == 0) *counter = 0;  // the next call starts from zero
+  // Every segment of a split row holds edges, so every m_k is finite.  The
+  // (slot, head) pairs take the max per head, then the weights
+  // c_k = l_k·exp(m_k − m) of 32 slots at a time into the tile (slot k's row
+  // is its own softmax), and the lanes add the partial rows as in pass 2.
+  const auto stat = [&](int k) {
+    return p_stat + (static_cast<int64_t>(k) * n_chunks + chunk) * stat_stride;
+  };
+  float m = -INFINITY;
+  for (int k = k0 + lane / Hp; hs_live && k < k1; k += per) m = fmaxf(m, __ldcg(stat(k) + hs));
+  for (int off = 16; off >= Hp; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFullMask, m, off));
+  float lsum = 0.f;
+  Lane<V> merged = Lane<V>::zero();
+  for (int kb = k0; kb < k1; kb += 32) {
+    const int n = k1 - kb < 32 ? k1 - kb : 32;
+    for (int i = lane / Hp; hs_live && i < n; i += per) {
+      const float* st = stat(kb + i);
+      const float c = __ldcg(st + Hp + hs) * expf(__ldcg(st + hs) - m);
+      tile[i * Hp + hs] = c;
+      lsum += c;
+    }
+    __syncwarp();  // the weights are in the tile
+    add_weighted<G, V>(merged, tile, Hp, hf, n, sub, live, [&](int i) {
+      return Lane<V>::ldcg(p_acc + static_cast<int64_t>(kb + i) * HF + f);
+    });
+    __syncwarp();  // the next slots overwrite the tile
+  }
+  for (int off = 16; off >= Hp; off >>= 1) lsum += __shfl_xor_sync(kFullMask, lsum, off);
+  merged = sum_slots<G, V>(merged);
+  const float m_r = __shfl_sync(kFullMask, m, hf);
+  const float l_r = __shfl_sync(kFullMask, lsum, hf);
+  if (sub == 0 && live) {
+    const int64_t r = plan.split_row[j];
+    merged.div(l_r);
+    merged.st(out + r * HF + f);
+    if (first_of_head) {
+      m_out[r * H + h0 + hf] = m_r;
+      l_out[r * H + h0 + hf] = l_r;
+    }
   }
 }
 
 // ---------------------------------------------------------------- gat_bwd
 
-constexpr int kBwdRounds = 4;  // rounds of edge slots per warp
+constexpr int kZeroPerWarp = 1024;  // padding floats of dlogits one warp zeroes
 
-// Edges are independent here, so warps take flat runs of edges (kBwdRounds
-// rounds of 32/G slots) in CSR order, not row segments: a hub row is spread
-// over many warps.  Consecutive edges mostly share their receiver, so its
-// g, m, l and β come from L1.  Virtual lane v = h·Fp + f (f < Fp); a pass
-// covers G of them, n_pass passes cover H·Fp.  A head's lanes never straddle
-// a pass (Fp divides G, or is a multiple of G = 32), so after the pass that
-// ends a head, a shuffle over min(Fp, 32) lanes completes its dot product.
-template <int G>
+// A warp item is (segment s, chunk c of Hk = Ge / Lh heads): lane l is lane
+// q = l % Lh of head c·Hk + (l % Ge) / Lh for the edges of slot l / Ge, and
+// covers the V features (q + k·Lh)·V of that head for k < K.  The tile holds
+// a batch's α [32][Hk], its D [32][Hk] and its senders [32]; the (edge, head)
+// pairs are j = l / Hk + k·(32 / Hk), head l % Hk of the chunk.  Then the
+// warp items past n_seg·n_chunks: zeros for dlogits[E·H, n_rows·H).
+template <int V>
 __global__ void __launch_bounds__(kThreads)
-gat_bwd_kernel(int64_t n_edge, const int32_t* __restrict__ senders,
-               const int32_t* __restrict__ receivers, const float* __restrict__ logits,
+gat_bwd_kernel(const CsrPlan plan, const float* __restrict__ logits,
                const float* __restrict__ wh, const float* __restrict__ g,
                const float* __restrict__ m, const float* __restrict__ l,
                const float* __restrict__ beta, DropMask mask, float* __restrict__ dlogits,
-               float* __restrict__ alpha_d, int64_t H, int64_t F, int64_t Fp, int64_t n_pass) {
-  constexpr int kSlots = 32 / G;
-  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-  const int64_t p0 = warp * kBwdRounds * kSlots;
-  if (p0 >= n_edge) return;  // uniform across the warp
+               float* __restrict__ alpha_d, int H, int F, int Lh, int K, int Ge, int n_chunks,
+               int64_t n_edge, int64_t n_rows) {
+  const int64_t item = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  const int sub = lane / G;
-  const int fl = lane % G;
-  const int64_t HF = H * F;
-  const int group = Fp < 32 ? static_cast<int>(Fp) : 32;  // lanes of one reduction
-  // Every lane runs every round, so that all of them reach the shuffles.
-  for (int round = 0; round < kBwdRounds; ++round) {
-    const int64_t p = p0 + round * kSlots + sub;
-    const bool edge = p < n_edge;
-    const int32_t c = edge ? __ldg(senders + p) : 0;
-    const int32_t r = edge ? __ldg(receivers + p) : 0;
-    const float* wh_row = wh + static_cast<int64_t>(c) * HF;
-    const float* g_row = g + static_cast<int64_t>(r) * HF;
-    float dot = 0.f;
-    for (int64_t k = 0; k < n_pass; ++k) {
-      const int64_t v = k * G + fl;
-      const int64_t h = v / Fp;
-      const int64_t f = v - h * Fp;
-      if (edge && h < H && f < F) {
-        dot = fmaf(__ldg(g_row + h * F + f), __ldg(wh_row + h * F + f), dot);
-      }
-      if (((k + 1) * G) % Fp != 0) continue;  // the head goes on in the next pass
-      for (int off = group / 2; off >= 1; off >>= 1) {
-        dot += __shfl_xor_sync(kFullMask, dot, off);
-      }
-      if (edge && h < H && fl % group == 0) {
-        const int64_t rh = static_cast<int64_t>(r) * H + h;
-        const float a = expf(__ldg(logits + p * H + h) - __ldg(m + rh)) / __ldg(l + rh);
-        const float d = mask.at(p, H, h, c, r);
-        dlogits[p * H + h] = a * (d * dot - __ldg(beta + rh));
-        if (alpha_d != nullptr) alpha_d[p * H + h] = a * d;
-      }
-      dot = 0.f;
+  const int64_t n_items = plan.n_seg * n_chunks;
+  if (item >= n_items) {  // zeros for the padding rows
+    const int64_t i0 = n_edge * H + (item - n_items) * kZeroPerWarp;
+    const int64_t i1 = i0 + kZeroPerWarp < n_rows * H ? i0 + kZeroPerWarp : n_rows * H;
+    for (int64_t i = i0 + lane; i < i1; i += 32) dlogits[i] = 0.f;
+    return;
+  }
+  const int chunk = static_cast<int>(item / plan.n_seg);
+  const int64_t s = item - static_cast<int64_t>(chunk) * plan.n_seg;
+  const int64_t p0 = plan.seg_ptr[s];
+  const int64_t p1 = plan.seg_ptr[s + 1];
+  if (p0 == p1) return;  // an edgeless row (uniform across the warp)
+  const int Hk = Ge / Lh;
+  const int slots = 32 / Ge;
+  extern __shared__ float4 gode_smem[];
+  float* ta = reinterpret_cast<float*>(gode_smem) + (threadIdx.x >> 5) * (64 * Hk + 32);
+  float* td = ta + 32 * Hk;
+  int32_t* cols = reinterpret_cast<int32_t*>(td + 32 * Hk);
+  const int HF = H * F;
+  const int Q = F / V;
+  const int64_t r = plan.seg_row[s];
+  // The lane's head (feature lanes) and its pair head (the batch's α and D).
+  const int sub = lane / Ge;
+  const int hc = (lane % Ge) / Lh;
+  const int q = lane % Lh;
+  const int h = chunk * Hk + hc;
+  const bool live = h < H;
+  const int hk = lane % Hk;
+  const int hp = chunk * Hk + hk;
+  const bool hp_live = hp < H;
+  const float m_p = hp_live ? __ldg(m + r * H + hp) : 0.f;
+  const float l_p = hp_live ? __ldg(l + r * H + hp) : 1.f;
+  const float beta_h = live ? __ldg(beta + r * H + h) : 0.f;
+  const float* g_row = g + r * HF + static_cast<int64_t>(h) * F;
+  const Lane<V> g0 = live && q < Q ? Lane<V>::ldg(g_row + q * V) : Lane<V>::zero();
+  const int per = 32 / Hk;
+  for (int64_t pb = p0; pb < p1; pb += 32) {
+    const int n = static_cast<int>(p1 - pb < 32 ? p1 - pb : 32);
+    if (lane < n) cols[lane] = __ldg(plan.col + pb + lane);
+    for (int j = lane / Hk; hp_live && j < n; j += per) {
+      ta[j * Hk + hk] = __ldg(logits + (pb + j) * H + hp);  // read back by this lane only
     }
+    __syncwarp();  // the senders are in the tile
+    for (int j = lane / Hk; hp_live && j < n; j += per) {
+      const int64_t p = pb + j;
+      const float a = expf(ta[j * Hk + hk] - m_p) / l_p;
+      const float d = mask.at(p, H, hp, cols[j], static_cast<int32_t>(r));
+      ta[j * Hk + hk] = a;
+      td[j * Hk + hk] = d;
+      if (alpha_d != nullptr) alpha_d[p * H + hp] = a * d;
+    }
+    __syncwarp();  // α and D are in the tile
+    for (int e0 = 0; e0 < n; e0 += slots * kUnroll) {
+      float dot[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) dot[u] = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const int qq = q + k * Lh;
+        const bool on = live && qq < Q;
+        const Lane<V> gk = k == 0 ? g0 : (on ? Lane<V>::ldg(g_row + qq * V) : Lane<V>::zero());
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int e = e0 + u * slots + sub;
+          if (on && e < n) {
+            dot[u] += gk.dot(Lane<V>::ldg(wh + static_cast<int64_t>(cols[e]) * HF +
+                                          static_cast<int64_t>(h) * F + qq * V));
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        for (int off = Lh / 2; off >= 1; off >>= 1) {
+          dot[u] += __shfl_xor_sync(kFullMask, dot[u], off);
+        }
+        const int e = e0 + u * slots + sub;
+        if (live && q == 0 && e < n) {
+          const float a = ta[e * Hk + hc];
+          dlogits[(pb + e) * H + h] = a * (td[e * Hk + hc] * dot[u] - beta_h);
+        }
+      }
+    }
+    __syncwarp();  // the next batch overwrites the tile
   }
 }
 
 // ---------------------------------------------------------------- gat_dwh
 
-// One warp per CSC segment (the rows are senders); lanes as in gat_fwd.
+// One warp per CSC segment (the rows are senders): 32/G edge slots of G
+// lanes, lane fl of slot sub on feature f0 + fl of the flattened [H·F] row.
 template <int G>
 __global__ void __launch_bounds__(kThreads)
 gat_dwh_kernel(const int64_t* __restrict__ seg_ptr, const int32_t* __restrict__ seg_row,
@@ -280,97 +449,140 @@ DropMask make_mask(int mode, const float* dmask, uint32_t seed, uint32_t keep24,
   return DropMask{mode, dmask, seed, keep24, inv_keep};
 }
 
-}  // namespace
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
-// Each entry point launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() after its launches (0 on success).  Tensors are
-// contiguous f32 (int32 / int64 for the graph):
-//   logits [E, H] and dlogits, alpha_d [E, H] in CSR order;
-//   wh, g, out, dwh [N, H, F]; m, l, beta, s_src, s_dst [N, H];
-//   dmask [E, H] in CSR order (mask_mode 1 only).
-// p_acc [n_slots, H·F], p_m and p_l [n_slots, H] and `partial` are scratch
-// for the split rows and may be null when n_split is 0.
+bool power_of_two_to_32(int x) { return x >= 1 && x <= 32 && (x & (x - 1)) == 0; }
 
-extern "C" int gode_gat_fwd_f32(const int64_t* seg_ptr, const int32_t* seg_row,
-                                const int32_t* seg_slot, int64_t n_seg,
-                                const int32_t* split_row, const int32_t* split_ptr,
-                                int64_t n_split, const int32_t* senders, const float* logits,
-                                const float* wh, int mask_mode, const float* dmask,
-                                uint32_t seed, uint32_t keep24, float inv_keep, float* out,
-                                float* m, float* l, float* p_acc, float* p_m, float* p_l,
-                                int64_t H, int64_t F, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H < 1 || F < 1 || mask_mode < 0 || mask_mode > 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const DropMask mask = make_mask(mask_mode, dmask, seed, keep24, inv_keep);
-  const int64_t HF = H * F;
-  if (n_seg > 0) {
-    const int64_t blocks = (n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    if (int rc = check_launch(blocks)) return rc;
-    const unsigned nb = static_cast<unsigned>(blocks);
-#define GODE_FWD(G_)                                                                     \
-  gat_fwd_kernel<G_><<<nb, kThreads, 0, st>>>(seg_ptr, seg_row, seg_slot, n_seg, senders, \
-                                               logits, wh, mask, out, m, l, p_acc, p_m,   \
-                                               p_l, H, F)
-    switch (gode::lanes_for(HF)) {
-      case 1: GODE_FWD(1); break;
-      case 2: GODE_FWD(2); break;
-      case 4: GODE_FWD(4); break;
-      case 8: GODE_FWD(8); break;
-      case 16: GODE_FWD(16); break;
-      default: GODE_FWD(32); break;
-    }
-#undef GODE_FWD
-  }
-  if (n_split > 0) {
-    const int64_t blocks = (n_split * HF + kThreads - 1) / kThreads;
-    if (int rc = check_launch(blocks)) return rc;
-    gat_fwd_split_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        split_row, split_ptr, n_split, p_acc, p_m, p_l, out, m, l, H, F);
-  }
+template <int G, int V>
+int launch_fwd(const CsrPlan& plan, const float* logits, const float* wh, DropMask mask,
+               float* out, float* m, float* l, float* p_acc, float* p_stat, int H, int F, int Hp,
+               int n_chunks, cudaStream_t st) {
+  const int64_t blocks = (plan.n_seg * n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (int rc = check_launch(blocks)) return rc;
+  if (blocks == 0) return 0;
+  const size_t smem = static_cast<size_t>(kWarpsPerBlock) * 32 * (Hp + 1) * sizeof(float);
+  gat_fwd_kernel<G, V><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+      plan, logits, wh, mask, out, m, l, p_acc, p_stat, H, F, Hp, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int gode_gat_bwd_f32(int64_t n_edge, const int32_t* senders, const int32_t* receivers,
+template <int V>
+int launch_bwd(const CsrPlan& plan, const float* logits, const float* wh, const float* g,
+               const float* m, const float* l, const float* beta, DropMask mask, float* dlogits,
+               float* alpha_d, int H, int F, int Lh, int K, int Ge, int n_chunks, int64_t n_edge,
+               int64_t n_rows, cudaStream_t st) {
+  const int64_t n_zero = (n_rows - n_edge) * H;
+  const int64_t warps = plan.n_seg * n_chunks + (n_zero + kZeroPerWarp - 1) / kZeroPerWarp;
+  const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (int rc = check_launch(blocks)) return rc;
+  if (blocks == 0) return 0;
+  const int Hk = Ge / Lh;
+  const int smem = kWarpsPerBlock * (64 * Hk + 32) * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {  // above 48 KB only by the kernel's attribute
+    cudaError_t rc = cudaFuncSetAttribute(gat_bwd_kernel<V>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  gat_bwd_kernel<V><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+      plan, logits, wh, g, m, l, beta, mask, dlogits, alpha_d, H, F, Lh, K, Ge, n_chunks, n_edge,
+      n_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Each entry point launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after its launch (0 on success).  Tensors are
+// contiguous f32 (int32 / int64 for the graph):
+//   logits [>= E, H] and dlogits [n_rows >= E, H], alpha_d [E, H] in CSR order;
+//   wh, g, out, dwh [N, H, F]; m, l, beta, s_src, s_dst [N, H];
+//   dmask [E, H] in CSR order (mask_mode 1 only).
+// `plan` is the LaunchPlan of the receiver-sorted (CSR) view.
+
+// gat_fwd, one launch.  `lanes` (G, a power of two <= 32) and `vec` (V, 1 or
+// 4) shape a warp item: a chunk is G·V features of the H·F row; V = 4 needs
+// F % 4 == 0, G >= 8 and wh, out and p_acc 16-byte aligned.  `hp` is a power
+// of two <= 32 and >= the heads any chunk touches.  With split rows, p_acc
+// [n_slots, H·F] and p_stat [n_slots, n_chunks, 2, hp] are scratch, and the
+// plan's arrival counters cover n_split times the number of chunks.
+extern "C" int gode_gat_fwd_f32(const CsrPlan* plan, const float* logits, const float* wh,
+                                int mask_mode, const float* dmask, uint32_t seed,
+                                uint32_t keep24, float inv_keep, float* out, float* m, float* l,
+                                float* p_acc, float* p_stat, int64_t H, int64_t F, int lanes,
+                                int vec, int hp, void* stream) {
+  const auto bad = static_cast<int>(cudaErrorInvalidValue);
+  if (H < 1 || F < 1 || H * F > 0x7fffffff || mask_mode < 0 || mask_mode > 2) return bad;
+  if (!power_of_two_to_32(lanes) || !power_of_two_to_32(hp) || (vec != 1 && vec != 4)) return bad;
+  const int h = static_cast<int>(H), f = static_cast<int>(F), width = lanes * vec;
+  const int n_chunks = (h * f + width - 1) / width;
+  for (int c = 0, first; c < n_chunks; ++c) {
+    if (chunk_heads(c, width, h, f, &first) > hp) return bad;
+  }
+  if (plan->n_split > 0 && (p_acc == nullptr || p_stat == nullptr)) return bad;
+  if (plan->n_split * n_chunks > plan->n_arrivals) return bad;
+  if (vec == 4 && (f % 4 != 0 || lanes < 8 || misaligned(wh) || misaligned(out) ||
+                   (p_acc != nullptr && misaligned(p_acc)))) {
+    return bad;
+  }
+  const DropMask mask = make_mask(mask_mode, dmask, seed, keep24, inv_keep);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GODE_FWD(G_, V_)                                                                 \
+  return launch_fwd<G_, V_>(*plan, logits, wh, mask, out, m, l, p_acc, p_stat, h, f, hp, \
+                            n_chunks, st)
+  if (vec == 4) {
+    switch (lanes) {
+      case 8: GODE_FWD(8, 4);
+      case 16: GODE_FWD(16, 4);
+      case 32: GODE_FWD(32, 4);
+      default: return bad;
+    }
+  }
+  switch (lanes) {
+    case 1: GODE_FWD(1, 1);
+    case 2: GODE_FWD(2, 1);
+    case 4: GODE_FWD(4, 1);
+    case 8: GODE_FWD(8, 1);
+    case 16: GODE_FWD(16, 1);
+    default: GODE_FWD(32, 1);
+  }
+#undef GODE_FWD
+}
+
+// gat_bwd, one launch.  `lanes_per_head` (Lh, a power of two <= 32) and `vec`
+// (V, 1 or 4; 4 needs F % 4 == 0 and wh, g 16-byte aligned) shape the lanes:
+// a lane adds K = ceil(F / V / Lh) of its head's V-float groups, an edge
+// takes Ge = min(32, the power of two >= H·Lh) lanes, and a warp item covers
+// Ge / Lh heads, so a head never spans warps.  `n_rows` is dlogits' row
+// count: rows [n_edge, n_rows) are written with zeros.
+extern "C" int gode_gat_bwd_f32(const CsrPlan* plan, int64_t n_edge, int64_t n_rows,
                                 const float* logits, const float* wh, const float* g,
                                 const float* m, const float* l, const float* beta,
                                 int mask_mode, const float* dmask, uint32_t seed,
                                 uint32_t keep24, float inv_keep, float* dlogits, float* alpha_d,
-                                int64_t H, int64_t F, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H < 1 || F < 1 || mask_mode < 0 || mask_mode > 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                int64_t H, int64_t F, int lanes_per_head, int vec, void* stream) {
+  const auto bad = static_cast<int>(cudaErrorInvalidValue);
+  if (H < 1 || F < 1 || H * F > 0x7fffffff || mask_mode < 0 || mask_mode > 2) return bad;
+  if (!power_of_two_to_32(lanes_per_head) || (vec != 1 && vec != 4) || n_rows < n_edge) return bad;
+  if (vec == 4 && (F % 4 != 0 || misaligned(wh) || misaligned(g))) return bad;
+  const int h = static_cast<int>(H), f = static_cast<int>(F), Lh = lanes_per_head;
+  const int Q = f / vec;
+  const int K = (Q + Lh - 1) / Lh;
+  int Ge = 1;
+  while (Ge < 32 && Ge < h * Lh) Ge *= 2;
+  const int n_chunks = (h + Ge / Lh - 1) / (Ge / Lh);
   const DropMask mask = make_mask(mask_mode, dmask, seed, keep24, inv_keep);
-  // Lanes per head: F rounded up to a power of two, or to a multiple of 32.
-  const int64_t Fp = F > 32 ? (F + 31) / 32 * 32 : gode::lanes_for(F);
-  const int64_t V = H * Fp;
-  const int lanes = gode::lanes_for(V);
-  const int64_t n_pass = (V + lanes - 1) / lanes;
-  if (n_edge > 0) {
-    const int64_t per_warp = static_cast<int64_t>(kBwdRounds) * (32 / lanes);
-    const int64_t warps = (n_edge + per_warp - 1) / per_warp;
-    const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    if (int rc = check_launch(blocks)) return rc;
-    const unsigned nb = static_cast<unsigned>(blocks);
-#define GODE_BWD(G_)                                                                       \
-  gat_bwd_kernel<G_><<<nb, kThreads, 0, st>>>(n_edge, senders, receivers, logits, wh, g, m, \
-                                               l, beta, mask, dlogits, alpha_d, H, F, Fp,   \
-                                               n_pass)
-    switch (lanes) {
-      case 1: GODE_BWD(1); break;
-      case 2: GODE_BWD(2); break;
-      case 4: GODE_BWD(4); break;
-      case 8: GODE_BWD(8); break;
-      case 16: GODE_BWD(16); break;
-      default: GODE_BWD(32); break;
-    }
-#undef GODE_BWD
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    return launch_bwd<4>(*plan, logits, wh, g, m, l, beta, mask, dlogits, alpha_d, h, f, Lh, K,
+                         Ge, n_chunks, n_edge, n_rows, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd<1>(*plan, logits, wh, g, m, l, beta, mask, dlogits, alpha_d, h, f, Lh, K, Ge,
+                       n_chunks, n_edge, n_rows, st);
 }
 
+// gat_dwh, over the CSC view's own segments: `partial` [n_slots, H·F] is
+// scratch for its split rows and may be null when it has none; a second
+// launch adds them.
 extern "C" int gode_gat_dwh_f32(const int64_t* seg_ptr, const int32_t* seg_row,
                                 const int32_t* seg_slot, int64_t n_seg,
                                 const int32_t* split_row, const int32_t* split_ptr,

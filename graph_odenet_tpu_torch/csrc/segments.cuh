@@ -2,14 +2,37 @@
 //
 // ops/csr_spmm.py::prepare cuts every row of a CSR (or CSC) view into warp
 // segments of at most SEG_EDGES edges.  A row cut into several segments is a
-// split row: each of its segments writes a partial row to scratch.  In the
-// GAT kernels (gat_attn.cu) split_rows_kernel, a second launch, adds the
-// partial rows in segment order; the CSR kernel (csr_spmm.cu) adds them in
-// its own grid, by the last warp of the row to arrive.
+// split row: each of its segments writes a partial row to scratch.  The CSR
+// kernel (csr_spmm.cu) and gat_fwd (gat_attn.cu) merge the partial rows in
+// their own grid, by the last warp of the row to arrive; only gat_dwh still
+// takes split_rows_kernel, a second launch, to add them in segment order.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+// The launch plan of one view: what never changes between calls, built once
+// per view by ops/csr_spmm.py::LaunchPlan.  Field order and types match
+// _PlanStruct there.  The CSR kernel and the GAT kernels of one view share
+// it, arrival counters included: every launch leaves the counters at 0, and
+// calls on one view are ordered on one stream, so no two launches count on
+// them at once.
+struct CsrPlan {
+  const int64_t* seg_ptr;     // [S+1] edge span of each segment
+  const int32_t* seg_row;     // [S]   output row of each segment
+  const int32_t* seg_slot;    // [S]   -1: whole row; else its partial slot
+  const int32_t* split_row;   // [R]   rows cut into several segments
+  const int32_t* split_ptr;   // [R+1] their spans of partial slots
+  const int32_t* slot_split;  // [n_slots] split row (index into split_row) of each slot
+  const int32_t* empty_row;   // [K]   rows without a segment
+  const int32_t* col;         // [L]   gathered table row of each position
+  const float* w;             // [L]   edge weights
+  int32_t* arrivals;          // [n_arrivals] zero between calls
+  int64_t n_seg;
+  int64_t n_split;
+  int64_t n_empty;
+  int64_t n_arrivals;
+};
 
 namespace gode {
 
@@ -23,6 +46,74 @@ inline int lanes_for(int64_t F) {
 }
 
 namespace {
+
+// V consecutive floats of one lane: a float or a float4 (16-byte loads).
+template <int V> struct Lane;
+
+template <> struct Lane<1> {
+  float v;
+  __device__ __forceinline__ static Lane zero() { return {0.f}; }
+  __device__ __forceinline__ static Lane ldg(const float* p) { return {__ldg(p)}; }
+  __device__ __forceinline__ static Lane ldcg(const float* p) { return {__ldcg(p)}; }
+  __device__ __forceinline__ static Lane ld(const float* p) { return {*p}; }
+  __device__ __forceinline__ void st(float* p) const { *p = v; }
+  __device__ __forceinline__ void fma(float a, const Lane& b) { v = fmaf(a, b.v, v); }
+  __device__ __forceinline__ void add(const Lane& b) { v += b.v; }
+  __device__ __forceinline__ void div(float a) { v /= a; }
+  __device__ __forceinline__ float dot(const Lane& b) const { return v * b.v; }
+  __device__ __forceinline__ Lane shfl_xor(int off) const {
+    return {__shfl_xor_sync(kFullMask, v, off)};
+  }
+};
+
+template <> struct Lane<4> {
+  float4 v;
+  __device__ __forceinline__ static Lane zero() { return {make_float4(0.f, 0.f, 0.f, 0.f)}; }
+  __device__ __forceinline__ static Lane ldg(const float* p) {
+    return {__ldg(reinterpret_cast<const float4*>(p))};
+  }
+  __device__ __forceinline__ static Lane ldcg(const float* p) {
+    return {__ldcg(reinterpret_cast<const float4*>(p))};
+  }
+  __device__ __forceinline__ static Lane ld(const float* p) {
+    return {*reinterpret_cast<const float4*>(p)};
+  }
+  __device__ __forceinline__ void st(float* p) const { *reinterpret_cast<float4*>(p) = v; }
+  __device__ __forceinline__ void fma(float a, const Lane& b) {
+    v.x = fmaf(a, b.v.x, v.x);
+    v.y = fmaf(a, b.v.y, v.y);
+    v.z = fmaf(a, b.v.z, v.z);
+    v.w = fmaf(a, b.v.w, v.w);
+  }
+  __device__ __forceinline__ void add(const Lane& b) {
+    v.x += b.v.x;
+    v.y += b.v.y;
+    v.z += b.v.z;
+    v.w += b.v.w;
+  }
+  __device__ __forceinline__ void div(float a) {
+    v.x /= a;
+    v.y /= a;
+    v.z /= a;
+    v.w /= a;
+  }
+  __device__ __forceinline__ float dot(const Lane& b) const {
+    return fmaf(v.w, b.v.w, fmaf(v.z, b.v.z, fmaf(v.y, b.v.y, v.x * b.v.x)));
+  }
+  __device__ __forceinline__ Lane shfl_xor(int off) const {
+    return {make_float4(__shfl_xor_sync(kFullMask, v.x, off), __shfl_xor_sync(kFullMask, v.y, off),
+                        __shfl_xor_sync(kFullMask, v.z, off), __shfl_xor_sync(kFullMask, v.w, off))};
+  }
+};
+
+// Adds the lanes of the warp's 32/G edge slots: lane l ends with the sum over
+// the slots of its feature lane l % G, in a fixed order.
+template <int G, int V>
+__device__ __forceinline__ Lane<V> sum_slots(Lane<V> acc) {
+#pragma unroll
+  for (int off = 16; off >= G; off >>= 1) acc.add(acc.shfl_xor(off));
+  return acc;
+}
 
 // out[split_row[j], f] = sum of partial[k, f] over k in [split_ptr[j], split_ptr[j+1]),
 // or, with kAccumulate, out[split_row[j], f] += that sum.

@@ -43,20 +43,20 @@ _SIGNATURES = {
     },
     "gat_attn": {
         "gode_gat_fwd_f32": [
-            _p, _p, _p, _i64,          # seg_ptr, seg_row, seg_slot, n_seg
-            _p, _p, _i64,              # split_row, split_ptr, n_split
-            _p, _p, _p,                # senders, logits, wh
+            _p, _p, _p,                # plan, logits, wh
             _i, _p, _u32, _u32, _f32,  # mask_mode, dmask, seed, keep24, inv_keep
-            _p, _p, _p, _p, _p, _p,    # out, m, l, p_acc, p_m, p_l
-            _i64, _i64, _p,            # H, F, stream
+            _p, _p, _p, _p, _p,        # out, m, l, p_acc, p_stat
+            _i64, _i64, _i, _i, _i,    # H, F, lanes, vec, hp
+            _p,                        # stream
         ],
         "gode_gat_bwd_f32": [
-            _i64, _p, _p,              # n_edge, senders, receivers
-            _p, _p,                    # logits, wh
-            _p, _p, _p, _p,            # g, m, l, beta
+            _p, _i64, _i64,            # plan, n_edge, n_rows
+            _p, _p, _p,                # logits, wh, g
+            _p, _p, _p,                # m, l, beta
             _i, _p, _u32, _u32, _f32,  # mask_mode, dmask, seed, keep24, inv_keep
             _p, _p,                    # dlogits, alpha_d
-            _i64, _i64, _p,            # H, F, stream
+            _i64, _i64, _i, _i,        # H, F, lanes_per_head, vec
+            _p,                        # stream
         ],
         "gode_gat_dwh_f32": [
             _p, _p, _p, _i64,          # seg_ptr, seg_row, seg_slot, n_seg

@@ -39,7 +39,8 @@ new plan.  A call passes the plan and only what varies.  The counters are
 back at 0 after every launch, so a launch can be captured in a CUDA graph
 after an eager call at the same width has built the plan and sized its
 counters; calls on one view are ordered on one stream, as PyTorch orders
-them.
+them.  The GAT kernels ``gat_fwd`` and ``gat_bwd`` (``ops/gat_attn.py``)
+take the fwd view's plan too, counters included.
 """
 
 from __future__ import annotations
@@ -101,7 +102,7 @@ class Partition:
 
 
 class _PlanStruct(ctypes.Structure):
-    """``CsrPlan`` of ``csrc/csr_spmm.cu``, field for field."""
+    """``CsrPlan`` of ``csrc/segments.cuh``, field for field."""
 
     _fields_ = [
         (name, ctypes.c_void_p) for name in (

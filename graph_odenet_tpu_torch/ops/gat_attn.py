@@ -22,7 +22,12 @@ The hint tensors and the mask get no gradient: the gradient reaches s_src
 and s_dst through ``logits`` and ``edge_scores``' autograd.
 
 Each wrapper runs its plain PyTorch version (``*_plain``, beside it) on CPU
-tensors and launches its kernel on CUDA tensors, nothing else.  The plain
+tensors and launches its kernel on CUDA tensors, nothing else.  ``gat_fwd``
+and ``gat_bwd`` take the receiver-sorted view's ``LaunchPlan``
+(``csr.plans[0]``, shared with the CSR kernel) and are one launch a call,
+split rows included, so they can be captured in a CUDA graph after an eager
+call at the same width; their lanes come from ``_fwd_lanes`` and
+``_bwd_lanes``.  The plain
 versions take any float dtype; the wrappers take float32.  D is one of: no
 dropout, an explicit ``dmask [E, H]`` in CSR order, or ``drop=(seed,
 rate)``, the counter hash of ``ops/dropmask.py`` regenerated in every pass.
@@ -30,10 +35,14 @@ rate)``, the counter hash of ``ops/dropmask.py`` regenerated in every pass.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from graph_odenet_tpu_torch.ops import _build, dropmask
-from graph_odenet_tpu_torch.ops.csr_spmm import CSRGraph, _ptr, _stream, csr_reduce, row_ids
+from graph_odenet_tpu_torch.ops.csr_spmm import (
+    CSRGraph, LaunchPlan, _lanes, _ptr, _stream, csr_reduce, row_ids,
+)
 
 __all__ = [
     "gat_fwd", "gat_bwd", "gat_dwh",
@@ -166,29 +175,88 @@ def _rc(name, rc):
     launches[name] += 1
 
 
+@functools.cache
+def _fwd_lanes(heads: int, feat: int, vector: bool) -> tuple:
+    """(G, V, n_chunks, Hp) of a ``gat_fwd`` call: 32/G edge slots of G lanes,
+    V floats a lane, chunks of G·V features of the H·F row (``_lanes``: float4
+    lanes at H·F >= 32 when ``vector``, F % 4 == 0 and rows 16-byte aligned,
+    so a float4 lies in one head), and Hp, the power of two >= the heads that
+    any chunk touches (the width of the kernel's per-warp weight tile)."""
+    hf = heads * feat
+    g, v = _lanes(hf, vector and feat % 4 == 0)
+    width = g * v
+    n_chunks = -(-hf // width)
+    most = max(min(hf, (c + 1) * width) // feat - (c * width) // feat
+               + (min(hf, (c + 1) * width) % feat > 0) for c in range(n_chunks))
+    return g, v, n_chunks, 1 << (most - 1).bit_length()
+
+
+@functools.cache
+def _bwd_lanes(heads: int, feat: int, vector: bool) -> tuple:
+    """(V, Lh, K, Ge, n_chunks) of a ``gat_bwd`` call: V floats a lane (float4
+    by ``gat_fwd``'s rule), Lh lanes a head (the power of two >= F / V, at
+    most 32), K V-float groups of its head a lane adds, Ge = Lh·heads lanes an
+    edge (a power of two, at most 32), and chunks of Ge / Lh heads: a head
+    never spans warps.  The C entry derives K, Ge and the chunks from Lh and
+    V the same way."""
+    v = 4 if vector and feat % 4 == 0 and heads * feat >= 32 else 1
+    q = feat // v
+    lh = min(32, 1 << (q - 1).bit_length())
+    ge = min(32, 1 << (heads * lh - 1).bit_length())
+    return v, lh, -(-q // lh), ge, -(-heads // (ge // lh))
+
+
+def _launch_fwd(plan: LaunchPlan, logits, wh, dmask, drop):
+    """One ``gat_fwd`` launch over ``plan`` (the fwd view's): out, m and l.
+
+    m and l are two rows of one allocation.  Scratch for the split rows'
+    partial states, ``(acc [n_slots, H·F], stats [n_slots, chunks, 2, Hp])``,
+    is allocated only when the view has split rows."""
+    n, heads, feat = wh.shape
+    out = torch.empty_like(wh)
+    m, l = torch.empty((2, n, heads), dtype=torch.float32, device=wh.device)
+    lanes, vec, n_chunks, hp = _fwd_lanes(heads, feat, wh.data_ptr() % 16 == 0)
+    p_acc = p_stat = None
+    if plan.n_split:
+        plan.reserve(n_chunks)
+        n_acc = plan.n_slots * heads * feat
+        scratch = torch.empty(n_acc + plan.n_slots * n_chunks * 2 * hp, dtype=torch.float32,
+                              device=wh.device)
+        p_acc, p_stat = scratch.data_ptr(), scratch[n_acc:].data_ptr()
+    rc = _build.load_library("gat_attn").gode_gat_fwd_f32(
+        plan.address, logits.data_ptr(), wh.data_ptr(), *_mask_args(dmask, drop),
+        out.data_ptr(), m.data_ptr(), l.data_ptr(), p_acc, p_stat, heads, feat, lanes,
+        vec, hp, torch.cuda.current_stream(plan.index).cuda_stream,
+    )
+    _rc("gat_fwd", rc)
+    return out, m, l
+
+
+def _launch_bwd(plan: LaunchPlan, n_edge, logits, wh, g, m, l, beta, dmask, drop, emit_alpha):
+    """One ``gat_bwd`` launch over ``plan`` (the fwd view's): dlogits, every
+    row written (rows past ``n_edge`` with zeros), and α·D or None."""
+    _, heads, feat = wh.shape
+    dlogits = torch.empty_like(logits)
+    alpha_d = (torch.empty((n_edge, heads), dtype=torch.float32, device=wh.device)
+               if emit_alpha else None)
+    vec, lanes_per_head = _bwd_lanes(heads, feat, (wh.data_ptr() | g.data_ptr()) % 16 == 0)[:2]
+    rc = _build.load_library("gat_attn").gode_gat_bwd_f32(
+        plan.address, n_edge, logits.shape[0], logits.data_ptr(), wh.data_ptr(), g.data_ptr(),
+        m.data_ptr(), l.data_ptr(), beta.data_ptr(), *_mask_args(dmask, drop),
+        dlogits.data_ptr(), None if alpha_d is None else alpha_d.data_ptr(), heads, feat,
+        lanes_per_head, vec, torch.cuda.current_stream(plan.index).cuda_stream,
+    )
+    _rc("gat_bwd", rc)
+    return dlogits, alpha_d
+
+
 def gat_fwd(csr: CSRGraph, logits, wh, *, dmask=None, drop=None):
     """B4: ``(out [N, H, F], m [N, H], l [N, H])``; logits ``[>=E, H]`` in CSR order."""
     _check("gat_fwd", csr, logits=logits, wh=wh, dmask=dmask)
     _check_shapes("gat_fwd", csr, wh, logits=logits, dmask=dmask)
     if csr.device.type == "cpu":
         return gat_fwd_plain(csr, logits, wh, dmask=dmask, drop=drop)
-    n, heads, feat = wh.shape
-    part = csr.part
-    out = torch.empty_like(wh)
-    m = torch.empty((n, heads), dtype=torch.float32, device=wh.device)
-    l = torch.empty_like(m)
-    p_acc = torch.empty((part.n_slots, heads * feat), dtype=torch.float32, device=wh.device)
-    p_m = torch.empty((part.n_slots, heads), dtype=torch.float32, device=wh.device)
-    p_l = torch.empty_like(p_m)
-    rc = _build.load_library("gat_attn").gode_gat_fwd_f32(
-        _ptr(part.seg_ptr), _ptr(part.seg_row), _ptr(part.seg_slot), part.seg_row.shape[0],
-        _ptr(part.split_row), _ptr(part.split_ptr), part.split_row.shape[0],
-        _ptr(csr.senders), _ptr(logits), _ptr(wh), *_mask_args(dmask, drop),
-        _ptr(out), _ptr(m), _ptr(l), _ptr(p_acc), _ptr(p_m), _ptr(p_l),
-        heads, feat, _stream(wh.device),
-    )
-    _rc("gat_fwd", rc)
-    return out, m, l
+    return _launch_fwd(csr.plans[0], logits, wh, dmask, drop)
 
 
 def gat_bwd(csr: CSRGraph, logits, wh, g, m, l, beta, *, dmask=None, drop=None, emit_alpha=False):
@@ -201,20 +269,8 @@ def gat_bwd(csr: CSRGraph, logits, wh, g, m, l, beta, *, dmask=None, drop=None, 
         return gat_bwd_plain(
             csr, logits, wh, g, m, l, beta, dmask=dmask, drop=drop, emit_alpha=emit_alpha
         )
-    _, heads, feat = wh.shape
-    dlogits = torch.zeros_like(logits)
-    alpha_d = (
-        torch.empty((csr.n_edge, heads), dtype=torch.float32, device=wh.device)
-        if emit_alpha else None
-    )
-    rc = _build.load_library("gat_attn").gode_gat_bwd_f32(
-        csr.n_edge, _ptr(csr.senders), _ptr(csr.receivers),
-        _ptr(logits), _ptr(wh), _ptr(g), _ptr(m), _ptr(l), _ptr(beta),
-        *_mask_args(dmask, drop), _ptr(dlogits), None if alpha_d is None else _ptr(alpha_d),
-        heads, feat, _stream(wh.device),
-    )
-    _rc("gat_bwd", rc)
-    return dlogits, alpha_d
+    return _launch_bwd(csr.plans[0], csr.n_edge, logits, wh, g, m, l, beta, dmask, drop,
+                       emit_alpha)
 
 
 def gat_dwh(csr: CSRGraph, s_src, s_dst, m, l, g, slope: float, *, drop=None):

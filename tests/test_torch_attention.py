@@ -5,8 +5,9 @@ the port's Functions run the plain versions of their kernels; JAX runs its
 segment path ``attention_aggregate(g, ...)``, and in one case the Pallas
 kernel in interpret mode.  Values agree to 2e-5 and gradients of
 ``sum(sin(out))`` to 2e-4, the tolerances of ``tests/test_pallas_gat.py``.
-Numpy models of the CUDA kernels' segment and lane bookkeeping check what
-the CPU cannot run.
+A numpy model of the split-row softmax merge checks what the CPU cannot
+run; the GAT kernels' schedules and lane layouts are modelled in
+``tests/test_torch_gat_schedule.py``.
 """
 
 import jax
@@ -256,29 +257,6 @@ def test_split_row_softmax_merge_model(into):
     assert any(len(v) > 1 for v in state.values()) == into
     ref, _, _ = gat_attn.gat_fwd(csr, torch.from_numpy(logits), torch.from_numpy(wh))
     np.testing.assert_allclose(out, ref.numpy(), **VAL)
-
-
-@pytest.mark.parametrize("heads,feat", [(1, 6), (8, 8), (1, 64), (1, 128), (3, 8), (6, 5), (2, 96)])
-def test_bwd_lane_layout_covers_every_head_feature_once(heads, feat):
-    """gat_bwd's virtual lanes: every (h, f) once, and no head straddles a pass."""
-    fp = -(-feat // 32) * 32 if feat > 32 else 1 << (feat - 1).bit_length()
-    v = heads * fp
-    g = 32 if v >= 32 else 1 << (v - 1).bit_length()
-    n_pass = -(-v // g)
-    seen, head_pass = [], {}
-    for k in range(n_pass):
-        for fl in range(g):
-            h, f = divmod(k * g + fl, fp)
-            if h < heads and f < feat:
-                seen.append((h, f))
-                head_pass.setdefault(h, set()).add(k)
-            ends_head = ((k + 1) * g) % fp == 0
-            if h < heads and fp <= 32:
-                assert ends_head
-    assert sorted(seen) == [(h, f) for h in range(heads) for f in range(feat)]
-    for h, passes in head_pass.items():  # a head's passes are consecutive and end it
-        assert passes == set(range(min(passes), max(passes) + 1))
-        assert ((max(passes) + 1) * g) % fp == 0
 
 
 def test_weighted_reduce_matches_expanded_weights():

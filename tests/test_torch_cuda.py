@@ -11,9 +11,9 @@ The reference is the plain version run in float64 on the same f32 weights
 and features, so that what is compared is the kernel's own rounding: the
 plain version in float32 adds a hub row's terms one by one in atomic order,
 and its error alone can exceed the tolerance.  Tolerance rtol = atol = 1e-5.
-Each call of the CSR kernel's wrappers is also held to one device launch,
-to bit-equal repeats on split rows, and to bit-equal replays of a captured
-CUDA graph.
+Each call of the CSR kernel's wrappers and of ``gat_fwd`` and ``gat_bwd`` is
+also held to one device launch, to bit-equal repeats on split rows, and to
+bit-equal replays of a captured CUDA graph.
 """
 
 import time
@@ -390,6 +390,9 @@ def test_config4_step_is_a_function_of_its_inputs(cuda):
 
 
 # ---------------------------------- one launch per call, a plan per view
+#
+# The tests that count launches with the profiler come before those that
+# capture CUDA graphs: after a capture the profiler showed no kernel at all.
 
 
 def _device_kernels(fn):
@@ -464,6 +467,38 @@ def test_each_call_is_one_launch_and_repeats_bit_for_bit(cuda, f):
     torch.cuda.synchronize()
     for plan in (*csr.plans, view.plan):
         assert plan.arrivals.numel() >= plan.n_split and not plan.arrivals.any()
+
+
+@pytest.mark.parametrize("heads,feat", ATT_SHAPES)
+def test_gat_calls_are_one_launch_and_repeat_bit_for_bit(cuda, heads, feat):
+    """On a split hub, every ``gat_fwd`` and ``gat_bwd`` call (hash dropout,
+    α·D emitted, logits with padding rows) is one launch of its own kernel
+    by the profiler, 20 calls are bit-equal, the padding rows of dlogits are
+    zeros and every arrival counter is back at 0."""
+    from graph_odenet_tpu_torch.ops import gat_attn
+
+    g = _split_hub_graph(np.random.default_rng(20))
+    csr, _, _, logits, wh, up = _att_inputs(g, heads, feat, cuda, seed=21)
+    assert csr.part.split_row.numel() > 0
+    logits = torch.cat([logits, torch.full((37, heads), 5.0, device=cuda)])
+    drop = (9, 0.6)
+    out, m, l = gat_attn.gat_fwd(csr, logits, wh, drop=drop)
+    beta = (up * out).sum(-1)
+    calls = {
+        "gat_fwd": lambda: gat_attn.gat_fwd(csr, logits, wh, drop=drop),
+        "gat_bwd": lambda: gat_attn.gat_bwd(csr, logits, wh, up, m, l, beta, drop=drop,
+                                            emit_alpha=True),
+    }
+    for name, call in calls.items():
+        first = call()
+        kernels = _device_kernels(call)
+        assert len(kernels) == 1 and f"{name}_kernel" in kernels[0], (name, kernels)
+        for got in [call() for _ in range(20)]:
+            for a, b in zip(got, first):
+                assert torch.equal(a, b), name
+    torch.cuda.synchronize()
+    assert not first[0][csr.n_edge:].any()
+    assert not csr.plans[0].arrivals.any()
 
 
 def test_captured_graph_replays_bit_equal_to_eager_calls(cuda):
@@ -553,6 +588,87 @@ def test_captured_graph_outlives_a_wider_eager_call(cuda):
     with pytest.raises(RuntimeError, match="eager call"):
         with torch.cuda.graph(torch.cuda.CUDAGraph()):
             work(*widest)
+
+
+def _gat_fwd_bwd(csr, s_src, s_dst, wh, up):
+    """``attention_aggregate`` with the score hint and hash dropout 0.6,
+    forward and backward: (out, d logits, d wh), the kernels' outputs.  The
+    logits are the leaf: the scores' own gradient goes on through
+    ``edge_scores``' backward, whose ``index_add_`` adds with atomics, in no
+    fixed order."""
+    from graph_odenet_tpu_torch.ops.sddmm import attention_aggregate, edge_scores
+
+    lg = edge_scores(csr, s_src, s_dst).requires_grad_(True)
+    w = wh.detach().requires_grad_(True)
+    out = attention_aggregate(csr, lg, w, dropout_seed=31, dropout_rate=0.6,
+                              scores=(s_src, s_dst))
+    return (out.detach(), *torch.autograd.grad(out, (lg, w), up))
+
+
+def _capture(work, *args):
+    """An eager call of ``work`` on a side stream (it builds every plan), then
+    a CUDA graph captured around it: (graph, eager results, captured results)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = work(*args)
+        torch.cuda.synchronize()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = work(*args)
+    return graph, eager, captured
+
+
+def test_gat_captured_graph_replays_bit_equal_to_eager_calls(cuda):
+    """``attention_aggregate`` forward and backward on a split hub (score hint,
+    hash dropout 0.6: gat_fwd, gat_bwd and gat_dwh) captured in a CUDA graph:
+    its replays equal the eager calls bit for bit."""
+    g = _split_hub_graph(np.random.default_rng(22))
+    csr, s_src, s_dst, _, wh, up = _att_inputs(g, 8, 8, cuda, seed=23)
+    graph, eager, captured = _capture(_gat_fwd_bwd, csr, s_src, s_dst, wh, up)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+    for got, want in zip(_gat_fwd_bwd(csr, s_src, s_dst, wh, up), eager):
+        assert torch.equal(got, want)
+
+
+def test_gat_captured_graph_outlives_a_wider_eager_call(cuda):
+    """A graph captured at H=1/F=64 (one feature chunk of gat_fwd) replays
+    bit-equal after an eager call at H=2/F=96 (two chunks) gave the view new
+    arrival counters; every counter is back at 0; a capture that would need
+    new counters (H=1/F=512, four chunks) raises."""
+    g = _split_hub_graph(np.random.default_rng(24))
+    csr = prepare(g).to(cuda)
+    rng = np.random.default_rng(25)
+
+    def inputs(heads, feat):
+        def randn(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+        n = g.n_node_pad
+        return randn(n, heads), randn(n, heads), randn(n, heads, feat), randn(n, heads, feat)
+
+    narrow, wide = inputs(1, 64), inputs(2, 96)
+    graph, eager, captured = _capture(_gat_fwd_bwd, csr, *narrow)
+    wide_eager = _gat_fwd_bwd(csr, *wide)
+    plan = csr.plans[0]
+    assert len(plan.outgrown) == 1
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+    for got, want in zip(_gat_fwd_bwd(csr, *wide), wide_eager):
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert not any(t.any() for t in (*plan.outgrown, plan.arrivals))
+    widest = inputs(1, 512)
+    with pytest.raises(RuntimeError, match="eager call"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            _gat_fwd_bwd(csr, *widest)
 
 
 # ------------------------------------------ B2-w: the weighted bucket mode
