@@ -9,8 +9,9 @@ one after another in the order given, so that two versions alternate on one
 card (parent, change, change, parent).  A turn runs this checkout's
 ``chip_smoke.py`` phases ``kernel`` (B1), ``bucket`` (B2),
 ``bucket_weighted`` (B2-w) and ``attention`` (B3 ``gat_dwh``, B4 ``gat_fwd``,
-B5 ``gat_bwd`` and B1-w: ms, plain ms, bound, and host µs, device µs and
-device launches per call at each shape) with the tree's package, then, end
+B5 ``gat_bwd`` and B1-w: ms, plain ms, bound, and host µs, device µs, device
+launches and share of bound (bound / device time) per call at each shape)
+with the tree's package, then, end
 to end, ``pubmed-gcnode``'s s/epoch, config 2's s/epoch (GAT-ODE on the
 Citeseer twin) and config 4's ``step_ms`` on one card through
 ``run_config``, each with its test accuracy.  Each turn prints its phases' lines and one JSON line of its
@@ -62,7 +63,9 @@ def turn(tree):
             rows[f"{names[k]} {k} {r['graph']} H={r['H']} F={r['F']} {r['mode']}"] = dict(
                 ms=ms, plain_ms=r["kernel_plain_ms"][k], bound_ms=r["bound_ms"][k],
                 host_us=c["host_us"], wall_us=c["wall_us"], device_us=c["device_us"],
-                launches_per_call=c["launches_per_call"], kernels=c["kernels"])
+                launches_per_call=c["launches_per_call"], kernels=c["kernels"],
+                share_of_bound=(r["bound_ms"][k] * 1e3 / c["device_us"] if c["device_us"]
+                                else float("nan")))
     res = run_config("pubmed-gcnode", calibrated=True, device=dev)
     e2e = {"pubmed-gcnode s/epoch": res["seconds"] / res["epochs_run"],
            "pubmed-gcnode test_acc": res["best"]["test_acc"]}
@@ -102,7 +105,7 @@ def main():
         with open(args.out, "w") as fh:
             fh.writelines(line + "\n" for line in lines)
     for key in turns[0]["rows"]:
-        for what in ("ms", "host_us", "device_us", "launches_per_call"):
+        for what in ("ms", "host_us", "device_us", "launches_per_call", "share_of_bound"):
             if what in turns[0]["rows"][key]:
                 print(key, what, " | ".join(f"{t['tree']} {t['rows'][key][what]:.4f}"
                                              for t in turns))

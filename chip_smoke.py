@@ -37,9 +37,9 @@ so the exit code is non-zero:
              of ``attention_aggregate`` through the kernels and through the
              plain version in float32; each kernel wrapper's host µs, device
              µs and device launches per call (``call_costs``).  The run fails
-             if a ``gat_fwd`` or ``gat_bwd`` call launches more than one
-             kernel or any kernel but its own, at any shape (the hub graphs'
-             split rows included).
+             if a ``gat_fwd``, ``gat_bwd`` or ``gat_dwh`` call launches more
+             than one kernel or any kernel but its own, at any shape (the hub
+             graphs' split rows included).
   slice      trains ``pubmed-gcnode`` (GCN-ODE, rk4, 200 epochs with early
              stop) on the card, checks that it went through the kernel and
              reached test accuracy >= 0.65, and holds the trained model's
@@ -1384,9 +1384,9 @@ def main():
     per_call += [(f"weighted {k}", "write", r["call_costs"]) for k, r in weighted_buckets.items()
                  if "call_costs" in r]
     own = {k: "csr_reduce_kernel" for _, k, _ in per_call}
-    # gat_fwd and gat_bwd: one launch of their own kernel a call, split rows too.
+    # gat_fwd, gat_bwd and gat_dwh: one launch of their own kernel a call, split rows too.
     att_calls = [(f"{r['graph']} H={r['H']} F={r['F']} {r['mode']}", k, r["call_costs"][k])
-                 for r in att for k in ("gat_fwd", "gat_bwd")]
+                 for r in att for k in ("gat_fwd", "gat_bwd", "gat_dwh") if k in r["call_costs"]]
     own.update({k: f"{k}_kernel" for _, k, _ in att_calls})
     per_call += att_calls
     for shape, form, c in per_call:
@@ -1507,7 +1507,7 @@ def main():
         att_entry("gat_bwd", gat_src, "graph_odenet_tpu/ops/pallas_gat.py:890",
                   cite_row, gat_launches["gat_bwd"], costs=True),
         att_entry("gat_dwh", gat_src, "graph_odenet_tpu/ops/pallas_spmm.py:736",
-                  cite_row, gat_launches["gat_dwh"]),
+                  cite_row, gat_launches["gat_dwh"], costs=True),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,8 @@
 //   * a hub row longer than one segment is spread over several warps, which
 //     write partial rows to scratch.  The last of them to arrive (an integer
 //     arrival counter per split row and chunk, after a __threadfence) adds
-//     the partial rows in slot order and resets the counter to 0.  So the
+//     the partial rows in slot order and resets the counter to 0
+//     (segments.cuh::merge_split_row, which gat_dwh shares).  So the
 //     sum never depends on scheduling, repeated calls are bit-equal, and the
 //     call is one launch that a CUDA graph can capture.
 // Weighted mode (kAlpha): lane f of edge p is scaled by
@@ -71,6 +72,7 @@ using gode::kFullMask;
 using gode::kThreads;
 using gode::kWarpsPerBlock;
 using gode::Lane;
+using gode::merge_split_row;
 using gode::sum_slots;
 
 // kScaled: w[p] * x[col[p]].  kAlpha: alpha-scaled lanes.  kPositional: x[p].
@@ -149,7 +151,6 @@ __global__ void __launch_bounds__(kThreads)
 csr_reduce_kernel(const CsrPlan plan, const float* __restrict__ x, const float* __restrict__ alpha,
                   float* __restrict__ out, float* __restrict__ partial, int64_t F, int64_t feat,
                   int64_t n_chunks, int add) {
-  constexpr int kSlots = 32 / G;
   constexpr int64_t kWidth = G * V;
   const int64_t item = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -168,45 +169,16 @@ csr_reduce_kernel(const CsrPlan plan, const float* __restrict__ x, const float* 
   const bool live = f < F;  // F % V == 0, so the lane's V features are all in range
   const int64_t heads = kMode == Mode::kAlpha ? F / feat : 1;
   const int64_t head = kMode == Mode::kAlpha ? (live ? f / feat : 0) : 0;
-  const Lane<V> acc = gather_segment<G, V, kMode>(plan, x, alpha, F, heads, head, plan.seg_ptr[s],
-                                                  plan.seg_ptr[s + 1], lane, f, live);
+  Lane<V> acc = gather_segment<G, V, kMode>(plan, x, alpha, F, heads, head, plan.seg_ptr[s],
+                                            plan.seg_ptr[s + 1], lane, f, live);
+  int64_t row = plan.seg_row[s];
   const int slot = plan.seg_slot[s];
-  if (slot < 0) {  // a whole row
-    if (sub == 0 && live) {
-      float* dst = out + static_cast<int64_t>(plan.seg_row[s]) * F + f;
-      Lane<V> v = acc;
-      if (add) v.add(Lane<V>::ld(dst));
-      v.st(dst);
-    }
-    return;
-  }
-  // A segment of a split row: write its partial row, then count the arrival.
-  if (sub == 0 && live) acc.st(partial + static_cast<int64_t>(slot) * F + f);
-  __threadfence();
-  __syncwarp();
-  const int j = plan.slot_split[slot];
-  const int k0 = plan.split_ptr[j];
-  const int k1 = plan.split_ptr[j + 1];
-  int32_t* counter = plan.arrivals + chunk * plan.n_split + j;
-  int before = 0;
-  if (lane == 0) before = atomicAdd(counter, 1);
-  before = __shfl_sync(kFullMask, before, 0);
-  if (before != k1 - k0 - 1) return;  // not the last to arrive (uniform across the warp)
-  // The last: every partial row of this split row and chunk is written.
-  __threadfence();
-  if (lane == 0) *counter = 0;  // the next call starts from zero
-  Lane<V> sum = Lane<V>::zero();
-  if (live) {
-#pragma unroll 4
-    for (int k = k0 + sub; k < k1; k += kSlots) {
-      sum.add(Lane<V>::ldcg(partial + static_cast<int64_t>(k) * F + f));
-    }
-  }
-  sum = sum_slots<G, V>(sum);
+  // A segment of a split row: only the last of the row's warps to arrive writes it.
+  if (slot >= 0 && !merge_split_row<G, V>(plan, slot, chunk, partial, F, f, live, acc, row)) return;
   if (sub == 0 && live) {
-    float* dst = out + static_cast<int64_t>(plan.split_row[j]) * F + f;
-    if (add) sum.add(Lane<V>::ld(dst));
-    sum.st(dst);
+    float* dst = out + row * F + f;
+    if (add) acc.add(Lane<V>::ld(dst));
+    acc.st(dst);
   }
 }
 

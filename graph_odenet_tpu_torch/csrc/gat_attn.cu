@@ -24,10 +24,11 @@
 // 3·H floats of its node tables.  About two flops per gathered float, from
 // random rows: there is no matrix product for the tensor cores (wgmma) to
 // take, and TMA copies rectangular tiles, not scattered rows, so neither is
-// used.  What the designs of gat_fwd and gat_bwd do about the bytes:
-//   * the host path: both take the receiver-sorted view's LaunchPlan
-//     (segments.cuh::CsrPlan, built once per view by ops/csr_spmm.py) by
-//     pointer, plus only what varies, and each call is one launch;
+// used.  What the designs do about the bytes:
+//   * the host path: gat_fwd and gat_bwd take the receiver-sorted view's
+//     LaunchPlan (segments.cuh::CsrPlan, built once per view by
+//     ops/csr_spmm.py) by pointer, gat_dwh the sender-sorted (CSC) view's,
+//     plus only what varies, and each call is one launch;
 //   * a warp item is one warp segment (at most SEG_EDGES edges of one row;
 //     ops/csr_spmm.py::prepare cuts the rows) times one feature chunk, the
 //     chunk the grid's slowest axis, as in the CSR kernel.  Its lanes split
@@ -35,16 +36,17 @@
 //     aligned rows a lane loads a float4 of one head (a 16-byte gather) and a
 //     chunk holds up to 128 features; otherwise lanes are single floats;
 //   * the softmax weight is computed once per (edge, head), not per feature
-//     lane: the warp loads a batch of up to 32 edges' senders and logits,
-//     coalesced, takes the batch's max per head with shuffles, and computes
-//     exp and the dropout hash once per (edge, head) into a per-warp tile of
-//     shared memory, from which every lane reads its head's weight and its
-//     sender as a broadcast.  gat_fwd first passes over the segment's logits
-//     alone for the max and the sum per head (rescaled once a batch), then
-//     gathers with the normalised weight α·D; a segment of one batch (every
-//     row of up to 32 edges) keeps its exps in the tile between the passes;
-//   * four independent gathers of Wh in flight per lane, added in edge order
-//     into one accumulator;
+//     lane: per batch of up to 32 edges the warp loads their senders
+//     (gat_fwd) or receivers (gat_dwh), coalesced, and the batch's (edge,
+//     head) pairs compute exp and the dropout hash once each into a per-warp
+//     tile of shared memory, from which every lane reads its head's weight
+//     and its gathered row as a broadcast.  gat_fwd first passes over the
+//     segment's logits alone for the max per head (a batch's by shuffles) and
+//     the sum (rescaled once a batch), then gathers with the normalised
+//     weight α·D; a segment of one batch (every row of up to 32 edges) keeps
+//     its exps in the tile between the passes;
+//   * four independent gathers of Wh (g in gat_dwh) in flight per lane,
+//     added in edge order into one accumulator;
 //   * gat_fwd: a hub row cut into several segments is merged in the same
 //     grid.  Each segment writes its partial (out, m, l), its own softmax of
 //     its edges, to the slot of its split row; after a __threadfence it counts its arrival on
@@ -62,9 +64,16 @@
 //     head never spans warps, and the per-head dot is a shuffle tree over its
 //     lanes.  Edges are independent, so a split row needs no merge.  Extra
 //     warps of the same grid write zeros to the padding rows of dlogits;
-//   * gat_dwh (not redesigned) is the SpMM over the CSC view with the weight
-//     recomputed per lane; hub senders take split_rows_kernel, a second
-//     launch.
+//   * gat_dwh walks the CSC view's segments with gat_fwd's lanes and tile.
+//     A segment's row is its sender, so its s_src is loaded once per warp
+//     item; per batch the (edge, head) pairs gather the receiver's s_dst, m
+//     and l and compute α·D once each, the dropout hash included, for all
+//     the feature lanes of the chunk to read.  The first rows of g[r] are
+//     loaded before the weights are computed (both wait only on the
+//     receivers).  A hub sender's segments merge their partial rows by
+//     the last warp to arrive (segments.cuh::merge_split_row, as the CSR
+//     kernel does), so a call is one launch; an edgeless row's one empty
+//     segment writes zeros, so every row is written.
 
 #include <cmath>
 #include <cstdint>
@@ -80,6 +89,7 @@ using gode::kFullMask;
 using gode::kThreads;
 using gode::kWarpsPerBlock;
 using gode::Lane;
+using gode::merge_split_row;
 using gode::sum_slots;
 
 constexpr int kUnroll = 4;  // gathers in flight per lane
@@ -94,6 +104,31 @@ __host__ __device__ __forceinline__ int chunk_heads(int c, int W, int H, int F, 
 
 // ---------------------------------------------------------------- gat_fwd
 
+// x[u] = row(j) for the j = j0 + u·32/G + l / G < n of this lane's edge slot.
+template <int G, int V, class Row>
+__device__ __forceinline__ void load_rows(Lane<V> (&x)[kUnroll], int j0, int n, int sub, bool live,
+                                          Row row) {
+  constexpr int kSlots = 32 / G;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int j = j0 + u * kSlots + sub;
+    x[u] = live && j < n ? row(j) : Lane<V>::zero();
+  }
+}
+
+// acc += tile[j·Hp + hf] · x[u] over the same j, in order.
+template <int G, int V>
+__device__ __forceinline__ void fma_rows(Lane<V>& acc, const Lane<V> (&x)[kUnroll],
+                                         const float* tile, int Hp, int hf, int j0, int n, int sub,
+                                         bool live) {
+  constexpr int kSlots = 32 / G;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int j = j0 + u * kSlots + sub;
+    if (live && j < n) acc.fma(tile[j * Hp + hf], x[u]);
+  }
+}
+
 // acc += Σ tile[j·Hp + hf] · row(j) over the j < n of this lane's edge slot
 // (j ≡ l / G mod 32/G), in order, four rows loaded at a time.
 template <int G, int V, class Row>
@@ -102,16 +137,8 @@ __device__ __forceinline__ void add_weighted(Lane<V>& acc, const float* tile, in
   constexpr int kSlots = 32 / G;
   for (int j0 = 0; j0 < n; j0 += kSlots * kUnroll) {
     Lane<V> x[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u * kSlots + sub;
-      x[u] = live && j < n ? row(j) : Lane<V>::zero();
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u * kSlots + sub;
-      if (live && j < n) acc.fma(tile[j * Hp + hf], x[u]);
-    }
+    load_rows<G, V>(x, j0, n, sub, live, row);
+    fma_rows<G, V>(acc, x, tile, Hp, hf, j0, n, sub, live);
   }
 }
 
@@ -394,51 +421,80 @@ gat_bwd_kernel(const CsrPlan plan, const float* __restrict__ logits,
 
 // ---------------------------------------------------------------- gat_dwh
 
-// One warp per CSC segment (the rows are senders): 32/G edge slots of G
-// lanes, lane fl of slot sub on feature f0 + fl of the flattened [H·F] row.
-template <int G>
+// A warp item is (CSC segment s, chunk c) with gat_fwd's lanes: lane l covers
+// the V features f = c·G·V + (l % G)·V of head f / F for the edges of slot
+// l / G.  The segment's row is its sender.  Per batch of up to 32 edges the
+// tile holds the receivers [32] and the weights [32][Hp]: the (edge, head)
+// pairs j = l / Hp + k·(32 / Hp), head l % Hp of the chunk, compute
+//   α·D = exp(min(LeakyReLU(s_src[s] + s_dst[r]) − m[r], 0)) / l[r] · D
+// once each (the TPU kernel's clamp, exact for real edges since m[r] is the
+// receiver's max logit; D scales the numerator only), and the lanes gather
+// their float4s of g[r] weighted by their head's.  Then the edge slots' sums are added; a split row's
+// partial rows are merged by the last of its warps to arrive.
+template <int G, int V>
 __global__ void __launch_bounds__(kThreads)
-gat_dwh_kernel(const int64_t* __restrict__ seg_ptr, const int32_t* __restrict__ seg_row,
-               const int32_t* __restrict__ seg_slot, int64_t n_seg,
-               const int32_t* __restrict__ receivers, const float* __restrict__ s_src,
+gat_dwh_kernel(const CsrPlan plan, const float* __restrict__ s_src,
                const float* __restrict__ s_dst, const float* __restrict__ m,
                const float* __restrict__ l, const float* __restrict__ g, float slope,
-               DropMask mask, float* __restrict__ out, float* __restrict__ partial,
-               int64_t H, int64_t F) {
+               DropMask mask, float* __restrict__ out, float* __restrict__ partial, int H, int F,
+               int Hp, int n_chunks) {
   constexpr int kSlots = 32 / G;
-  const int64_t s = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-  if (s >= n_seg) return;  // uniform across the warp
+  constexpr int kWidth = G * V;
+  const int64_t item = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  if (item >= plan.n_seg * n_chunks) return;  // uniform across the warp
   const int lane = threadIdx.x & 31;
+  extern __shared__ float4 gode_smem[];
+  float* tile = reinterpret_cast<float*>(gode_smem) + (threadIdx.x >> 5) * 32 * (Hp + 1);
+  int32_t* cols = reinterpret_cast<int32_t*>(tile + 32 * Hp);
+  const int chunk = static_cast<int>(item / plan.n_seg);
+  const int64_t s = item - static_cast<int64_t>(chunk) * plan.n_seg;
+  const int HF = H * F;
+  int h0;
+  const int n_heads = chunk_heads(chunk, kWidth, H, F, &h0);
   const int sub = lane / G;
-  const int fl = lane % G;
-  const int64_t p0 = seg_ptr[s];
-  const int64_t p1 = seg_ptr[s + 1];
-  const int32_t sender = seg_row[s];
-  const int slot = seg_slot[s];
-  const int64_t HF = H * F;
-  float* dst = slot < 0 ? out + static_cast<int64_t>(sender) * HF
-                        : partial + static_cast<int64_t>(slot) * HF;
-  for (int64_t f0 = 0; f0 < HF; f0 += G) {
-    const int64_t f = f0 + fl;
-    float acc = 0.f;
-    if (f < HF) {
-      const int64_t h = f / F;
-      const float src = __ldg(s_src + static_cast<int64_t>(sender) * H + h);
-      for (int64_t p = p0 + sub; p < p1; p += kSlots) {
-        const int32_t r = __ldg(receivers + p);
-        const int64_t rh = static_cast<int64_t>(r) * H + h;
-        float x = src + __ldg(s_dst + rh);
-        x = x > 0.f ? x : x * slope;
-        const float a = expf(fminf(x - __ldg(m + rh), 0.f)) / __ldg(l + rh);
-        acc = fmaf(a * mask.at(p, H, h, sender, r), __ldg(g + static_cast<int64_t>(r) * HF + f), acc);
-      }
+  const int f = chunk * kWidth + (lane % G) * V;
+  const bool live = f < HF;  // F % V == 0: the lane's V features are in one head
+  const int hf = live ? f / F - h0 : 0;  // the lane's head, within the chunk
+  const int hs = lane % Hp;              // the head of the lane's (edge, head) pairs
+  const bool hs_live = hs < n_heads;
+  const int per = 32 / Hp;
+  const int64_t p0 = plan.seg_ptr[s];
+  const int64_t p1 = plan.seg_ptr[s + 1];
+  const int32_t sender = plan.seg_row[s];
+  const float src = hs_live ? __ldg(s_src + static_cast<int64_t>(sender) * H + h0 + hs) : 0.f;
+  const auto row = [&](int e) {
+    return Lane<V>::ldg(g + static_cast<int64_t>(cols[e]) * HF + f);
+  };
+  Lane<V> acc = Lane<V>::zero();
+  for (int64_t pb = p0; pb < p1; pb += 32) {
+    const int n = static_cast<int>(p1 - pb < 32 ? p1 - pb : 32);
+    if (lane < n) cols[lane] = __ldg(plan.col + pb + lane);
+    __syncwarp();  // the receivers are in the tile
+    Lane<V> x[kUnroll];
+    load_rows<G, V>(x, 0, n, sub, live, row);  // in flight while the weights are computed
+    for (int j = lane / Hp; hs_live && j < n; j += per) {
+      const int32_t r = cols[j];
+      const int64_t rh = static_cast<int64_t>(r) * H + h0 + hs;
+      float z = src + __ldg(s_dst + rh);
+      z = z > 0.f ? z : z * slope;
+      const float a = expf(fminf(z - __ldg(m + rh), 0.f)) / __ldg(l + rh);
+      tile[j * Hp + hs] = a * mask.at(pb + j, H, h0 + hs, sender, r);
     }
-#pragma unroll
-    for (int off = 16; off >= G; off >>= 1) {
-      acc += __shfl_xor_sync(kFullMask, acc, off);
+    __syncwarp();  // the weights are in the tile
+    for (int j0 = 0; j0 < n; j0 += kSlots * kUnroll) {
+      if (j0 > 0) load_rows<G, V>(x, j0, n, sub, live, row);
+      fma_rows<G, V>(acc, x, tile, Hp, hf, j0, n, sub, live);
     }
-    if (sub == 0 && f < HF) dst[f] = acc;
+    __syncwarp();  // the next batch overwrites the tile
   }
+  acc = sum_slots<G, V>(acc);
+  int64_t r_out = sender;
+  const int slot = plan.seg_slot[s];
+  // A segment of a split row: only the last of the row's warps to arrive writes it.
+  if (slot >= 0 && !merge_split_row<G, V>(plan, slot, chunk, partial, HF, f, live, acc, r_out)) {
+    return;
+  }
+  if (sub == 0 && live) acc.st(out + r_out * HF + f);
 }
 
 int check_launch(int64_t blocks) {
@@ -489,6 +545,19 @@ int launch_bwd(const CsrPlan& plan, const float* logits, const float* wh, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int G, int V>
+int launch_dwh(const CsrPlan& plan, const float* s_src, const float* s_dst, const float* m,
+               const float* l, const float* g, float slope, DropMask mask, float* out,
+               float* partial, int H, int F, int Hp, int n_chunks, cudaStream_t st) {
+  const int64_t blocks = (plan.n_seg * n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (int rc = check_launch(blocks)) return rc;
+  if (blocks == 0) return 0;
+  const size_t smem = static_cast<size_t>(kWarpsPerBlock) * 32 * (Hp + 1) * sizeof(float);
+  gat_dwh_kernel<G, V><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+      plan, s_src, s_dst, m, l, g, slope, mask, out, partial, H, F, Hp, n_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each entry point launches on `stream`, does not synchronise, and returns
@@ -497,7 +566,8 @@ int launch_bwd(const CsrPlan& plan, const float* logits, const float* wh, const 
 //   logits [>= E, H] and dlogits [n_rows >= E, H], alpha_d [E, H] in CSR order;
 //   wh, g, out, dwh [N, H, F]; m, l, beta, s_src, s_dst [N, H];
 //   dmask [E, H] in CSR order (mask_mode 1 only).
-// `plan` is the LaunchPlan of the receiver-sorted (CSR) view.
+// `plan` is the LaunchPlan of the receiver-sorted (CSR) view, for gat_dwh
+// that of the sender-sorted (CSC) view.
 
 // gat_fwd, one launch.  `lanes` (G, a power of two <= 32) and `vec` (V, 1 or
 // 4) shape a warp item: a chunk is G·V features of the H·F row; V = 4 needs
@@ -580,47 +650,55 @@ extern "C" int gode_gat_bwd_f32(const CsrPlan* plan, int64_t n_edge, int64_t n_r
                        n_chunks, n_edge, n_rows, st);
 }
 
-// gat_dwh, over the CSC view's own segments: `partial` [n_slots, H·F] is
-// scratch for its split rows and may be null when it has none; a second
-// launch adds them.
-extern "C" int gode_gat_dwh_f32(const int64_t* seg_ptr, const int32_t* seg_row,
-                                const int32_t* seg_slot, int64_t n_seg,
-                                const int32_t* split_row, const int32_t* split_ptr,
-                                int64_t n_split, const int32_t* receivers, const float* s_src,
-                                const float* s_dst, const float* m, const float* l,
-                                const float* g, float slope, int mask_mode, uint32_t seed,
-                                uint32_t keep24, float inv_keep, float* out, float* partial,
-                                int64_t H, int64_t F, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // The CSC walk regenerates the mask; an explicit CSR-order mask cannot be read here.
-  if (H < 1 || F < 1 || (mask_mode != gode::kNone && mask_mode != gode::kHash)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// gat_dwh, one launch, over the CSC view (rows are senders, the plan's
+// columns their receivers): dwh, every row written (an edgeless row's one
+// empty segment writes zeros; a plan with rows that have no segment is
+// refused).  `lanes`, `vec` and `hp` shape a warp item as gat_fwd's do; V = 4
+// needs F % 4 == 0, G >= 8 and g, out and partial 16-byte aligned.  With
+// split rows, `partial` [n_slots, H·F] is scratch, and the plan's arrival
+// counters cover n_split times the number of chunks.  The CSC walk
+// regenerates the mask: an explicit CSR-order mask cannot be read here.
+extern "C" int gode_gat_dwh_f32(const CsrPlan* plan, const float* s_src, const float* s_dst,
+                                const float* m, const float* l, const float* g, float slope,
+                                int mask_mode, uint32_t seed, uint32_t keep24, float inv_keep,
+                                float* out, float* partial, int64_t H, int64_t F, int lanes,
+                                int vec, int hp, void* stream) {
+  const auto bad = static_cast<int>(cudaErrorInvalidValue);
+  if (H < 1 || F < 1 || H * F > 0x7fffffff) return bad;
+  if (mask_mode != gode::kNone && mask_mode != gode::kHash) return bad;
+  if (!power_of_two_to_32(lanes) || !power_of_two_to_32(hp) || (vec != 1 && vec != 4)) return bad;
+  const int h = static_cast<int>(H), f = static_cast<int>(F), width = lanes * vec;
+  const int n_chunks = (h * f + width - 1) / width;
+  for (int c = 0, first; c < n_chunks; ++c) {
+    if (chunk_heads(c, width, h, f, &first) > hp) return bad;
+  }
+  if (plan->n_empty > 0) return bad;
+  if (plan->n_split > 0 && partial == nullptr) return bad;
+  if (plan->n_split * n_chunks > plan->n_arrivals) return bad;
+  if (vec == 4 && (f % 4 != 0 || lanes < 8 || misaligned(g) || misaligned(out) ||
+                   (partial != nullptr && misaligned(partial)))) {
+    return bad;
   }
   const DropMask mask = make_mask(mask_mode, nullptr, seed, keep24, inv_keep);
-  const int64_t HF = H * F;
-  if (n_seg > 0) {
-    const int64_t blocks = (n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    if (int rc = check_launch(blocks)) return rc;
-    const unsigned nb = static_cast<unsigned>(blocks);
-#define GODE_DWH(G_)                                                                        \
-  gat_dwh_kernel<G_><<<nb, kThreads, 0, st>>>(seg_ptr, seg_row, seg_slot, n_seg, receivers, \
-                                               s_src, s_dst, m, l, g, slope, mask, out,     \
-                                               partial, H, F)
-    switch (gode::lanes_for(HF)) {
-      case 1: GODE_DWH(1); break;
-      case 2: GODE_DWH(2); break;
-      case 4: GODE_DWH(4); break;
-      case 8: GODE_DWH(8); break;
-      case 16: GODE_DWH(16); break;
-      default: GODE_DWH(32); break;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GODE_DWH(G_, V_)                                                                   \
+  return launch_dwh<G_, V_>(*plan, s_src, s_dst, m, l, g, slope, mask, out, partial, h, f, \
+                            hp, n_chunks, st)
+  if (vec == 4) {
+    switch (lanes) {
+      case 8: GODE_DWH(8, 4);
+      case 16: GODE_DWH(16, 4);
+      case 32: GODE_DWH(32, 4);
+      default: return bad;
     }
+  }
+  switch (lanes) {
+    case 1: GODE_DWH(1, 1);
+    case 2: GODE_DWH(2, 1);
+    case 4: GODE_DWH(4, 1);
+    case 8: GODE_DWH(8, 1);
+    case 16: GODE_DWH(16, 1);
+    default: GODE_DWH(32, 1);
+  }
 #undef GODE_DWH
-  }
-  if (n_split > 0) {
-    const int64_t blocks = (n_split * HF + kThreads - 1) / kThreads;
-    if (int rc = check_launch(blocks)) return rc;
-    gode::split_rows_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        split_row, split_ptr, n_split, partial, out, HF);
-  }
-  return static_cast<int>(cudaGetLastError());
 }

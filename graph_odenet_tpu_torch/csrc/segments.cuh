@@ -2,10 +2,11 @@
 //
 // ops/csr_spmm.py::prepare cuts every row of a CSR (or CSC) view into warp
 // segments of at most SEG_EDGES edges.  A row cut into several segments is a
-// split row: each of its segments writes a partial row to scratch.  The CSR
-// kernel (csr_spmm.cu) and gat_fwd (gat_attn.cu) merge the partial rows in
-// their own grid, by the last warp of the row to arrive; only gat_dwh still
-// takes split_rows_kernel, a second launch, to add them in segment order.
+// split row: each of its segments writes a partial row to scratch, and the
+// last warp of the row to arrive merges them in the same grid.  The CSR
+// kernel (csr_spmm.cu) and gat_dwh (gat_attn.cu) take merge_split_row below;
+// gat_fwd (gat_attn.cu), whose partial rows carry a softmax state each, has
+// its own merge.
 #pragma once
 
 #include <cstdint>
@@ -115,26 +116,48 @@ __device__ __forceinline__ Lane<V> sum_slots(Lane<V> acc) {
   return acc;
 }
 
-// out[split_row[j], f] = sum of partial[k, f] over k in [split_ptr[j], split_ptr[j+1]),
-// or, with kAccumulate, out[split_row[j], f] += that sum.
-template <bool kAccumulate>
-__global__ void __launch_bounds__(kThreads)
-split_rows_kernel(const int32_t* __restrict__ split_row,
-                  const int32_t* __restrict__ split_ptr,
-                  int64_t n_split,
-                  const float* __restrict__ partial,
-                  float* __restrict__ out,
-                  int64_t F) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n_split * F) return;
-  const int64_t j = i / F;
-  const int64_t f = i - j * F;
-  float acc = 0.f;
-  for (int64_t k = split_ptr[j]; k < split_ptr[j + 1]; ++k) {
-    acc += partial[k * F + f];
+// The last-warp merge of a split row, for the warp item of a segment of a
+// split row (partial slot `slot`) and feature chunk `chunk`.  Lane l holds in
+// `acc` the segment's sum at features f .. f+V-1 of the row (`live`: f < F),
+// its edge slots already added.  The lanes of edge slot 0 write it to the
+// slot's row of `partial` [n_slots, F]; after a __threadfence the warp counts
+// its arrival on the plan's counter of (split row, chunk).  Returns false in
+// every warp but the last to arrive.  The last resets the counter to 0 (the
+// next call starts from zero), reads the partial rows through L2 and adds
+// them in slot order (edge slot sub takes slots k0 + sub, k0 + sub + 32/G,
+// ..., then a fixed shuffle tree), and leaves the row's sum in `acc` and the
+// split row in `row`.  So the sum does not depend on scheduling.
+template <int G, int V>
+__device__ __forceinline__ bool merge_split_row(const CsrPlan& plan, int slot, int64_t chunk,
+                                                float* partial, int64_t F, int64_t f, bool live,
+                                                Lane<V>& acc, int64_t& row) {
+  constexpr int kSlots = 32 / G;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane / G;
+  if (sub == 0 && live) acc.st(partial + static_cast<int64_t>(slot) * F + f);
+  __threadfence();
+  __syncwarp();
+  const int j = plan.slot_split[slot];
+  const int k0 = plan.split_ptr[j];
+  const int k1 = plan.split_ptr[j + 1];
+  int32_t* counter = plan.arrivals + chunk * plan.n_split + j;
+  int before = 0;
+  if (lane == 0) before = atomicAdd(counter, 1);
+  before = __shfl_sync(kFullMask, before, 0);
+  if (before != k1 - k0 - 1) return false;  // not the last to arrive (uniform across the warp)
+  // The last: every partial row of this split row and chunk is written.
+  __threadfence();
+  if (lane == 0) *counter = 0;
+  Lane<V> sum = Lane<V>::zero();
+  if (live) {
+#pragma unroll 4
+    for (int k = k0 + sub; k < k1; k += kSlots) {
+      sum.add(Lane<V>::ldcg(partial + static_cast<int64_t>(k) * F + f));
+    }
   }
-  float* dst = out + static_cast<int64_t>(split_row[j]) * F + f;
-  *dst = kAccumulate ? *dst + acc : acc;
+  acc = sum_slots<G, V>(sum);
+  row = plan.split_row[j];
+  return true;
 }
 
 }  // namespace

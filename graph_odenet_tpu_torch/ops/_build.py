@@ -59,13 +59,12 @@ _SIGNATURES = {
             _p,                        # stream
         ],
         "gode_gat_dwh_f32": [
-            _p, _p, _p, _i64,          # seg_ptr, seg_row, seg_slot, n_seg
-            _p, _p, _i64,              # split_row, split_ptr, n_split
-            _p, _p, _p, _p, _p, _p,    # receivers, s_src, s_dst, m, l, g
+            _p, _p, _p, _p, _p, _p,    # plan, s_src, s_dst, m, l, g
             _f32,                      # slope
             _i, _u32, _u32, _f32,      # mask_mode, seed, keep24, inv_keep
             _p, _p,                    # out, partial
-            _i64, _i64, _p,            # H, F, stream
+            _i64, _i64, _i, _i, _i,    # H, F, lanes, vec, hp
+            _p,                        # stream
         ],
     },
 }

@@ -39,8 +39,9 @@ new plan.  A call passes the plan and only what varies.  The counters are
 back at 0 after every launch, so a launch can be captured in a CUDA graph
 after an eager call at the same width has built the plan and sized its
 counters; calls on one view are ordered on one stream, as PyTorch orders
-them.  The GAT kernels ``gat_fwd`` and ``gat_bwd`` (``ops/gat_attn.py``)
-take the fwd view's plan too, counters included.
+them.  The GAT kernels (``ops/gat_attn.py``) take the same plans, counters
+included: ``gat_fwd`` and ``gat_bwd`` the fwd view's, ``gat_dwh`` the bwd
+view's.
 """
 
 from __future__ import annotations
@@ -360,14 +361,6 @@ def _reduce_plain(row_ptr, col, weight, x, alpha=None, feat=None):
     else:
         msgs = gathered * alpha.to(x.dtype).repeat_interleave(feat, dim=1)
     return x.new_zeros((row_ptr.shape[0] - 1, x.shape[1])).index_add_(0, rows, msgs)
-
-
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 _SCALED, _ALPHA, _POSITIONAL = 0, 1, 2  # the C entry's modes

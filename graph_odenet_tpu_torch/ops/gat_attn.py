@@ -24,10 +24,11 @@ and s_dst through ``logits`` and ``edge_scores``' autograd.
 Each wrapper runs its plain PyTorch version (``*_plain``, beside it) on CPU
 tensors and launches its kernel on CUDA tensors, nothing else.  ``gat_fwd``
 and ``gat_bwd`` take the receiver-sorted view's ``LaunchPlan``
-(``csr.plans[0]``, shared with the CSR kernel) and are one launch a call,
-split rows included, so they can be captured in a CUDA graph after an eager
-call at the same width; their lanes come from ``_fwd_lanes`` and
-``_bwd_lanes``.  The plain
+(``csr.plans[0]``), ``gat_dwh`` the sender-sorted view's (``csr.plans[1]``),
+each shared with the CSR kernel on that view, counters included.  Each call
+is one launch, split rows included, so it can be captured in a CUDA graph
+after an eager call at the same width; the lanes come from ``_fwd_lanes``
+(``gat_fwd``, ``gat_dwh``) and ``_bwd_lanes``.  The plain
 versions take any float dtype; the wrappers take float32.  D is one of: no
 dropout, an explicit ``dmask [E, H]`` in CSR order, or ``drop=(seed,
 rate)``, the counter hash of ``ops/dropmask.py`` regenerated in every pass.
@@ -40,9 +41,7 @@ import functools
 import torch
 
 from graph_odenet_tpu_torch.ops import _build, dropmask
-from graph_odenet_tpu_torch.ops.csr_spmm import (
-    CSRGraph, LaunchPlan, _lanes, _ptr, _stream, csr_reduce, row_ids,
-)
+from graph_odenet_tpu_torch.ops.csr_spmm import CSRGraph, LaunchPlan, _lanes, csr_reduce, row_ids
 
 __all__ = [
     "gat_fwd", "gat_bwd", "gat_dwh",
@@ -162,7 +161,7 @@ def _check_shapes(name, csr: CSRGraph, wh, logits=None, dmask=None, **node_table
 def _mask_args(dmask, drop):
     """(mode, dmask pointer, seed, keep24, inv_keep) of the C interface."""
     if dmask is not None:
-        return _EXPLICIT, _ptr(dmask), 0, 0, 1.0
+        return _EXPLICIT, dmask.data_ptr(), 0, 0, 1.0
     if drop is not None:
         seed, rate = drop
         return _HASH, None, int(seed) & 0xFFFFFFFF, dropmask.keep24(rate), dropmask.inv_keep(rate)
@@ -250,6 +249,28 @@ def _launch_bwd(plan: LaunchPlan, n_edge, logits, wh, g, m, l, beta, dmask, drop
     return dlogits, alpha_d
 
 
+def _launch_dwh(plan: LaunchPlan, s_src, s_dst, m, l, g, slope, drop):
+    """One ``gat_dwh`` launch over ``plan`` (the CSC view's): dWh, every row
+    written.  Lanes as ``gat_fwd``'s; scratch for the split rows' partial
+    rows ``[n_slots, H·F]`` is allocated only when the view has split rows."""
+    _, heads, feat = g.shape
+    out = torch.empty_like(g)
+    lanes, vec, n_chunks, hp = _fwd_lanes(heads, feat, g.data_ptr() % 16 == 0)
+    partial = None
+    if plan.n_split:
+        plan.reserve(n_chunks)
+        partial = torch.empty((plan.n_slots, heads * feat), dtype=torch.float32, device=g.device)
+    mode, _, seed, keep, inv = _mask_args(None, drop)
+    rc = _build.load_library("gat_attn").gode_gat_dwh_f32(
+        plan.address, s_src.data_ptr(), s_dst.data_ptr(), m.data_ptr(), l.data_ptr(),
+        g.data_ptr(), float(slope), mode, seed, keep, inv, out.data_ptr(),
+        None if partial is None else partial.data_ptr(), heads, feat, lanes, vec, hp,
+        torch.cuda.current_stream(plan.index).cuda_stream,
+    )
+    _rc("gat_dwh", rc)
+    return out
+
+
 def gat_fwd(csr: CSRGraph, logits, wh, *, dmask=None, drop=None):
     """B4: ``(out [N, H, F], m [N, H], l [N, H])``; logits ``[>=E, H]`` in CSR order."""
     _check("gat_fwd", csr, logits=logits, wh=wh, dmask=dmask)
@@ -279,20 +300,7 @@ def gat_dwh(csr: CSRGraph, s_src, s_dst, m, l, g, slope: float, *, drop=None):
     _check_shapes("gat_dwh", csr, g, s_src=s_src, s_dst=s_dst, m=m, l=l)
     if csr.device.type == "cpu":
         return gat_dwh_plain(csr, s_src, s_dst, m, l, g, slope, drop=drop)
-    _, heads, feat = g.shape
-    part = csr.t_part
-    out = torch.empty_like(g)
-    partial = torch.empty((part.n_slots, heads * feat), dtype=torch.float32, device=g.device)
-    mode, _, seed, keep, inv = _mask_args(None, drop)
-    rc = _build.load_library("gat_attn").gode_gat_dwh_f32(
-        _ptr(part.seg_ptr), _ptr(part.seg_row), _ptr(part.seg_slot), part.seg_row.shape[0],
-        _ptr(part.split_row), _ptr(part.split_ptr), part.split_row.shape[0],
-        _ptr(csr.t_receivers), _ptr(s_src), _ptr(s_dst), _ptr(m), _ptr(l), _ptr(g),
-        float(slope), mode, seed, keep, inv, _ptr(out),
-        _ptr(partial) if part.n_slots else None, heads, feat, _stream(g.device),
-    )
-    _rc("gat_dwh", rc)
-    return out
+    return _launch_dwh(csr.plans[1], s_src, s_dst, m, l, g, slope, drop)
 
 
 # ---------------------------------------------------------------- autograd

@@ -11,9 +11,9 @@ The reference is the plain version run in float64 on the same f32 weights
 and features, so that what is compared is the kernel's own rounding: the
 plain version in float32 adds a hub row's terms one by one in atomic order,
 and its error alone can exceed the tolerance.  Tolerance rtol = atol = 1e-5.
-Each call of the CSR kernel's wrappers and of ``gat_fwd`` and ``gat_bwd`` is
-also held to one device launch, to bit-equal repeats on split rows, and to
-bit-equal replays of a captured CUDA graph.
+Each call of the CSR kernel's wrappers and of ``gat_fwd``, ``gat_bwd`` and
+``gat_dwh`` is also held to one device launch, to bit-equal repeats on split
+rows, and to bit-equal replays of a captured CUDA graph.
 """
 
 import time
@@ -471,15 +471,16 @@ def test_each_call_is_one_launch_and_repeats_bit_for_bit(cuda, f):
 
 @pytest.mark.parametrize("heads,feat", ATT_SHAPES)
 def test_gat_calls_are_one_launch_and_repeat_bit_for_bit(cuda, heads, feat):
-    """On a split hub, every ``gat_fwd`` and ``gat_bwd`` call (hash dropout,
-    α·D emitted, logits with padding rows) is one launch of its own kernel
-    by the profiler, 20 calls are bit-equal, the padding rows of dlogits are
-    zeros and every arrival counter is back at 0."""
+    """On a split hub (split rows in both views), every ``gat_fwd``,
+    ``gat_bwd`` and ``gat_dwh`` call (hash dropout, α·D emitted, logits with
+    padding rows) is one launch of its own kernel by the profiler, 20 calls
+    are bit-equal, the padding rows of dlogits and of dWh are zeros and
+    every arrival counter is back at 0."""
     from graph_odenet_tpu_torch.ops import gat_attn
 
     g = _split_hub_graph(np.random.default_rng(20))
-    csr, _, _, logits, wh, up = _att_inputs(g, heads, feat, cuda, seed=21)
-    assert csr.part.split_row.numel() > 0
+    csr, s_src, s_dst, logits, wh, up = _att_inputs(g, heads, feat, cuda, seed=21)
+    assert csr.part.split_row.numel() > 0 and csr.t_part.split_row.numel() > 0
     logits = torch.cat([logits, torch.full((37, heads), 5.0, device=cuda)])
     drop = (9, 0.6)
     out, m, l = gat_attn.gat_fwd(csr, logits, wh, drop=drop)
@@ -488,17 +489,20 @@ def test_gat_calls_are_one_launch_and_repeat_bit_for_bit(cuda, heads, feat):
         "gat_fwd": lambda: gat_attn.gat_fwd(csr, logits, wh, drop=drop),
         "gat_bwd": lambda: gat_attn.gat_bwd(csr, logits, wh, up, m, l, beta, drop=drop,
                                             emit_alpha=True),
+        "gat_dwh": lambda: (gat_attn.gat_dwh(csr, s_src, s_dst, m, l, up, 0.2, drop=drop),),
     }
+    firsts = {}
     for name, call in calls.items():
-        first = call()
+        first = firsts[name] = call()
         kernels = _device_kernels(call)
         assert len(kernels) == 1 and f"{name}_kernel" in kernels[0], (name, kernels)
         for got in [call() for _ in range(20)]:
             for a, b in zip(got, first):
                 assert torch.equal(a, b), name
     torch.cuda.synchronize()
-    assert not first[0][csr.n_edge:].any()
-    assert not csr.plans[0].arrivals.any()
+    assert not firsts["gat_bwd"][0][csr.n_edge:].any()
+    assert not firsts["gat_dwh"][0][g.n_node:].any()
+    assert not any(plan.arrivals.any() for plan in csr.plans)
 
 
 def test_captured_graph_replays_bit_equal_to_eager_calls(cuda):
@@ -622,8 +626,9 @@ def _capture(work, *args):
 
 def test_gat_captured_graph_replays_bit_equal_to_eager_calls(cuda):
     """``attention_aggregate`` forward and backward on a split hub (score hint,
-    hash dropout 0.6: gat_fwd, gat_bwd and gat_dwh) captured in a CUDA graph:
-    its replays equal the eager calls bit for bit."""
+    hash dropout 0.6: one launch each of gat_fwd, gat_bwd and gat_dwh, split
+    rows in both views) captured in a CUDA graph: its replays equal the
+    eager calls bit for bit."""
     g = _split_hub_graph(np.random.default_rng(22))
     csr, s_src, s_dst, _, wh, up = _att_inputs(g, 8, 8, cuda, seed=23)
     graph, eager, captured = _capture(_gat_fwd_bwd, csr, s_src, s_dst, wh, up)
@@ -637,10 +642,10 @@ def test_gat_captured_graph_replays_bit_equal_to_eager_calls(cuda):
 
 
 def test_gat_captured_graph_outlives_a_wider_eager_call(cuda):
-    """A graph captured at H=1/F=64 (one feature chunk of gat_fwd) replays
-    bit-equal after an eager call at H=2/F=96 (two chunks) gave the view new
-    arrival counters; every counter is back at 0; a capture that would need
-    new counters (H=1/F=512, four chunks) raises."""
+    """A graph captured at H=1/F=64 (one feature chunk of gat_fwd and
+    gat_dwh) replays bit-equal after an eager call at H=2/F=96 (two chunks)
+    gave both views new arrival counters; every counter is back at 0; a
+    capture that would need new counters (H=1/F=512, four chunks) raises."""
     g = _split_hub_graph(np.random.default_rng(24))
     csr = prepare(g).to(cuda)
     rng = np.random.default_rng(25)
@@ -654,8 +659,7 @@ def test_gat_captured_graph_outlives_a_wider_eager_call(cuda):
     narrow, wide = inputs(1, 64), inputs(2, 96)
     graph, eager, captured = _capture(_gat_fwd_bwd, csr, *narrow)
     wide_eager = _gat_fwd_bwd(csr, *wide)
-    plan = csr.plans[0]
-    assert len(plan.outgrown) == 1
+    assert all(len(plan.outgrown) == 1 for plan in csr.plans)
     for _ in range(3):
         graph.replay()
         torch.cuda.synchronize()
@@ -664,7 +668,7 @@ def test_gat_captured_graph_outlives_a_wider_eager_call(cuda):
     for got, want in zip(_gat_fwd_bwd(csr, *wide), wide_eager):
         assert torch.equal(got, want)
     torch.cuda.synchronize()
-    assert not any(t.any() for t in (*plan.outgrown, plan.arrivals))
+    assert not any(t.any() for plan in csr.plans for t in (*plan.outgrown, plan.arrivals))
     widest = inputs(1, 512)
     with pytest.raises(RuntimeError, match="eager call"):
         with torch.cuda.graph(torch.cuda.CUDAGraph()):

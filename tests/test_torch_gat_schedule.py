@@ -17,8 +17,18 @@ and held against the JAX package:
   read once per segment, ``Wh[s]`` gathered per edge; ``dlogits`` against
   the vjp of JAX's custom_vjp (``gat_aggregate_pallas*``, Pallas in
   interpret mode) at 2e-4, α·D against the plain version.
-* The lane layouts ``_fwd_lanes`` and ``_bwd_lanes``, and the wrappers' use
-  of the view's cached ``LaunchPlan``, through a stand-in for the C library.
+* ``_dwh_model``, ``gat_dwh``'s one-launch schedule over the CSC view:
+  warp items (segment, feature chunk) in a shuffled arrival order; per batch
+  of 32 edges α·D computed once per (edge, head) from the node tables, then
+  the gather of ``g[r]`` per edge slot and a fixed tree over the slots; a
+  split row's partial rows added in slot order by the last item of its
+  (split row, chunk) to arrive, which resets its counter.  Bit-equal across
+  arrival orders; ``dWh`` against the vjp of JAX's score-hinted custom_vjp
+  (``gat_aggregate_pallas_scores*``, which reaches ``_dwh_csc_recompute``;
+  Pallas in interpret mode) at 2e-4.
+* The lane layouts ``_fwd_lanes`` (``gat_fwd`` and ``gat_dwh``) and
+  ``_bwd_lanes``, and the wrappers' use of the views' cached
+  ``LaunchPlan``s, through a stand-in for the C library.
 """
 
 import jax
@@ -29,12 +39,16 @@ import torch
 
 from graph_odenet_tpu import graph as jgraph
 from graph_odenet_tpu.ops import dropmask as jdropmask
-from graph_odenet_tpu.ops.pallas_gat import gat_aggregate_pallas, gat_aggregate_pallas_dropout
+from graph_odenet_tpu.ops.pallas_gat import (
+    gat_aggregate_pallas, gat_aggregate_pallas_dropout, gat_aggregate_pallas_scores,
+    gat_aggregate_pallas_scores_dropout,
+)
 from graph_odenet_tpu.ops.pallas_spmm import prepare as jprepare
 from graph_odenet_tpu.ops.sddmm import attention_aggregate as jattention
 from graph_odenet_tpu_torch import graph as tgraph
 from graph_odenet_tpu_torch.data import synthetic_planetoid
 from graph_odenet_tpu_torch.ops import _build, dropmask, gat_attn, prepare
+from graph_odenet_tpu_torch.ops.csr_spmm import row_ids
 from graph_odenet_tpu_torch.ops.sddmm import edge_scores
 
 VAL = dict(rtol=2e-5, atol=2e-5)
@@ -58,20 +72,33 @@ def _citeseer_edges():
             dict(normalize=None, symmetrize=False, add_self_loops=False))
 
 
-GRAPHS = {"split_hub": _split_hub_edges, "citeseer": _citeseer_edges}
+def _sender_hub_edges():
+    """Node 0 with 1,500 distinct out-neighbours: several segments of the CSC view."""
+    far, zeros, n, kw = _split_hub_edges()
+    return zeros, far, n, kw
+
+
+GRAPHS = {"split_hub": _split_hub_edges, "citeseer": _citeseer_edges,
+          "sender_hub": _sender_hub_edges}
 
 
 def _case(graph, heads, feat, seed):
     """Both packages' graphs, the port's CSR views and f32 inputs (numpy)."""
     s, r, n, kw = GRAPHS[graph]()
     tg, jg = tgraph.from_edges(s, r, n_node=n, **kw), jgraph.from_edges(s, r, n_node=n, **kw)
-    rng = np.random.default_rng(seed)
-    s_src = (rng.standard_normal((tg.n_node_pad, heads)) * 1.5).astype(F32)
-    s_dst = (rng.standard_normal((tg.n_node_pad, heads)) * 1.5).astype(F32)
-    wh = rng.standard_normal((tg.n_node_pad, heads, feat)).astype(F32)
-    up = rng.standard_normal((tg.n_node_pad, heads, feat)).astype(F32)
+    s_src, s_dst, wh, up = _inputs(tg.n_node_pad, heads, feat, seed)
     logits = edge_scores(tg, torch.from_numpy(s_src), torch.from_numpy(s_dst)).numpy()
     return tg, jg, prepare(tg), logits, wh, up
+
+
+def _inputs(n, heads, feat, seed):
+    """(s_src, s_dst, wh, up) of ``_case``; its logits are the scores of s_src, s_dst."""
+    rng = np.random.default_rng(seed)
+    s_src = (rng.standard_normal((n, heads)) * 1.5).astype(F32)
+    s_dst = (rng.standard_normal((n, heads)) * 1.5).astype(F32)
+    wh = rng.standard_normal((n, heads, feat)).astype(F32)
+    up = rng.standard_normal((n, heads, feat)).astype(F32)
+    return s_src, s_dst, wh, up
 
 
 def _scale(csr, heads, seed):
@@ -161,7 +188,7 @@ def _fwd_model(csr, logits, wh, d, rng):
 
 
 @pytest.mark.parametrize("heads,feat,dropout", [(8, 8, True), (1, 64, False)])
-@pytest.mark.parametrize("graph", sorted(GRAPHS))
+@pytest.mark.parametrize("graph", ["citeseer", "split_hub"])
 def test_fwd_schedule_is_order_free_and_matches_jax(graph, heads, feat, dropout):
     """The model of ``gat_fwd``'s schedule in three arrival orders: bit-equal
     to each other, every counter back at 0, ``out`` equal to JAX's
@@ -236,6 +263,110 @@ def test_bwd_schedule_matches_jax_custom_vjp(dropout, emit_alpha):
         np.testing.assert_allclose(ad, pad.numpy(), **VAL)
 
 
+def _slot_tree(acc):
+    """``sum_slots``: lane group k of 32/G edge slots ends with the slots'
+    sum, added by a shuffle tree over xor offsets (half the slots first)."""
+    off = acc.shape[0] // 2
+    while off:
+        acc = acc + acc[np.arange(acc.shape[0]) ^ off]
+        off //= 2
+    return acc[0]
+
+
+def _dwh_model(csr, s_src, s_dst, m, l, g, slope, d, rng):
+    """``gat_dwh_kernel``'s schedule (see the module doc): (dWh, counters).
+    ``d`` is D ``[E, H]`` in CSC order."""
+    pt = _parts(csr.t_part)
+    col = csr.t_receivers.numpy().astype(np.int64)
+    n, heads, feat = g.shape
+    hf = heads * feat
+    lanes, vec, n_chunks, _ = gat_attn._fwd_lanes(heads, feat, True)
+    width, slots = lanes * vec, 32 // lanes
+    gf = g.reshape(n, hf)
+
+    def segment(s):  # the row of one segment, the same in every chunk
+        p0, p1, snd = pt["seg_ptr"][s], pt["seg_ptr"][s + 1], pt["seg_row"][s]
+        acc = np.zeros((slots, hf), F32)
+        for pb in range(p0, p1, 32):
+            r = col[pb:min(pb + 32, p1)]
+            z = s_src[snd] + s_dst[r]
+            z = np.where(z > 0, z, z * F32(slope))
+            ad = np.exp(np.minimum(z - m[r], 0)) / l[r] * d[pb:pb + len(r)]  # once per (edge, head)
+            rows = np.repeat(ad, feat, axis=1) * gf[r]
+            for j in range(len(r)):  # edge j of the batch in edge slot j % slots, in order
+                acc[j % slots] = acc[j % slots] + rows[j]
+        return _slot_tree(acc)
+    rows = [segment(s) for s in range(len(pt["seg_row"]))]
+    out = np.full((n, hf), np.nan, F32)
+    partial = np.full((csr.t_part.n_slots, hf), np.nan, F32)
+    arrivals = np.zeros((n_chunks, len(pt["split_row"])), np.int64)
+    items = [(s, c) for c in range(n_chunks) for s in range(len(pt["seg_row"]))]
+    for i in rng.permutation(len(items)):
+        s, c = items[i]
+        feats = np.arange(c * width, min(hf, (c + 1) * width))
+        slot = pt["seg_slot"][s]
+        if slot < 0:
+            out[pt["seg_row"][s], feats] = rows[s][feats]
+            continue
+        partial[slot, feats] = rows[s][feats]
+        j = pt["slot_split"][slot]
+        arrivals[c, j] += 1
+        k0, k1 = pt["split_ptr"][j], pt["split_ptr"][j + 1]
+        if arrivals[c, j] < k1 - k0:
+            continue
+        arrivals[c, j] = 0  # the last to arrive merges: slot group k adds slots k0+k, k0+k+slots, ...
+        acc = np.zeros((slots, len(feats)), F32)
+        for k in range(k0, k1):
+            acc[(k - k0) % slots] = acc[(k - k0) % slots] + partial[k, feats]
+        out[pt["split_row"][j], feats] = _slot_tree(acc)
+    return out.reshape(n, heads, feat), arrivals
+
+
+@pytest.mark.parametrize("heads,feat,dropout", [(8, 8, True), (1, 64, False)])
+@pytest.mark.parametrize("graph", ["citeseer", "sender_hub"])
+def test_dwh_schedule_is_order_free_and_matches_jax_custom_vjp(graph, heads, feat, dropout):
+    """The model of ``gat_dwh``'s schedule in three arrival orders: bit-equal
+    to each other, every counter back at 0, every row written (zeros on the
+    padding rows), ``dWh`` equal to the vjp of JAX's score-hinted fused
+    attention (with the same hash dropout; Pallas in interpret mode) and to
+    the plain version."""
+    slope, seed = 0.2, 41
+    tg, jg, csr, logits, wh, up = _case(graph, heads, feat, seed=heads * feat + 1)
+    s_src, s_dst = _inputs(tg.n_node_pad, heads, feat, heads * feat + 1)[:2]
+    if graph == "sender_hub":
+        assert csr.t_part.split_row.numel() > 0
+    _, m, l = (t.numpy() for t in gat_attn.gat_fwd_plain(
+        csr, torch.from_numpy(logits), torch.from_numpy(wh), drop=(seed, RATE) if dropout else None))
+    snd = row_ids(csr.t_row_ptr, csr.n_edge)
+    d = (dropmask.attention_dropout_scale(seed, snd, csr.t_receivers, heads, RATE).numpy()
+         if dropout else np.ones((csr.n_edge, heads), F32))
+    runs = []
+    for order in range(3):
+        got, arrivals = _dwh_model(csr, s_src, s_dst, m, l, up, slope, d,
+                                   np.random.default_rng(order))
+        assert not arrivals.any()
+        runs.append(got)
+    for got in runs[1:]:
+        np.testing.assert_array_equal(got, runs[0])
+    dwh = runs[0]
+    assert not np.isnan(dwh).any() and not dwh[tg.n_node:].any()
+
+    jcsr = jprepare(jg)
+    args = (jnp.asarray(s_src), jnp.asarray(s_dst))
+    if dropout:
+        fn = lambda w: gat_aggregate_pallas_scores_dropout(  # noqa: E731
+            jcsr, slope, RATE, jnp.asarray(logits), w, *args, jnp.uint32(seed))
+    else:
+        fn = lambda w: gat_aggregate_pallas_scores(  # noqa: E731
+            jcsr, slope, jnp.asarray(logits), w, *args)
+    _, vjp = jax.vjp(fn, jnp.asarray(wh))
+    (jdwh,) = vjp(jnp.asarray(up))
+    np.testing.assert_allclose(dwh, np.asarray(jdwh), **GRAD)
+    plain = gat_attn.gat_dwh_plain(csr, *(torch.from_numpy(t) for t in (s_src, s_dst, m, l, up)),
+                                   slope, drop=(seed, RATE) if dropout else None)
+    np.testing.assert_allclose(dwh, plain.numpy(), **GRAD)
+
+
 # (H, F) of tests/test_torch_cuda.py's ATT_SHAPES, (1, 6) (config 2's readout),
 # and the wider or many-headed shapes that take several chunks.
 LAYOUT_SHAPES = [(8, 8), (1, 64), (1, 6), (1, 128), (2, 96), (3, 5), (1, 256), (4, 64), (20, 3)]
@@ -243,10 +374,12 @@ LAYOUT_SHAPES = [(8, 8), (1, 64), (1, 6), (1, 128), (2, 96), (3, 5), (1, 256), (
 
 @pytest.mark.parametrize("heads,feat", LAYOUT_SHAPES)
 def test_lane_layouts_cover_every_head_feature_once(heads, feat):
-    """``_fwd_lanes``: the chunks' lanes cover every (h, f) once, a lane's V
-    floats lie in one head, and the weight tile holds every chunk's heads.
-    ``_bwd_lanes``: every (h, f) once, a lane's V floats in one head, a
-    head's lanes a power of two inside one warp (its dot is one shuffle
+    """``_fwd_lanes`` (``gat_fwd`` and ``gat_dwh``): the chunks' lanes cover
+    every (h, f) once, a lane's V floats lie in one head, the weight tile
+    holds every chunk's heads, and its (edge, head) pairs (j = l / Hp +
+    k·32/Hp, head l % Hp) cover every edge of a batch and head of the chunk
+    once.  ``_bwd_lanes``: every (h, f) once, a lane's V floats in one head,
+    a head's lanes a power of two inside one warp (its dot is one shuffle
     tree), float4 lanes by ``gat_fwd``'s rule."""
     hf = heads * feat
     for aligned in (True, False):
@@ -263,6 +396,9 @@ def test_lane_layouts_cover_every_head_feature_once(heads, feat):
                     seen += range(f, f + v)
                     heads_c.add(f // feat)
             assert len(heads_c) <= hp
+            pairs = [(j, lane % hp) for lane in range(32) for j in range(lane // hp, 32, 32 // hp)
+                     if lane % hp < len(heads_c)]
+            assert sorted(pairs) == [(j, h) for j in range(32) for h in range(len(heads_c))]
         assert sorted(seen) == list(range(hf))
 
         v, lh, k, ge, n_chunks = gat_attn._bwd_lanes(heads, feat, aligned)
@@ -296,12 +432,13 @@ class _FakeLibrary:
 
 def test_wrappers_use_the_views_cached_launch_plan(monkeypatch):
     """``gat_fwd`` and ``gat_bwd`` on a CUDA view pass the fwd view's
-    ``LaunchPlan`` (built once, the same object on every call) and make one
-    launch each; ``gat_fwd`` grows the plan's counters to its chunks and
-    allocates split-row scratch only where the view has split rows; the
-    stream is taken by the plan's device index.  The card is simulated: the
-    view reports a CUDA device, the tensor checks are skipped, and the C
-    library is a stand-in that records its arguments."""
+    ``LaunchPlan``, ``gat_dwh`` the bwd (CSC) view's (each built once, the
+    same object on every call), and make one launch each; ``gat_fwd`` and
+    ``gat_dwh`` grow their plan's counters to their chunks and allocate
+    split-row scratch only where their view has split rows; the stream is
+    taken by the plan's device index.  The card is simulated: the view
+    reports a CUDA device, the tensor checks are skipped, and the C library
+    is a stand-in that records its arguments."""
     fake = _FakeLibrary()
     monkeypatch.setattr(_build, "load_library", lambda name: fake)
     monkeypatch.setattr(gat_attn, "_check", lambda *a, **k: None)
@@ -314,7 +451,7 @@ def test_wrappers_use_the_views_cached_launch_plan(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda index=None: streams.append(index) or _Stream())
     heads, feat = 2, 96
-    for graph in ("split_hub", "citeseer"):
+    for graph in ("split_hub", "citeseer", "sender_hub"):
         _, _, csr, logits, wh, up = _case(graph, heads, feat, seed=1)
         csr.__dict__["device"] = torch.device("cuda", 0)
         plans = csr.plans
@@ -324,23 +461,32 @@ def test_wrappers_use_the_views_cached_launch_plan(monkeypatch):
         for _ in range(2):
             out, m, l = gat_attn.gat_fwd(csr, lg, w, drop=(5, RATE))
             gat_attn.gat_bwd(csr, lg, w, g, m, l, m.clone(), emit_alpha=True)
+            gat_attn.gat_dwh(csr, m, l, m, l, g, 0.2, drop=(5, RATE))
         assert csr.plans is plans
-        assert [name for name, _ in fake.calls] == ["gode_gat_fwd_f32", "gode_gat_bwd_f32"] * 2
-        assert all(args[0] == plans[0].address for _, args in fake.calls)
-        assert gat_attn.launches["gat_fwd"] == before["gat_fwd"] + 2
-        assert gat_attn.launches["gat_bwd"] == before["gat_bwd"] + 2
+        assert [name for name, _ in fake.calls] == [
+            "gode_gat_fwd_f32", "gode_gat_bwd_f32", "gode_gat_dwh_f32"] * 2
+        assert all(args[0] == plans[name == "gode_gat_dwh_f32"].address
+                   for name, args in fake.calls)
+        for k in ("gat_fwd", "gat_bwd", "gat_dwh"):
+            assert gat_attn.launches[k] == before[k] + 2
         lanes, vec, n_chunks, hp = gat_attn._fwd_lanes(heads, feat, True)
-        fwd_args = fake.calls[0][1]
+        fwd_args, dwh_args = fake.calls[0][1], fake.calls[2][1]
         assert fwd_args[13:18] == (heads, feat, lanes, vec, hp)
+        assert dwh_args[6] == 0.2 and dwh_args[13:18] == (heads, feat, lanes, vec, hp)
         p_acc, p_stat = fwd_args[11:13]
         if graph == "split_hub":
             assert plans[0].n_split and plans[0].struct.n_arrivals == n_chunks * plans[0].n_split
             assert p_stat - p_acc == 4 * plans[0].n_slots * heads * feat
         else:
             assert plans[0].n_split == 0 and p_acc is None and p_stat is None
+        if graph == "sender_hub":
+            assert plans[1].n_split and plans[1].struct.n_arrivals == n_chunks * plans[1].n_split
+            assert dwh_args[12] is not None
+        else:
+            assert plans[1].n_split == 0 and dwh_args[12] is None
         assert m.data_ptr() + 4 * m.numel() == l.data_ptr()  # two rows of one allocation
         bwd_args = fake.calls[1][1]
         assert bwd_args[1:3] == (csr.n_edge, logits.shape[0])
         v, lh = gat_attn._bwd_lanes(heads, feat, True)[:2]
         assert bwd_args[-3:-1] == (lh, v)
-    assert streams == [plans[0].index] * 8
+    assert streams == [plans[0].index] * 18
