@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--physics-epochs N]
 
 Imports nothing of JAX.  Phases, one JSON line each; any failure raises,
 so the exit code is non-zero:
@@ -97,6 +97,26 @@ so the exit code is non-zero:
              the bucket mode and against ``mode="ring"`` (``CONFIG4_RTOL``);
              peak device memory and ms of a step with ``remat`` on and off,
              and a ``torch.profiler`` breakdown of three training steps.
+  physics    config 3 (interaction-network ODE on spring n-body data; no
+             kernel on its path).  (a) In float64, 8 windows of the config's
+             data through a freshly initialised full-width INODE
+             (dopri5_scan, 16 attempts, remat): one batched solve against 8
+             one-sample solves of the same form, per-sample accept and reject
+             counts equal and trajectories within ``PHYS_REL``; and one
+             window-loss gradient on the card against the same on the CPU
+             within ``PHYS_GRAD_REL`` (the IN's ``index_add_`` in a fixed
+             order, see ``fixed_order_sums``).  A ``torch.profiler``
+             breakdown of training steps of both models at batch 512.  (b)
+             ``physics_rollout_curves`` at full width (6 bodies, 256 sims ×
+             200 steps, batch 512, relation MLP 4 × 150 → 50, object MLP 100,
+             window 10, horizon 50) for ``PHYS_EPOCHS`` epochs, the cut
+             printed (``--physics-epochs 20``: the config's own epochs,
+             through ``run_config(3, rollout=50)``): s/epoch of both
+             trainers, both losses per epoch (each must fall and stay
+             finite), the solver's attempts per interval and host reads per
+             forward, peak device memory, and the rollout MSE of both models
+             at horizons 1, 5, 10, 20 and 50 (the IN-ODE's must end below the
+             discrete IN's).
 
 Then the kernel table (each kernel's launches on its main path, error,
 ms, plain ms, the bound of its work on an H100 and the library call's ms),
@@ -104,10 +124,13 @@ the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
+import copy
+import dataclasses
 import json
 import os
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -150,6 +173,13 @@ LONG_ITERS = 100
 # tensor cores.  A kernel's bound is the larger of its bytes and its flops over these.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# Config 3's checks: 8 windows in float64, batched against one by one (relative
+# to the largest |value|), and one gradient on the card against the CPU.
+PHYS_WINDOWS, PHYS_REL, PHYS_GRAD_REL = 8, 1e-10, 1e-8
+PHYS_HORIZON, PHYS_HORIZONS = 50, (1, 5, 10, 20, 50)
+# Config 3's epochs in the default run, cut from its 20 to keep the phase near
+# a minute: an epoch of both trainers took 4.3–5.7 s (host-bound, PERF.md).
+PHYS_EPOCHS = 6
 
 
 def emit(phase, **fields):
@@ -908,7 +938,9 @@ def _sparse_csr(view):
 
 class fixed_order_sums:
     """Within the block ``index_add_`` sums in a fixed order instead of with
-    atomics in the order the card schedules them.
+    atomics in the order the card schedules them.  ``warn_only=True`` lets a
+    block hold matmuls too: cuBLAS has no deterministic mode to switch to, and
+    on one stream it rounds the same way in every call.
 
     Config 4's encoder is ``relu(Â x W + b)`` with ``b = 0`` at the start, and
     on the arxiv twin some of those pre-activations are sums that cancel to a
@@ -920,11 +952,18 @@ class fixed_order_sums:
     gradient across a kink needs both sides to be a function of their
     inputs: with the order fixed the plain step is one too."""
 
+    def __init__(self, warn_only=False):
+        self.warn_only = warn_only
+        self.caught = warnings.catch_warnings()
+
     def __enter__(self):
-        torch.use_deterministic_algorithms(True)
+        self.caught.__enter__()
+        warnings.filterwarnings("ignore", message=".*CUBLAS_WORKSPACE_CONFIG.*")
+        torch.use_deterministic_algorithms(True, warn_only=self.warn_only)
 
     def __exit__(self, *exc):
         torch.use_deterministic_algorithms(False)
+        self.caught.__exit__(*exc)
 
 
 def _grads_close(got, want, rtol, what):
@@ -1055,6 +1094,7 @@ def profile_steps(model, loss_and_grads, cfg, steps=3, top=8):
     return dict(
         steps=steps, wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms,
         busy_share=busy_ms / wall_ms, ms_per_step_by_kind=by_kind,
+        launches_per_step=sum(e.count for e in kernels) / steps,
         top_kernels_ms_per_step={e.key[:90]: e.self_device_time_total / 1e3 / steps for e in top},
     )
 
@@ -1299,6 +1339,159 @@ def phase_config4_gat(dev, data):
     return launches
 
 
+def _rel_err(got, want):
+    """Largest |got − want| over the largest |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _kernel_counts():
+    from graph_odenet_tpu_torch.ops import csr_spmm, gat_attn
+
+    return dict(csr=csr_spmm.launches, csr_weighted=csr_spmm.weighted_launches,
+                bucket=csr_spmm.bucket_launches,
+                bucket_weighted=csr_spmm.bucket_weighted_launches, **gat_attn.launches)
+
+
+def phase_physics(dev, epochs=PHYS_EPOCHS):
+    """Config 3 (see the module doc): the batched solver's checks, a profile
+    of both trainers' steps, then the deliverable at full width."""
+    from types import SimpleNamespace
+
+    from graph_odenet_tpu_torch.configs import CONFIG_NAMES, get_config, run_config
+    from graph_odenet_tpu_torch.data import SpringSystem, generate_trajectories, one_step_dataset
+    from graph_odenet_tpu_torch.models import INODE, InteractionNetwork
+    from graph_odenet_tpu_torch.train.physics import physics_rollout_curves, trajectory_windows
+
+    _, cfg = get_config(3)
+    t0 = time.perf_counter()
+    system = SpringSystem(n_bodies=cfg.n_bodies, dim=cfg.dim)
+    trajs = generate_trajectories(system, cfg.n_sims, cfg.n_steps,
+                                  generator=torch.Generator().manual_seed(cfg.seed), device=dev)
+    wins = trajectory_windows(trajs, cfg.ode_window)[:PHYS_WINDOWS].double()
+    model = INODE(
+        dim=cfg.dim, effect_dim=cfg.effect_dim, relation_hidden=cfg.relation_hidden,
+        object_hidden=cfg.object_hidden, method=cfg.ode_method, steps=cfg.ode_steps,
+        remat=cfg.ode_remat, rtol=cfg.rtol, atol=cfg.atol,
+        generator=torch.Generator().manual_seed(cfg.seed),
+    ).double().to(dev)
+    ts = torch.arange(cfg.ode_window + 1, dtype=torch.float64) * system.dt
+
+    def solve(m, batch):
+        senders, receivers = system.edges(batch.device)
+        w0 = batch[:, 0]
+        return m(w0[..., 1:], ts, w0[..., :1], senders, receivers)
+
+    def counts(m):
+        return {k: m.stats[k].cpu() for k in ("n_accept", "n_reject")}
+
+    # (a) One batched solve against one solve per window, in float64.
+    with fixed_order_sums(warn_only=True), torch.no_grad():
+        together = solve(model, wins)
+        batched = counts(model)
+        alone, one_by_one = [], {k: [] for k in batched}
+        for i in range(PHYS_WINDOWS):
+            alone.append(solve(model, wins[i:i + 1]))
+            for k, v in counts(model).items():
+                one_by_one[k].append(v)
+    one_by_one = {k: torch.cat(v) for k, v in one_by_one.items()}
+    for k in batched:
+        if not torch.equal(batched[k], one_by_one[k]):
+            raise AssertionError(f"physics: {k} batched {batched[k].tolist()} against one by "
+                                 f"one {one_by_one[k].tolist()}")
+    traj_err = _rel_err(together, torch.cat(alone))
+    if not traj_err <= PHYS_REL:
+        raise AssertionError(f"physics: batched against one by one {traj_err} > {PHYS_REL}")
+
+    # One training step's gradient on the card against the CPU, in float64.
+    def step(m, batch):
+        m.zero_grad(set_to_none=True)
+        loss = torch.mean((solve(m, batch) - batch[..., 1:]) ** 2)
+        loss.backward()
+        return loss.detach().cpu(), {k: p.grad.cpu() for k, p in m.named_parameters()}
+
+    with fixed_order_sums(warn_only=True):
+        loss_card, grads_card = step(model, wins)
+    loss_cpu, grads_cpu = step(copy.deepcopy(model).cpu(), wins.cpu())
+    grad_err = {k: _rel_err(grads_card[k], g) for k, g in grads_cpu.items()}
+    grad_err["loss"] = _rel_err(loss_card, loss_cpu)
+    if not max(grad_err.values()) <= PHYS_GRAD_REL:
+        raise AssertionError(f"physics: card against CPU gradient {grad_err} > {PHYS_GRAD_REL}")
+    check_seconds = time.perf_counter() - t0
+
+    # Where a training step's time goes, at the config's batch, in float32.
+    opt_cfg = SimpleNamespace(lr=cfg.lr, weight_decay=0.0)
+    batch = trajectory_windows(trajs, cfg.ode_window)[:cfg.batch_size]
+    inode = INODE(
+        dim=cfg.dim, effect_dim=cfg.effect_dim, relation_hidden=cfg.relation_hidden,
+        object_hidden=cfg.object_hidden, method=cfg.ode_method, steps=cfg.ode_steps,
+        remat=cfg.ode_remat, rtol=cfg.rtol, atol=cfg.atol,
+        generator=torch.Generator().manual_seed(cfg.seed),
+    ).to(dev)
+    net = InteractionNetwork(1 + 2 * cfg.dim, cfg.dim, cfg.effect_dim, cfg.relation_hidden,
+                             cfg.object_hidden, generator=torch.Generator().manual_seed(0)).to(dev)
+    states, targets = (x[:cfg.batch_size] for x in one_step_dataset(trajs, cfg.dim))
+    senders, receivers = system.edges(dev)
+
+    def inode_step():
+        inode.zero_grad(set_to_none=True)
+        torch.mean((solve(inode, batch) - batch[..., 1:]) ** 2).backward()
+
+    def net_step():
+        net.zero_grad(set_to_none=True)
+        torch.mean((net(states, senders, receivers) - targets) ** 2).backward()
+
+    profile = dict(inode=profile_steps(inode, inode_step, opt_cfg, steps=2, top=6),
+                   inode_host_reads_per_forward=inode.stats["host_reads"],
+                   discrete=profile_steps(net, net_step, opt_cfg, steps=10, top=6))
+    del model, trajs, wins, inode, net, batch, states, targets
+
+    # (b) Config 3 at full width through its entry points.
+    before = _kernel_counts()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    if epochs == cfg.epochs:
+        res = run_config(3, rollout=PHYS_HORIZON, device=dev)
+    else:
+        res = dict(physics_rollout_curves(dataclasses.replace(cfg, epochs=epochs),
+                                          horizon=PHYS_HORIZON, device=dev),
+                   config=CONFIG_NAMES[3])
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = {k: v - before[k] for k, v in _kernel_counts().items()}
+    epochs = res["cfg"]["epochs"]
+    histories = {k: res[k] for k in ("one_step_mse_history", "window_mse_history")}
+    for name, h in histories.items():
+        if not (len(h) == epochs and np.all(np.isfinite(h)) and h[-1] < h[0]):
+            raise AssertionError(f"physics: {name} did not fall or is not finite: {h}")
+    disc, ode = res["rollout_mse_discrete"], res["rollout_mse_inode"]
+    if not (np.all(np.isfinite(disc)) and np.all(np.isfinite(ode)) and disc[0] < 1e-9
+            and ode[0] < 1e-9):
+        raise AssertionError(f"physics: rollout curves {disc} {ode}")
+    if not ode[PHYS_HORIZON] < disc[PHYS_HORIZON]:
+        raise AssertionError(f"physics: IN-ODE rollout MSE {ode[PHYS_HORIZON]} not below the "
+                             f"discrete IN's {disc[PHYS_HORIZON]} at {PHYS_HORIZON}")
+    emit(
+        "physics", config=res["config"], device=res["device"],
+        epochs_cut_from=None if epochs == cfg.epochs else cfg.epochs,
+        check=dict(windows=PHYS_WINDOWS, dtype="float64", n_accept=batched["n_accept"].tolist(),
+                   n_reject=batched["n_reject"].tolist(), traj_rel_err=traj_err,
+                   traj_rel_tol=PHYS_REL, grad_rel_err=grad_err, grad_rel_tol=PHYS_GRAD_REL,
+                   seconds=check_seconds),
+        profile=profile,
+        epochs=epochs, n_windows=res["cfg"]["n_sims"] * (res["cfg"]["n_steps"]
+                                                         // res["cfg"]["ode_window"]),
+        seconds_per_epoch_in=res["train_seconds_in"] / epochs,
+        seconds_per_epoch_inode=res["train_seconds_inode"] / epochs,
+        train_seconds_in=res["train_seconds_in"], train_seconds_inode=res["train_seconds_inode"],
+        one_step_mse=res["one_step_mse"], window_mse=res["window_mse"], **histories,
+        train_solver=res["train_solver"], rollout_solver=res["rollout_solver"],
+        peak_memory_bytes=peak,
+        rollout_mse={h: dict(discrete=disc[h], inode=ode[h]) for h in PHYS_HORIZONS},
+        total_seconds=res["total_seconds"], wall_seconds=wall, kernel_launches=launched,
+    )
+
+
 def _sparse_csr_pair(csr):
     """Â and Âᵀ of a ``CSRGraph`` as torch CSR tensors (cuSPARSE's operands)."""
     n = csr.n_node_pad
@@ -1330,6 +1523,12 @@ def phase_library(dev, graphs, iters=20):
 
 
 def main():
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card.")
+    parser.add_argument("--physics-epochs", type=int, default=PHYS_EPOCHS,
+                        help="config 3's epochs (its own are 20; default %(default)s)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1378,6 +1577,8 @@ def main():
     arxiv_cal = synthetic_ogbn_arxiv(seed=0, calibrated=True)  # the sharded GAT-ODE's twin
     weighted_buckets = timed("bucket_weighted", phase_bucket_weighted, dev, arxiv_cal.graph)
     gat_bucket_launches = timed("config4_gat", phase_config4_gat, dev, arxiv_cal)
+    del arxiv_cal
+    timed("physics", phase_physics, dev, args.physics_epochs)
     emit("seconds", **times)
     per_call = [(r["graph"], k, c) for r in rows for k, c in r["call_costs"].items()]
     per_call += [(f"P={p}", k, c) for p, r in buckets.items() for k, c in r["call_costs"].items()]

@@ -13,12 +13,16 @@ This package imports neither JAX nor the JAX package.
                    kernel, dense), GAT attention (segment path and the
                    fused kernels), the counter-hash attention dropout.
   ode              odeint with the fixed-grid and adaptive Runge-Kutta
-                   solvers (dopri5 and kin, each with a ``_scan`` form).
-  models           GCN, ResGCN, GAT, ResGAT, ODEBlock, GCN-ODE, GAT-ODE.
-  data             Planetoid loader and its synthetic twin.
-  train            Full-batch node-classification trainer.
-  configs          Named node-classification configs and ``run_config``.
+                   solvers (dopri5 and kin, each with a ``_scan`` form),
+                   batched over independent problems with ``batch_dims=1``.
+  models           GCN, ResGCN, GAT, ResGAT, ODEBlock, GCN-ODE, GAT-ODE,
+                   the interaction network and IN-ODE.
+  data             Planetoid and OGBN-arxiv loaders and twins, spring n-body.
+  train            Full-batch node-classification and physics trainers.
+  parallel         The edge-partitioned tier (config 4).
+  configs          Named configs 0–4 and extras, and ``run_config``.
   convert          Flax parameter trees to torch ``state_dict``s.
+  utils            Device choice, metrics, logging, plots (matplotlib, lazily).
 """
 
 __version__ = "0.1.0"

@@ -1,18 +1,17 @@
-"""Canonical experiment configs, node-classification kind.
+"""Canonical experiment configs.
 
 Counterpart of ``graph_odenet_tpu/configs/__init__.py``:
 
   0  2-layer GCN on Cora (discrete baseline)
   1  GCN-ODE on Cora, fixed-step RK4 (4 steps)
   2  GAT-ODE on Citeseer with dopri5_scan (32 attempts)
-  3  Interaction-network ODE on n-body        (ROADMAP A15)
+  3  Interaction-network ODE on n-body springs, rollout MSE
   4  Edge-partitioned GCN-ODE on OGBN-arxiv
 
 plus the named extras of the GCN and GAT families (``pubmed-gcnode`` and
 ``cora-gatode`` among them).  ``get_config`` returns ``(kind, config)``:
-``node`` selects ``train.fit_node_classifier``, ``sharded``
-``parallel.fit_sharded_node_classifier``.  Config 3 raises
-``NotImplementedError`` naming its ROADMAP item.
+``node`` selects ``train.fit_node_classifier``, ``physics``
+``train.physics``, ``sharded`` ``parallel.fit_sharded_node_classifier``.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 from graph_odenet_tpu_torch.train.node_classification import NodeClassConfig
+from graph_odenet_tpu_torch.train.physics import PhysicsConfig
 
 __all__ = ["get_config", "run_config", "CONFIG_NAMES", "EXTRA_CONFIGS", "ShardedConfig"]
 
@@ -69,10 +69,6 @@ EXTRA_CONFIGS = {
     "pubmed-gatode": ("pubmed", _GATODE_RECIPE),
 }
 
-# Configs of the JAX package that wait for a later slice.
-_NOT_PORTED = {3: "A15"}
-
-
 @dataclasses.dataclass
 class ShardedConfig:
     """Config 4: the edge-partitioned GCN-ODE on (the twin of) OGBN-arxiv."""
@@ -100,8 +96,6 @@ def get_config(i):
         inv = {v: k for k, v in CONFIG_NAMES.items()}
         if i in inv:
             return get_config(inv[i])
-    if i in _NOT_PORTED:
-        raise NotImplementedError(f"config {i!r} is not ported yet (ROADMAP {_NOT_PORTED[i]})")
     if i == 0:
         return "node", NodeClassConfig(**_GCN_RECIPE)
     if i == 1:
@@ -111,6 +105,11 @@ def get_config(i):
         )
     if i == 2:
         return "node", NodeClassConfig(**_GATODE_RECIPE)
+    if i == 3:
+        return "physics", PhysicsConfig(
+            n_bodies=6, n_sims=256, n_steps=200,
+            ode_method="dopri5_scan", ode_steps=16, ode_window=10,
+        )
     if i == 4:
         return "sharded", ShardedConfig()
     raise KeyError(i)
@@ -126,6 +125,7 @@ def run_config(
     data_path: str | None = None,
     calibrated: bool = False,
     seed: int | None = None,
+    rollout: int = 0,
     device="cuda",
 ):
     """Run config ``i`` (index or name) end to end on ``device``.
@@ -137,6 +137,12 @@ def run_config(
     overrides the config seed (config 4 has none, as in the JAX package).
     Config 4 runs over ``min(8, ranks)`` parts: one process, one part,
     without a process group.
+
+    Config 3 (physics): ``scale`` cuts the simulations and their steps (at
+    least 8 and 20); ``rollout > 0`` runs the full deliverable, the discrete
+    IN and the IN-ODE trained on shared data and rolled out over that horizon
+    (``train.physics.physics_rollout_curves``), and otherwise the IN-ODE
+    alone is trained.
     """
     kind, cfg = get_config(i)
     cfg_name = CONFIG_NAMES[i] if isinstance(i, int) else i
@@ -144,6 +150,8 @@ def run_config(
         cfg = dataclasses.replace(cfg, seed=seed)
     if kind == "sharded":
         return _run_sharded(cfg_name, cfg, scale, data_path, calibrated, device)
+    if kind == "physics":
+        return _run_physics(cfg_name, cfg, scale, rollout, device)
     from graph_odenet_tpu_torch.data.planetoid import load_planetoid, synthetic_planetoid
     from graph_odenet_tpu_torch.train import fit_node_classifier
 
@@ -158,6 +166,25 @@ def run_config(
         config=cfg_name, dataset=data.name, best=res["best"], seconds=res["seconds"],
         epochs_run=res["epochs_run"], representation=res["representation"],
         params=res["params"], ode_stats=res["ode_stats"],
+    )
+
+
+def _run_physics(cfg_name, cfg, scale, rollout, device):
+    from graph_odenet_tpu_torch.train.physics import fit_inode, physics_rollout_curves
+
+    if scale != 1.0:
+        cfg = dataclasses.replace(
+            cfg, n_sims=max(8, int(cfg.n_sims * scale)), n_steps=max(20, int(cfg.n_steps * scale)),
+        )
+    if rollout > 0:
+        out = physics_rollout_curves(
+            cfg, horizon=rollout, n_test=max(4, int(64 * scale)), device=device
+        )
+        return dict(out, config=cfg_name)
+    res = fit_inode(cfg, device=device)
+    return dict(
+        config=cfg_name, window_mse=res["window_mse"], seconds=res["seconds"],
+        history=res["history"], solver=res["solver"],
     )
 
 

@@ -18,6 +18,11 @@ flax ``Dense`` kernel is ``[in, out]`` and a ``DenseGeneral`` kernel
 ``[in, H, F]``; a torch ``Linear.weight`` is ``[H·F, in]``, the kernel
 flattened to ``[in, H·F]`` and transposed.
 
+``params_from_interaction`` takes the tree of an ``InteractionNetwork``
+(``{MLP_0: {Dense_i: {kernel, bias}}, MLP_1: ...}``: the relation MLP, then
+the object MLP) or of an ``INODE`` (``{core: {...}}``) and returns the
+``state_dict`` of the port's module of the same kind.
+
 ``params_from_sharded`` takes the flat dict of the JAX package's
 edge-parallel GCN-ODE (``parallel.sharded_gcn.init_params``: ``w_in``,
 ``b_in``, ``w_dyn``, ``b_dyn``, ``w_out``, ``b_out``), which the port's
@@ -35,7 +40,9 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_flax", "params_from_sharded", "params_from_sharded_gat"]
+__all__ = [
+    "params_from_flax", "params_from_interaction", "params_from_sharded", "params_from_sharded_gat",
+]
 
 _SHARDED_GCN = ("w_in", "b_in", "w_dyn", "b_dyn", "w_out", "b_out")
 _SHARDED_GAT = tuple(f"{p}_{layer}" for layer in ("enc", "dyn", "out") for p in ("w", "a_src", "a_dst"))
@@ -77,6 +84,31 @@ def params_from_flax(tree: Mapping) -> dict:
                 raise KeyError(f"no torch counterpart for flax parameter {prefix}{name}")
 
     walk(tree, "", False)
+    return out
+
+
+_INTERACTION_MODULES = {"core": "core", "MLP_0": "relation_mlp", "MLP_1": "object_mlp"}
+
+
+def params_from_interaction(tree: Mapping) -> dict:
+    """Flax ``InteractionNetwork`` or ``INODE`` params -> the port's ``state_dict``."""
+    out = {}
+
+    def walk(node: Mapping, prefix: str):
+        for name, value in node.items():
+            m = re.fullmatch(r"Dense_(\d+)", name)
+            if m:
+                kernel = np.asarray(value["kernel"], dtype=np.float32)
+                out[f"{prefix}layers.{m.group(1)}.weight"] = torch.from_numpy(
+                    np.ascontiguousarray(kernel.T))
+                out[f"{prefix}layers.{m.group(1)}.bias"] = torch.from_numpy(
+                    np.array(value["bias"], dtype=np.float32))
+            elif name in _INTERACTION_MODULES:
+                walk(value, f"{prefix}{_INTERACTION_MODULES[name]}.")
+            else:
+                raise KeyError(f"no torch counterpart for flax module {prefix}{name}")
+
+    walk(tree, "")
     return out
 
 

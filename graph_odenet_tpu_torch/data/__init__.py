@@ -1,5 +1,12 @@
-"""Datasets: Planetoid citation networks, OGBN-arxiv, and their synthetic twins."""
+"""Datasets: Planetoid citation networks, OGBN-arxiv, their synthetic twins,
+and spring n-body trajectories."""
 
+from graph_odenet_tpu_torch.data.nbody import (  # noqa: F401
+    SpringSystem,
+    generate_trajectories,
+    one_step_dataset,
+    simulate,
+)
 from graph_odenet_tpu_torch.data.ogbn import (  # noqa: F401
     ARXIV_CALIBRATED,
     load_ogbn_arxiv,

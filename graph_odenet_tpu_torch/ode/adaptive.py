@@ -19,6 +19,10 @@ The error ratio and the controller run without gradient (JAX's
 detached: gradients reach the parameters through ``t``, ``dt`` and the
 interpolation weights, as in JAX.  Each attempt reads its accept decision
 on the host (one synchronisation per attempt on a card).
+
+``batch_dims=1`` takes a leading axis of ``y0`` as independent problems,
+each with its own controller (``jax.vmap`` of the JAX forms); see
+``_integrate_batched``.
 """
 
 from __future__ import annotations
@@ -174,10 +178,150 @@ def _integrate(func, y0, ts, tab, rtol, atol, max_attempts, first_step):
     return torch.stack(ys), stats
 
 
+# The batched form: a leading axis of ``y0`` holds independent problems, as
+# ``jax.vmap`` of the JAX solvers makes them.  Every sample has its own t, dt,
+# dense output, controller memory, error ratio, accept mask and stats, kept in
+# ``[B]`` tensors; an attempt updates only the samples that have not reached
+# the interval's target (JAX's ``where(done, s, s1)``), so it needs no host
+# read.  The interval ends once every sample is done, which the host reads once
+# an attempt; the attempts JAX's masked scan runs after that point pass every
+# sample through unchanged, so values, stats and gradients are the same.
+
+
+def _rms_per_sample(x):
+    return torch.sqrt(torch.mean(torch.square(x).flatten(1), dim=1))
+
+
+def _col(v, y):
+    """A ``[B]`` tensor viewed as ``[B, 1, ...]`` against ``y``."""
+    return v.view((-1,) + (1,) * (y.dim() - 1))
+
+
+def _initial_step_batched(func, t0, y0, f0, order, rtol, atol):
+    """Hairer's starting step of each sample, RMS over its trailing axes.
+
+    ``|y0|`` is taken as ``where(y0 >= 0, y0, -y0)``: its derivative at 0 is
+    1, as JAX's ``abs`` has it (torch's ``abs`` has 0)."""
+    scale = atol + torch.where(y0 >= 0, y0, -y0) * rtol
+    d0 = _rms_per_sample(y0 / scale)
+    d1 = _rms_per_sample(f0 / scale)
+    h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), 1e-6, 0.01 * d0 / d1)
+    f1 = func(t0 + h0, y0 + _col(h0, y0) * f0)
+    d2 = _rms_per_sample((f1 - f0) / scale) / h0
+    dmax = torch.maximum(d1, d2)
+    h1 = torch.where(
+        dmax <= 1e-15,
+        torch.clamp(h0 * 1e-3, min=1e-6),
+        (0.01 / dmax) ** (1.0 / (order + 1)),
+    )
+    return torch.minimum(100.0 * h0, h1)
+
+
+@torch.no_grad()
+def _controller_batched(err, facold, rejected, dt):
+    """``_controller`` with a ``[B]`` tensor for every scalar: the accept mask,
+    the next step and the controller memory of each sample."""
+    err = torch.clamp(err, min=_ERR_FLOOR)
+    accept = err <= 1.0
+    fac11 = err ** _EXPO1
+    fac = torch.clamp(fac11 / facold ** _BETA / _SAFETY, 1.0 / _FAC_MAX, 1.0 / _FAC_MIN)
+    dt_accept = dt / fac
+    dt_accept = torch.where(rejected, torch.minimum(dt_accept, dt), dt_accept)
+    dt_reject = dt / torch.clamp(fac11 / _SAFETY, max=1.0 / _FAC_MIN)
+    dt_next = torch.where(accept, dt_accept, dt_reject)
+    return accept, dt_next, torch.where(accept, torch.clamp(err, min=1e-4), facold)
+
+
+def _init_batched(func, y0, t0, tab, rtol, atol, first_step) -> _State:
+    """The solver state at ``t0`` (a scalar tensor) for every sample of ``y0``:
+    ``[B]`` tensors for t, dt, last_t, facold, rejected and the counts."""
+    n = y0.shape[0]
+    t = t0.expand(n)
+    f0 = func(t, y0)
+    if first_step is None:
+        dt0 = _initial_step_batched(func, t, y0, f0, tab.order - 1, rtol, atol)
+        nfe0 = 3  # f0 + the two probe evaluations
+    else:
+        dt0 = torch.full((n,), first_step, dtype=y0.dtype, device=y0.device)
+        nfe0 = 1
+    zero = torch.zeros((), dtype=y0.dtype, device=y0.device)
+    count = lambda v: torch.full((n,), v, dtype=torch.int64, device=y0.device)  # noqa: E731
+    return _State(
+        t=t, y=y0, f=f0, dt=dt0, last_t=t,
+        coeffs=_interp_fit(y0, y0, y0, f0 * 0, f0 * 0, zero),
+        facold=torch.full((n,), 1e-4, dtype=y0.dtype, device=y0.device),
+        rejected=torch.zeros(n, dtype=torch.bool, device=y0.device),
+        nfe=count(nfe0), n_accept=count(0), n_reject=count(0),
+    )
+
+
+def _attempt_batched(func, tab, rtol, atol, s: _State, done) -> None:
+    """One attempt of every sample not ``done``; the others pass through.
+
+    Reads nothing on the host: the accept decisions stay ``[B]`` masks."""
+    col = lambda v: _col(v, s.y)  # noqa: E731
+    y1, f1, y_err, ks = rk_step(
+        lambda t, y: func(t.reshape(-1), y), tab, col(s.t), s.y, s.f, col(s.dt)
+    )
+    with torch.no_grad():
+        scale = atol + rtol * torch.maximum(torch.abs(s.y), torch.abs(y1))
+        err = _rms_per_sample(y_err / scale)
+    accept, dt_next, facold = _controller_batched(err, s.facold, s.rejected, s.dt.detach())
+    if tab.c_mid is not None:
+        terms = [float(c) * k for c, k in zip(tab.c_mid, ks) if c != 0.0]
+        y_mid = s.y + col(s.dt) * sum(terms[1:], terms[0])
+    else:
+        y_mid = 0.5 * (s.y + y1) + col(s.dt) * (s.f - f1) / 8.0
+    coeffs = _interp_fit(s.y, y1, y_mid, s.f, f1, col(s.dt))
+
+    live = ~done
+    take = accept & live
+    take_c = col(take)
+    s.coeffs = tuple(torch.where(take_c, new, old) for new, old in zip(coeffs, s.coeffs))
+    s.last_t = torch.where(take, s.t, s.last_t)
+    s.t = torch.where(take, s.t + s.dt, s.t)
+    s.y = torch.where(take_c, y1, s.y)
+    s.f = torch.where(take_c, f1, s.f)
+    s.dt = torch.where(live, dt_next, s.dt)
+    s.facold = torch.where(live, facold, s.facold)
+    s.rejected = torch.where(live, ~accept, s.rejected)
+    s.nfe = s.nfe + live * _nfe_per_step(tab)
+    s.n_accept = s.n_accept + take
+    s.n_reject = s.n_reject + (live & ~accept)
+
+
+def _integrate_batched(func, y0, ts, tab, rtol, atol, max_attempts, first_step):
+    ts = torch.as_tensor(ts, dtype=y0.dtype, device=y0.device)
+    s = _init_batched(func, y0, ts[0], tab, rtol, atol, first_step)
+    ys, reached, host_reads = [y0], torch.ones_like(s.rejected), 0
+    for t_target in ts[1:]:
+        for _ in range(max_attempts):
+            done = s.t >= t_target
+            host_reads += 1
+            if bool(done.all()):
+                break
+            _attempt_batched(func, tab, rtol, atol, s, done)
+        reached = reached & (s.t >= t_target)
+        ys.append(_interp_eval(s.coeffs, _col(s.last_t, y0), _col(s.t, y0), t_target))
+    stats = dict(
+        nfe=s.nfe, n_accept=s.n_accept, n_reject=s.n_reject,
+        success=reached, t_reached=s.t.detach(), host_reads=host_reads,
+    )
+    return torch.stack(ys), stats
+
+
+def _solve(func, y0, ts, tab, rtol, atol, max_attempts, first_step, batch_dims):
+    if batch_dims == 0:
+        return _integrate(func, y0, ts, tab, rtol, atol, max_attempts, first_step)
+    if batch_dims == 1:
+        return _integrate_batched(func, y0, ts, tab, rtol, atol, max_attempts, first_step)
+    raise ValueError(f"batch_dims must be 0 or 1, got {batch_dims!r}")
+
+
 def odeint_adaptive(
     func: Callable, y0: torch.Tensor, ts, *, tab: Tableau = DOPRI5,
     rtol: float = 1e-7, atol: float = 1e-9, max_steps: int = 10_000,
-    first_step: float | None = None,
+    first_step: float | None = None, batch_dims: int = 0,
 ):
     """Adaptive integration with a data-dependent step count (JAX's while form).
 
@@ -185,15 +329,20 @@ def odeint_adaptive(
     Returns ``(ys [T, ...], stats)`` with stats ``{nfe, n_accept, n_reject,
     success, t_reached}``; ``success=False`` means an interval used up
     ``max_steps`` attempts and its row of ``ys`` is extrapolated.
+
+    ``batch_dims=1`` solves each ``y0[b]`` as its own problem, as ``jax.vmap``
+    of the JAX solver does: ``func`` gets ``t`` of shape ``[B]``, the stats are
+    ``[B]`` tensors, and ``stats["host_reads"]`` counts the host's reads of
+    "every sample done?" (one an attempt, one more an interval).
     """
-    return _integrate(func, y0, ts, tab, rtol, atol, max_steps, first_step)
+    return _solve(func, y0, ts, tab, rtol, atol, max_steps, first_step, batch_dims)
 
 
 def odeint_adaptive_scan(
     func: Callable, y0: torch.Tensor, ts, *, tab: Tableau = DOPRI5,
     rtol: float = 1e-7, atol: float = 1e-9, max_steps_per_interval: int = 64,
-    first_step: float | None = None,
+    first_step: float | None = None, batch_dims: int = 0,
 ):
     """JAX's bounded-scan form: at most ``max_steps_per_interval`` attempts per
-    output interval.  Same returns as ``odeint_adaptive``."""
-    return _integrate(func, y0, ts, tab, rtol, atol, max_steps_per_interval, first_step)
+    output interval.  Same arguments and returns as ``odeint_adaptive``."""
+    return _solve(func, y0, ts, tab, rtol, atol, max_steps_per_interval, first_step, batch_dims)

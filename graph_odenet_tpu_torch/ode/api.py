@@ -62,6 +62,7 @@ def odeint(
     max_steps_per_interval: int = 64,
     first_step: float | None = None,
     return_stats: bool = False,
+    batch_dims: int = 0,
 ):
     """Integrate ``dy/dt = func(t, y, *args)`` over the monotonic times ``ts``.
 
@@ -69,6 +70,12 @@ def odeint(
     stats dict when ``return_stats=True``: ``{nfe}`` for the fixed-grid
     methods, ``{nfe, n_accept, n_reject, success, t_reached}`` for the
     adaptive ones).
+
+    ``batch_dims=1`` integrates each ``y0[b]`` as its own problem, as
+    ``jax.vmap`` over ``odeint`` does: the adaptive methods keep a step size,
+    error ratio, accept mask and stats per sample (stats are ``[B]`` tensors,
+    plus ``host_reads``) and call ``func`` with ``t`` of shape ``[B]``; the
+    fixed-grid methods are elementwise and take ``y0`` as it is.
     """
     if method in _NOT_PORTED:
         raise NotImplementedError(
@@ -100,11 +107,12 @@ def odeint(
     elif method in _ADAPTIVE:
         ys, stats = adaptive.odeint_adaptive(
             f, y0, ts, tab=_ADAPTIVE[method], rtol=rtol, atol=atol,
-            max_steps=max_steps, first_step=first_step,
+            max_steps=max_steps, first_step=first_step, batch_dims=batch_dims,
         )
     else:
         ys, stats = adaptive.odeint_adaptive_scan(
             f, y0, ts, tab=_ADAPTIVE[method[: -len("_scan")]], rtol=rtol, atol=atol,
             max_steps_per_interval=max_steps_per_interval, first_step=first_step,
+            batch_dims=batch_dims,
         )
     return (ys, stats) if return_stats else ys

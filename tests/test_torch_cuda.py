@@ -1,6 +1,8 @@
 """The CUDA kernels (CSR SpMM, weighted SpMM, the bucket mode and its weighted
 form, GAT forward, α/dlogit backward, recompute-α dWh) against their plain
-PyTorch versions, on the card.
+PyTorch versions, on the card; and config 3's batched adaptive solver on the
+card (no kernel of its own: one batched solve against one solve per window
+and against the CPU, and no host read inside an attempt).
 
 Every test here needs a CUDA card and skips without one.  On the card
 (which has no JAX, so the repo's conftest cannot load):
@@ -768,6 +770,97 @@ def test_gat_sharded_kernel_path_matches_plain_path(cuda, rate):
     for other in ("plain", "ring"):
         for got, want in zip(results["kernel"], results[other]):
             torch.testing.assert_close(got, want, **TOL, msg=other)
+
+
+# ------------------------------------------- config 3: the batched adaptive solver
+
+
+def _inode_and_windows(device, n_windows=8):
+    """A freshly initialised full-width INODE of config 3 in float64 and
+    ``n_windows`` windows of its data, on ``device``."""
+    import copy
+
+    from graph_odenet_tpu_torch.configs import get_config
+    from graph_odenet_tpu_torch.data import SpringSystem, generate_trajectories
+    from graph_odenet_tpu_torch.models import INODE
+    from graph_odenet_tpu_torch.train.physics import trajectory_windows
+
+    _, cfg = get_config(3)
+    system = SpringSystem(n_bodies=cfg.n_bodies)
+    trajs = generate_trajectories(system, n_windows, cfg.ode_window,
+                                  generator=torch.Generator().manual_seed(0), device=device)
+    wins = trajectory_windows(trajs, cfg.ode_window).double()
+    model = INODE(effect_dim=cfg.effect_dim, relation_hidden=cfg.relation_hidden,
+                  object_hidden=cfg.object_hidden, method=cfg.ode_method, steps=cfg.ode_steps,
+                  remat=cfg.ode_remat, rtol=cfg.rtol, atol=cfg.atol,
+                  generator=torch.Generator().manual_seed(0)).double().to(device)
+    ts = torch.arange(cfg.ode_window + 1, dtype=torch.float64) * system.dt
+
+    def solve(m, batch):
+        senders, receivers = system.edges(batch.device)
+        return m(batch[:, 0, :, 1:], ts, batch[:, 0, :, :1], senders, receivers)
+
+    return model, wins, solve, copy.deepcopy
+
+
+def test_batched_inode_equals_one_by_one_and_the_cpu(cuda):
+    """Config 3's solver on the card in float64: one batched solve of 8
+    windows equals 8 one-window solves (accept and reject counts equal,
+    trajectories to 1e-10 of the largest value), and one training step's
+    gradient equals the same step on the CPU to 1e-8 (the IN's ``index_add_``
+    in a fixed order; cuBLAS rounds alike on one stream)."""
+    model, wins, solve, deepcopy = _inode_and_windows(cuda)
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            together = solve(model, wins)
+            counts = [model.stats[k].tolist() for k in ("n_accept", "n_reject")]
+            alone, alone_counts = [], [[], []]
+            for i in range(wins.shape[0]):
+                alone.append(solve(model, wins[i:i + 1]))
+                for c, k in zip(alone_counts, ("n_accept", "n_reject")):
+                    c.extend(model.stats[k].tolist())
+        assert counts == alone_counts
+        assert rel(together, torch.cat(alone)) <= 1e-10
+
+        def step(m, batch):
+            m.zero_grad(set_to_none=True)
+            torch.mean((solve(m, batch) - batch[..., 1:]) ** 2).backward()
+            return {k: p.grad.cpu() for k, p in m.named_parameters()}
+
+        card = step(model, wins)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    cpu = step(deepcopy(model).cpu(), wins.cpu())
+    errs = {k: rel(card[k], g) for k, g in cpu.items()}
+    assert max(errs.values()) <= 1e-8, errs
+
+
+def test_batched_attempt_reads_nothing_on_the_host(cuda):
+    """An attempt of the batched solver keeps its accept decisions on the
+    card; the host's one read an attempt is "every sample done?"."""
+    from graph_odenet_tpu_torch.data import SpringSystem
+    from graph_odenet_tpu_torch.ode import adaptive
+
+    model, wins, _, _ = _inode_and_windows(cuda)
+    assert model.remat  # the checkpointed field, as config 3 trains it
+    f = model.field(wins[:, 0, :, :1], *SpringSystem(n_bodies=wins.shape[2]).edges(cuda))
+    y0 = wins[:, 0, :, 1:].clone().requires_grad_()
+    s = adaptive._init_batched(f, y0, torch.zeros((), dtype=y0.dtype, device=cuda),
+                               adaptive.DOPRI5, model.rtol, model.atol, None)
+    done = s.t >= 0.01
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        adaptive._attempt_batched(f, adaptive.DOPRI5, model.rtol, model.atol, s, done)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            bool(done.all())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(s.n_accept.sum() + s.n_reject.sum()) == wins.shape[0]
+    s.y.sum().backward()
+    assert torch.isfinite(y0.grad).all()
 
 
 # ------------------------------------------- the ring over NCCL, across cards

@@ -10,7 +10,12 @@ import torch
 from graph_odenet_tpu_torch.configs import get_config, run_config
 from graph_odenet_tpu_torch.graph import Graph, from_edges
 from graph_odenet_tpu_torch.ops import csr_spmm, gat_attn, prepare, spmm_csr
-from graph_odenet_tpu_torch.train import NodeClassConfig, build_model, choose_representation
+from graph_odenet_tpu_torch.train import (
+    NodeClassConfig,
+    PhysicsConfig,
+    build_model,
+    choose_representation,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "graph_odenet_tpu"}
@@ -31,7 +36,8 @@ def test_port_imports_no_jax():
     assert {
         f"graph_odenet_tpu_torch/{name}.py"
         for name in ("ops/dropmask", "ops/gat_attn", "ops/sddmm", "models/gat", "ode/adaptive",
-                     "data/ogbn", "parallel/halo", "parallel/partition", "parallel/trainer")
+                     "data/ogbn", "parallel/halo", "parallel/partition", "parallel/trainer",
+                     "data/nbody", "models/interaction", "train/physics", "utils/plots")
     } <= names
     bad = {
         (str(f.relative_to(ROOT)), mod)
@@ -80,10 +86,16 @@ def test_choose_representation():
     assert choose_representation(big, "gcnode") == "segment"  # CPU tensors
 
 
-@pytest.mark.parametrize("name,item", [(3, "A15"), ("nbody-inode-rollout", "A15")])
-def test_unported_configs_name_their_roadmap_item(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        get_config(name)
+@pytest.mark.parametrize("name", [3, "nbody-inode-rollout"])
+def test_config_3_is_the_physics_config(name):
+    kind, cfg = get_config(name)
+    assert kind == "physics" and isinstance(cfg, PhysicsConfig)
+    assert (cfg.n_bodies, cfg.n_sims, cfg.n_steps) == (6, 256, 200)
+    assert (cfg.batch_size, cfg.epochs) == (512, 20)
+    assert (cfg.relation_hidden, cfg.effect_dim, cfg.object_hidden) == ((150,) * 4, 50, (100,))
+    assert (cfg.ode_method, cfg.ode_steps, cfg.ode_window) == ("dopri5_scan", 16, 10)
+    assert cfg.ode_remat
+    assert (cfg.rtol, cfg.atol, cfg.lr) == (1e-4, 1e-6, 1e-3)
 
 
 @pytest.mark.parametrize("model,adjoint", [("gatode", True), ("gcnode", "checkpoint")])
@@ -202,11 +214,21 @@ def test_run_config_end_to_end_on_cpu():
 def _entry_point_calls():
     from graph_odenet_tpu_torch.data import synthetic_ogbn_arxiv, synthetic_planetoid
     from graph_odenet_tpu_torch.parallel import ShardedTrainConfig, fit_sharded_node_classifier
-    from graph_odenet_tpu_torch.train import fit_node_classifier
+    from graph_odenet_tpu_torch.train import (
+        fit_inode,
+        fit_interaction_network,
+        fit_node_classifier,
+        physics_rollout_curves,
+    )
 
+    small = PhysicsConfig(n_sims=8, n_steps=20, epochs=1)
     return {
         "run_config(1)": lambda: run_config(1, scale=0.1),
+        "run_config(3)": lambda: run_config(3, scale=0.01, rollout=6),
         "run_config(4)": lambda: run_config(4, scale=0.004),
+        "fit_interaction_network": lambda: fit_interaction_network(small),
+        "fit_inode": lambda: fit_inode(small),
+        "physics_rollout_curves": lambda: physics_rollout_curves(small, horizon=6, n_test=4),
         "fit_node_classifier": lambda: fit_node_classifier(
             NodeClassConfig(epochs=1), synthetic_planetoid("cora", scale=0.1)),
         "fit_sharded_node_classifier": lambda: fit_sharded_node_classifier(
