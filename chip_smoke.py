@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--physics-epochs N]
+    python3 chip_smoke.py [--physics-epochs N] [--adjoint-epochs N]
 
 Imports nothing of JAX.  Phases, one JSON line each; any failure raises,
 so the exit code is non-zero:
@@ -117,9 +117,33 @@ so the exit code is non-zero:
              forward, peak device memory, and the rollout MSE of both models
              at horizons 1, 5, 10, 20 and 50 (the IN-ODE's must end below the
              discrete IN's).
+  adjoint    the continuous and the checkpointed adjoint (``odeint_adjoint``)
+             on the calibrated Pubmed twin.  (1) For ``pubmed-gcnode`` (B1)
+             and ``pubmed-gatode`` (B3-B5, the score hint, hash attention
+             dropout 0.6 in the encoder) with each adjoint, one training step
+             through the kernels in float32 against the same adjoint through
+             the plain path in float64 (``ADJ_RTOL``), its backward profiled:
+             the phase fails unless that backward launched the model's kernels
+             (``ADJ_KERNELS``) and called no plain version; the gap to direct
+             backprop is printed, not gated.  (2) ``pubmed-gatode`` at full
+             width trained through ``fit_node_classifier`` with ``adjoint``
+             False, True and ``"checkpoint"``, ``ADJ_EPOCHS`` epochs each
+             (``--adjoint-epochs 300``: uncut, printed as ``epochs_cut_from``):
+             s/epoch, test accuracy (>= 0.40, and >= 0.80 for the uncut
+             checkpointed run), a falling loss, peak device memory, the last
+             forward's solver stats, the dynamics' evaluations an epoch inside
+             the backward and whether each reverse solve reached the first
+             output time (counted by wrappers here), the host's reads in a
+             step.  (3) Config 3's IN-ODE at full width with each adjoint: in
+             float64 the batched adjoint's gradient over 8 windows against the
+             sum of one solve per window (``PHYS_REL``), then one training step
+             at batch 512 with each adjoint and with direct backprop
+             (``remat``): wall ms, peak memory, evaluations.
 
 Then the kernel table (each kernel's launches on its main path, error,
-ms, plain ms, the bound of its work on an H100 and the library call's ms),
+ms, plain ms, the bound of its work on an H100 and the library call's ms;
+``adjoint_launches``: B1's in pubmed-gcnode's adjoint step checks, B3-B5's
+in pubmed-gatode's training runs with either adjoint),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -129,6 +153,7 @@ import dataclasses
 import json
 import os
 import subprocess
+import tempfile
 import time
 import warnings
 
@@ -180,6 +205,26 @@ PHYS_HORIZON, PHYS_HORIZONS = 50, (1, 5, 10, 20, 50)
 # Config 3's epochs in the default run, cut from its 20 to keep the phase near
 # a minute: an epoch of both trainers took 4.3–5.7 s (host-bound, PERF.md).
 PHYS_EPOCHS = 6
+# The adjoint phase.  (1) One training step through the kernels in float32
+# against the same adjoint through the plain path in float64: rtol ADJ_RTOL,
+# atol ADJ_RTOL of each gradient's largest entry plus ADJ_F32 times the plain
+# path's own float32 error on it.  At initialisation the gradients of GAT-ODE's
+# attention vectors are small sums that cancel, and the plain path in float32
+# misses them by 2.4e-3 of their largest entry (CPU rehearsal at a third of
+# the Pubmed twin); the kernel's rounding is of that size too.
+ADJ_RTOL, ADJ_F32 = 1e-3, 4.0
+# The kernels each model's adjoint backward must launch.
+ADJ_KERNELS = {"gcnode": ("csr_reduce_kernel",),
+               "gatode": ("gat_fwd_kernel", "gat_bwd_kernel", "gat_dwh_kernel")}
+# (2) pubmed-gatode's epochs in the default run, cut from its 300 to keep the
+# phase near a minute (on an H100 80GB HBM3 at 700 W, 40 epochs took
+# 0.11-0.16 s each and reached test accuracy 0.845-0.850 with every adjoint);
+# every run must learn (chance is 1/3), and the checkpointed adjoint's uncut
+# run must reach 0.80 (the JAX package's adjoint seeds: 0.858-0.886,
+# RESULTS.md; accuracies, not speeds).
+ADJ_EPOCHS = 100
+ADJ_MIN_TEST_ACC, ADJ_FULL_MIN_TEST_ACC = 0.40, 0.80
+ADJOINTS = (True, "checkpoint")
 
 
 def emit(phase, **fields):
@@ -1492,6 +1537,334 @@ def phase_physics(dev, epochs=PHYS_EPOCHS):
     )
 
 
+class adjoint_probe:
+    """Counts what the port reports nowhere, by wrappers in this script: calls
+    of ``owner.attr`` (the dynamics), those made inside an adjoint's backward,
+    and the success flags of the continuous adjoint's reverse solves (JAX's
+    ``odeint_adjoint`` does not surface them either).  The flags are kept as
+    they come and read after the block, so the probe adds no host read."""
+
+    def __init__(self, owner, attr="forward"):
+        self.owner, self.attr = owner, attr
+        self.evals = self.reverse_evals = 0
+        self.in_reverse = False
+        self.reverse_success = []
+
+    def __enter__(self):
+        from graph_odenet_tpu_torch.ode import adjoint
+
+        probe, dynamics, odeint = self, getattr(self.owner, self.attr), adjoint.odeint
+        fns = (adjoint._OdeintAdjoint, adjoint._OdeintCkptAdjoint)
+        self.saved = [(self.owner, self.attr, dynamics), (adjoint, "odeint", odeint)] + [
+            (fn, "backward", staticmethod(fn.backward)) for fn in fns]
+
+        def counted(*args, **kw):
+            probe.evals += 1
+            probe.reverse_evals += probe.in_reverse
+            return dynamics(*args, **kw)
+
+        def reverse_odeint(*args, **kw):
+            if not probe.in_reverse:
+                return odeint(*args, **kw)
+            ys, stats = odeint(*args, **dict(kw, return_stats=True))
+            probe.reverse_success.append(stats["success"])
+            return ys
+
+        def reversing(backward):
+            def wrapped(ctx, *grads):
+                probe.in_reverse = True
+                try:
+                    return backward(ctx, *grads)
+                finally:
+                    probe.in_reverse = False
+            return staticmethod(wrapped)
+
+        setattr(self.owner, self.attr, counted)
+        adjoint.odeint = reverse_odeint
+        for fn in fns:
+            fn.backward = reversing(fn.backward)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in self.saved:
+            setattr(obj, name, value)
+
+    def reverse_solves(self):
+        """Reverse solves (samples of a batch each), and how many of them
+        reached the first output time."""
+        flags = [torch.as_tensor(f).reshape(-1) for f in self.reverse_success]
+        flags = torch.cat(flags).cpu() if flags else torch.zeros(0, dtype=torch.bool)
+        return dict(solves=int(flags.numel()), reached=int(flags.sum()))
+
+
+def host_syncs(fn):
+    """The synchronising calls (host reads of device values) of ``fn()``, by the
+    warnings of ``torch.cuda.set_sync_debug_mode``."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+class plain_calls:
+    """Counts calls of the kernels' plain versions inside the block."""
+
+    def __enter__(self):
+        from graph_odenet_tpu_torch.ops import csr_spmm, gat_attn
+
+        self.count = 0
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (csr_spmm, "_reduce_plain"), (gat_attn, "gat_fwd_plain"),
+            (gat_attn, "gat_bwd_plain"), (gat_attn, "gat_dwh_plain"))]
+
+        def counting(fn):
+            def wrapped(*args, **kw):
+                self.count += 1
+                return fn(*args, **kw)
+            return wrapped
+
+        for mod, name, fn in self.saved:
+            setattr(mod, name, counting(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def adjoint_step_check(cfg, data, adjoint, dev, seed=0):
+    """One training step of ``cfg``'s model on ``data`` (feature dropout 0; GAT-ODE keeps
+    its encoder's hash attention dropout, seeded alike) with ``adjoint``:
+    through the kernels in float32, its backward profiled, against the same
+    adjoint through the plain segment path in float64 with the sums in a
+    fixed order (``fixed_order_sums``: GCN-ODE's encoder has a ReLU), at
+    ``ADJ_RTOL``; and the gap of each gradient to direct backprop through the
+    kernels, as a number.  Raises unless the backward launched the model's
+    kernels (``ADJ_KERNELS``) and called no plain version."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from graph_odenet_tpu_torch.ops import prepare
+    from graph_odenet_tpu_torch.train import build_model
+    from graph_odenet_tpu_torch.train.node_classification import GAT_FAMILY
+    from graph_odenet_tpu_torch.utils.metrics import masked_nll
+
+    name = cfg.model
+    gat = name in GAT_FAMILY
+    model = build_model(dataclasses.replace(cfg, adjoint=adjoint), data.n_class,
+                        data.features.shape[1], generator=torch.Generator().manual_seed(seed))
+    model.dropout = 0.0
+    model.to(dev)
+    csr = prepare(data.graph).to(dev)
+
+    def forward(m, adj, x):
+        kw = dict(deterministic=False, seed_generator=torch.Generator().manual_seed(seed))
+        m.zero_grad(set_to_none=True)
+        return masked_nll(m(adj, x, **kw) if gat else m(adj, x), data.labels, data.idx_train)
+
+    def grads(m):
+        return {k: p.grad.detach().double() for k, p in m.named_parameters()}
+
+    with plain_calls() as plain:
+        loss = forward(model, csr, data.features)
+        before = _kernel_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loss.backward()
+            torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _kernel_counts().items() if v > before[k]}
+    kernel_grads = grads(model)
+    seen = sorted({e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
+    missing = [k for k in ADJ_KERNELS[name] if not any(k in s for s in seen)]
+    if missing or plain.count:
+        raise AssertionError(f"adjoint {name} {adjoint!r}: backward launched no {missing}, "
+                             f"{plain.count} plain-version calls; kernels {seen}")
+    stats = dict(model.odeblock.stats)
+
+    plain = {}
+    for dtype in (torch.float64, torch.float32):
+        plain_model = copy.deepcopy(model).to(dtype)
+        with fixed_order_sums(warn_only=True):
+            plain_loss = forward(plain_model, data.graph, data.features.to(dtype))
+            plain_loss.backward()
+        plain[dtype] = plain_loss.double(), grads(plain_model)
+    (want_loss, want), (_, f32) = plain[torch.float64], plain[torch.float32]
+    err = {"loss": float((loss.double() - want_loss).abs() / want_loss.abs())}
+    f32_err = {k: float((f32[k] - g).abs().max() / g.abs().max()) for k, g in want.items()}
+    for k, g in want.items():
+        atol = ADJ_RTOL * float(g.abs().max()) + ADJ_F32 * float((f32[k] - g).abs().max())
+        err[k] = float(((kernel_grads[k] - g).abs() / (atol + ADJ_RTOL * g.abs())).max())
+        torch.testing.assert_close(kernel_grads[k], g, rtol=ADJ_RTOL, atol=atol, msg=lambda m, k=k: (
+            f"adjoint {name} {adjoint!r} {k}: {err[k]} of the tolerance\n{m}"))
+
+    model.odeblock.adjoint = False
+    forward(model, csr, data.features).backward()
+    direct = grads(model)
+    gap = {k: float((g - direct[k]).abs().max() / direct[k].abs().max())
+           for k, g in kernel_grads.items()}
+    return dict(model=name, adjoint=adjoint, rtol=ADJ_RTOL, f32_factor=ADJ_F32, err_over_tol=err,
+                max_err_over_tol=max(v for k, v in err.items() if k != "loss"),
+                plain_f32_rel_err=f32_err,
+                backward_launches=launched, backward_device_kernels=len(seen),
+                backward_port_kernels=sorted({k for k in ("csr_reduce_kernel", "gat_fwd_kernel",
+                                                          "gat_bwd_kernel", "gat_dwh_kernel")
+                                              if any(k in s for s in seen)}),
+                forward_stats=stats, rel_gap_to_direct_backprop=gap)
+
+
+def train_with_adjoint(cfg, data, adjoint, dev):
+    """``cfg`` trained through ``fit_node_classifier`` with ``adjoint``: its
+    result, the dynamics' evaluations an epoch in the backward, the reverse
+    solves' reach, the host's reads in one more training step, peak memory."""
+    from graph_odenet_tpu_torch.models.odeblock import GATDynamics
+    from graph_odenet_tpu_torch.ops import prepare
+    from graph_odenet_tpu_torch.train import build_model, fit_node_classifier
+    from graph_odenet_tpu_torch.utils.metrics import masked_nll
+
+    before = _kernel_counts()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp, adjoint_probe(GATDynamics) as probe:
+        cfg = dataclasses.replace(cfg, adjoint=adjoint, log_path=os.path.join(tmp, "log.jsonl"))
+        res = fit_node_classifier(cfg, data, device=dev)
+        with open(cfg.log_path) as fh:
+            losses = [json.loads(line)["loss"] for line in fh]
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = {k: v - before[k] for k, v in _kernel_counts().items() if v > before[k]}
+
+    # One more training step, as the trainer takes it, for its host reads.
+    model = build_model(cfg, data.n_class, data.features.shape[1]).to(dev)
+    csr = prepare(data.graph).to(dev)
+    gens = dict(generator=torch.Generator(device=dev).manual_seed(cfg.seed),
+                seed_generator=torch.Generator().manual_seed(cfg.seed))
+    out = {}
+
+    def fwd():
+        out["loss"] = masked_nll(model(csr, data.features, deterministic=False, **gens),
+                                 data.labels, data.idx_train)
+
+    reads = dict(forward=host_syncs(fwd), backward=host_syncs(lambda: out["loss"].backward()))
+    epochs = res["epochs_run"]
+    return dict(
+        adjoint=adjoint, epochs=epochs, seconds_per_epoch=res["seconds"] / epochs,
+        test_acc=res["best"]["test_acc"], best_epoch=res["best"]["epoch"],
+        loss_first=losses[0], loss_last5=float(np.mean(losses[-5:])), peak_memory_bytes=peak,
+        ode_stats=res["ode_stats"], reverse_evals_per_epoch=probe.reverse_evals / epochs,
+        evals_per_epoch=probe.evals / epochs, reverse_solves=probe.reverse_solves(),
+        host_reads_per_step=reads, kernel_launches=launched,
+    )
+
+
+def inode_adjoints(dev, windows=PHYS_WINDOWS):
+    """Config 3's IN-ODE at full width with both adjoints: in float64, the
+    batched adjoint's gradient over ``windows`` windows against the sum of
+    one solve per window (``PHYS_REL``, the sums in a fixed order); then one
+    training step at the config's batch with each adjoint and with direct
+    backprop (``remat`` as configured): wall ms, peak memory, evaluations."""
+    from graph_odenet_tpu_torch.configs import get_config
+    from graph_odenet_tpu_torch.data import SpringSystem, generate_trajectories
+    from graph_odenet_tpu_torch.models import INODE
+    from graph_odenet_tpu_torch.train.physics import trajectory_windows
+
+    _, cfg = get_config(3)
+    system = SpringSystem(n_bodies=cfg.n_bodies, dim=cfg.dim)
+    trajs = generate_trajectories(system, cfg.n_sims, cfg.n_steps,
+                                  generator=torch.Generator().manual_seed(cfg.seed), device=dev)
+    ts = torch.arange(cfg.ode_window + 1, dtype=torch.float64) * system.dt
+    senders, receivers = system.edges(dev)
+
+    def make(adjoint, dtype):
+        return INODE(
+            dim=cfg.dim, effect_dim=cfg.effect_dim, relation_hidden=cfg.relation_hidden,
+            object_hidden=cfg.object_hidden, method=cfg.ode_method, steps=cfg.ode_steps,
+            remat=cfg.ode_remat, rtol=cfg.rtol, atol=cfg.atol, adjoint=adjoint,
+            generator=torch.Generator().manual_seed(cfg.seed),
+        ).to(dtype=dtype, device=dev)
+
+    def step(m, batch, per_window=False):
+        """A training step's gradients; ``per_window``: of the sum of each
+        window's loss, so that each window's cotangent, which the continuous
+        adjoint's reverse solve controls against ``atol``, is the same in a
+        batch as alone."""
+        m.zero_grad(set_to_none=True)
+        w0 = batch[:, 0]
+        out = m(w0[..., 1:], ts.to(batch.dtype), w0[..., :1], senders, receivers)
+        err = (out - batch[..., 1:]) ** 2
+        (err.flatten(1).mean(1).sum() if per_window else err.mean()).backward()
+        return {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+
+    wins = trajectory_windows(trajs, cfg.ode_window)[:windows].double()
+    checks = {}
+    for adjoint in ADJOINTS:
+        m = make(adjoint, torch.float64)
+        with fixed_order_sums(warn_only=True), adjoint_probe(INODE, "_dynamics") as probe:
+            together = step(m, wins, per_window=True)
+            n_accept = m.stats["n_accept"].tolist()
+            alone = [step(m, wins[i:i + 1], per_window=True) for i in range(windows)]
+        err = {k: _rel_err(g, sum(a[k] for a in alone)) for k, g in together.items()}
+        if not max(err.values()) <= PHYS_REL:
+            raise AssertionError(f"inode adjoint {adjoint!r}: batched against one by one "
+                                 f"{err} > {PHYS_REL}")
+        checks[str(adjoint)] = dict(max_rel_err=max(err.values()), n_accept=n_accept,
+                                    reverse_solves=probe.reverse_solves())
+
+    batch = trajectory_windows(trajs, cfg.ode_window)[:cfg.batch_size]
+    steps = {}
+    for adjoint in (False,) + ADJOINTS:
+        m = make(adjoint, torch.float32)
+        step(m, batch)  # warm
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with adjoint_probe(INODE, "_dynamics") as probe:
+            t0 = time.perf_counter()
+            grads = step(m, batch)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        if not all(torch.isfinite(g).all() for g in grads.values()):
+            raise AssertionError(f"inode adjoint {adjoint!r}: non-finite gradient at batch "
+                                 f"{cfg.batch_size}")
+        steps[str(adjoint)] = dict(
+            wall_ms=wall * 1e3, peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+            evals=probe.evals, reverse_evals=probe.reverse_evals,
+            reverse_solves=probe.reverse_solves(),
+            forward_attempts=int((m.stats["n_accept"] + m.stats["n_reject"]).sum()),
+            forward_host_reads=m.stats["host_reads"])
+    return dict(config="nbody-inode-rollout", windows=windows, rel_tol=PHYS_REL,
+                batched_against_one_by_one=checks, batch=cfg.batch_size, remat=cfg.ode_remat,
+                step=steps)
+
+
+def phase_adjoint(dev, data, epochs=ADJ_EPOCHS):
+    """The continuous and checkpointed adjoints on the card (see the module doc)."""
+    from graph_odenet_tpu_torch.configs import get_config
+
+    checks = [adjoint_step_check(get_config(f"pubmed-{model}")[1], data, adjoint, dev)
+              for model in ADJ_KERNELS for adjoint in ADJOINTS]
+    _, cfg = get_config("pubmed-gatode")
+    runs = {}
+    for adjoint in (False,) + ADJOINTS:
+        run = train_with_adjoint(dataclasses.replace(cfg, epochs=epochs), data, adjoint, dev)
+        limit = (ADJ_FULL_MIN_TEST_ACC if adjoint == "checkpoint" and epochs == cfg.epochs
+                 else ADJ_MIN_TEST_ACC)
+        if not (run["loss_last5"] < run["loss_first"] and run["test_acc"] >= limit):
+            raise AssertionError(f"pubmed-gatode adjoint={adjoint!r}: loss {run['loss_first']} "
+                                 f"-> {run['loss_last5']}, test accuracy {run['test_acc']} "
+                                 f"(limit {limit})")
+        if adjoint and min(run["kernel_launches"].get(k, 0) for k in (
+                "gat_fwd", "gat_bwd", "gat_dwh")) == 0:
+            raise AssertionError(f"pubmed-gatode adjoint={adjoint!r}: {run['kernel_launches']}")
+        runs[str(adjoint)] = run
+    inode = inode_adjoints(dev)
+    emit("adjoint", step_checks=checks, pubmed_gatode=runs,
+         epochs_cut_from=None if epochs == cfg.epochs else cfg.epochs, inode=inode)
+    return dict(checks=checks, runs=runs)
+
+
 def _sparse_csr_pair(csr):
     """Â and Âᵀ of a ``CSRGraph`` as torch CSR tensors (cuSPARSE's operands)."""
     n = csr.n_node_pad
@@ -1528,6 +1901,9 @@ def main():
     parser = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card.")
     parser.add_argument("--physics-epochs", type=int, default=PHYS_EPOCHS,
                         help="config 3's epochs (its own are 20; default %(default)s)")
+    parser.add_argument("--adjoint-epochs", type=int, default=ADJ_EPOCHS,
+                        help="pubmed-gatode's epochs with each adjoint (its own are 300; "
+                             "default %(default)s)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
@@ -1579,6 +1955,12 @@ def main():
     gat_bucket_launches = timed("config4_gat", phase_config4_gat, dev, arxiv_cal)
     del arxiv_cal
     timed("physics", phase_physics, dev, args.physics_epochs)
+    adj = timed("adjoint", phase_adjoint, dev, data, args.adjoint_epochs)
+    # Launches on the adjoint's paths: B1 in pubmed-gcnode's adjoint backward
+    # steps, B3-B5 in pubmed-gatode's training runs with either adjoint.
+    adjoint_launches = {k: sum(r["kernel_launches"].get(k, 0) for r in adj["runs"].values()
+                               if r["adjoint"]) for k in ("gat_fwd", "gat_bwd", "gat_dwh")}
+    adjoint_launches["csr"] = sum(c["backward_launches"].get("csr", 0) for c in adj["checks"])
     emit("seconds", **times)
     per_call = [(r["graph"], k, c) for r in rows for k, c in r["call_costs"].items()]
     per_call += [(f"P={p}", k, c) for p, r in buckets.items() for k, c in r["call_costs"].items()]
@@ -1651,6 +2033,7 @@ def main():
             "bound_by": main_row["bound_by"],
             "library_ms": library["pubmed-twin"]["ms"],
             "shape": "Pubmed twin, F=16, fwd+bwd",
+            "adjoint_launches": adjoint_launches["csr"],
             "bare_ms": main_row["bare_ms"], "library_bare_ms": main_row["library_bare_ms"],
             "host_us": {k: c["host_us"] for k, c in main_row["call_costs"].items()},
             "device_launches_per_call": max(
@@ -1703,12 +2086,11 @@ def main():
         },
         att_entry("csr_spmm_weighted", spmm_src, "graph_odenet_tpu/ops/pallas_spmm.py:479",
                   mask_row, weighted),
-        att_entry("gat_fwd", gat_src, "graph_odenet_tpu/ops/pallas_gat.py:206",
-                  cite_row, gat_launches["gat_fwd"], costs=True),
-        att_entry("gat_bwd", gat_src, "graph_odenet_tpu/ops/pallas_gat.py:890",
-                  cite_row, gat_launches["gat_bwd"], costs=True),
-        att_entry("gat_dwh", gat_src, "graph_odenet_tpu/ops/pallas_spmm.py:736",
-                  cite_row, gat_launches["gat_dwh"], costs=True),
+        *(dict(att_entry(k, gat_src, replaces, cite_row, gat_launches[k], costs=True),
+               adjoint_launches=adjoint_launches[k]) for k, replaces in (
+            ("gat_fwd", "graph_odenet_tpu/ops/pallas_gat.py:206"),
+            ("gat_bwd", "graph_odenet_tpu/ops/pallas_gat.py:890"),
+            ("gat_dwh", "graph_odenet_tpu/ops/pallas_spmm.py:736"))),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ This package imports neither JAX nor the JAX package.
                    fused kernels), the counter-hash attention dropout.
   ode              odeint with the fixed-grid and adaptive Runge-Kutta
                    solvers (dopri5 and kin, each with a ``_scan`` form),
-                   batched over independent problems with ``batch_dims=1``.
+                   batched over independent problems with ``batch_dims=1``;
+                   odeint_adjoint, the continuous and checkpointed adjoints.
   models           GCN, ResGCN, GAT, ResGAT, ODEBlock, GCN-ODE, GAT-ODE,
                    the interaction network and IN-ODE.
   data             Planetoid and OGBN-arxiv loaders and twins, spring n-body.
@@ -28,3 +29,4 @@ This package imports neither JAX nor the JAX package.
 __version__ = "0.1.0"
 
 from graph_odenet_tpu_torch.graph import Graph  # noqa: F401
+from graph_odenet_tpu_torch.ode.api import odeint, odeint_adjoint  # noqa: F401

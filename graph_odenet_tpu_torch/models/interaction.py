@@ -2,10 +2,11 @@
 
 Counterpart of ``graph_odenet_tpu/models/interaction.py``.  Object states
 are gathered onto the relations by index, the relation MLP's effects are
-summed onto their receivers with ``index_add_`` (the JAX package's
-``segment_sum``), and the object MLP maps ``[o ‖ Σ effects ‖ ext]`` to the
+summed onto their receivers with ``index_add`` (the JAX package's
+``segment_sum``; out of place, so that ``torch.func.vmap`` can run it one
+sample at a time), and the object MLP maps ``[o ‖ Σ effects ‖ ext]`` to the
 output.  Every module takes any leading batch axes (the JAX package vmaps).
-On a card ``index_add_`` adds with atomics in the order the card schedules
+On a card ``index_add`` adds with atomics in the order the card schedules
 them; under ``torch.use_deterministic_algorithms(True)`` it sums in a fixed
 order.
 
@@ -24,7 +25,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from graph_odenet_tpu_torch.ode import odeint
+from graph_odenet_tpu_torch.ode import odeint, odeint_adjoint
 
 __all__ = ["MLP", "InteractionNetwork", "INODE"]
 
@@ -88,7 +89,7 @@ class InteractionNetwork(nn.Module):
             rel_in.append(rel_attr)
         effects = self.relation_mlp(torch.cat(rel_in, dim=-1))
         agg = effects.new_zeros(objs.shape[:-1] + effects.shape[-1:])
-        agg = agg.index_add_(node_axis, receivers, effects)
+        agg = agg.index_add(node_axis, receivers, effects)
         obj_in = [objs, agg]
         if ext is not None:
             obj_in.append(ext)
@@ -110,9 +111,10 @@ class INODE(nn.Module):
     solver stats of the last forward are kept in ``stats``.
 
     ``remat=True`` recomputes each dynamics call in the backward
-    (``torch.utils.checkpoint``) instead of storing its activations.  Only
-    direct backprop through the solver is ported: ``adjoint`` other than
-    False raises (ROADMAP A13).
+    (``torch.utils.checkpoint``) instead of storing its activations.
+    ``adjoint=True`` trains with the continuous adjoint, ``"checkpoint"``
+    with the checkpointed-forward adjoint (``ode.odeint_adjoint``), each
+    window of a batch its own problem there too.
     """
 
     def __init__(
@@ -124,30 +126,41 @@ class INODE(nn.Module):
         *, generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if adjoint is not False:
-            raise NotImplementedError(
-                f"adjoint={adjoint!r} is not ported yet (ROADMAP A13); use adjoint=False"
-            )
         self.core = InteractionNetwork(
             static_dim + 2 * dim, dim, effect_dim, relation_hidden, object_hidden,
             rel_dim=rel_dim, generator=generator,
         )
         self.dim = dim
         self.method, self.rtol, self.atol, self.steps = method, rtol, atol, steps
+        self.adjoint = adjoint
         self.remat = remat
         self.stats = None
 
-    def _dynamics(self, t, y, static_attr, senders, receivers, rel_attr):
+    def _accel(self, objs, senders, receivers, rel_attr, params):
+        """The core's output.  ``params`` with a leading batch axis, one copy of
+        each core parameter per sample (what the batched continuous adjoint
+        passes), runs each sample with its own copy."""
+        if not params or params[0].shape == next(self.core.parameters()).shape:
+            return self.core(objs, senders, receivers, rel_attr)
+        named = dict(zip((k for k, _ in self.core.named_parameters()), params))
+
+        def one(p, o, *r):
+            return torch.func.functional_call(self.core, p, (o, senders, receivers, *r))
+
+        return torch.func.vmap(one)(named, objs, *(() if rel_attr is None else (rel_attr,)))
+
+    def _dynamics(self, t, y, static_attr, senders, receivers, rel_attr, *params):
         del t  # autonomous
         vel = y[..., self.dim:]
         objs = torch.cat([static_attr, y], dim=-1)  # [static ‖ pos ‖ vel]
-        return torch.cat([vel, self.core(objs, senders, receivers, rel_attr)], dim=-1)
+        return torch.cat([vel, self._accel(objs, senders, receivers, rel_attr, params)], dim=-1)
 
     def field(self, static_attr, senders, receivers, rel_attr=None):
-        """The vector field ``f(t, y)`` that ``forward`` integrates."""
+        """The vector field ``f(t, y, *params)`` that ``forward`` integrates;
+        without ``params`` it reads the core's own parameters."""
 
-        def f(t, y):
-            args = (t, y, static_attr, senders, receivers, rel_attr)
+        def f(t, y, *params):
+            args = (t, y, static_attr, senders, receivers, rel_attr, *params)
             if self.remat:
                 # The dynamics draws no random numbers: no RNG state to restore.
                 return checkpoint(self._dynamics, *args, use_reentrant=False,
@@ -160,9 +173,13 @@ class INODE(nn.Module):
         if y0.dim() not in (2, 3):
             raise ValueError(f"y0 must be [N, 2D] or [B, N, 2D], got {tuple(y0.shape)}")
         batch_dims = y0.dim() - 2
-        ys, self.stats = odeint(
-            self.field(static_attr, senders, receivers, rel_attr), y0, ts, method=self.method,
-            rtol=self.rtol, atol=self.atol, steps_per_interval=self.steps,
-            max_steps_per_interval=self.steps, return_stats=True, batch_dims=batch_dims,
-        )
+        f = self.field(static_attr, senders, receivers, rel_attr)
+        kw = dict(method=self.method, rtol=self.rtol, atol=self.atol,
+                  steps_per_interval=self.steps, max_steps_per_interval=self.steps,
+                  return_stats=True, batch_dims=batch_dims)
+        if self.adjoint:
+            ys, self.stats = odeint_adjoint(f, y0, ts, *self.core.parameters(),
+                                            checkpoint=self.adjoint == "checkpoint", **kw)
+        else:
+            ys, self.stats = odeint(f, y0, ts, **kw)
         return ys.movedim(0, 1) if batch_dims else ys

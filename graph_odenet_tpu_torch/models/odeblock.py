@@ -4,9 +4,10 @@ Counterpart of ``graph_odenet_tpu/models/odeblock.py``.  ``ODEBlock``
 integrates ``dh/dt = f(t, h)`` over ``[0, t1]`` with any method of
 ``ode.odeint`` (fixed-grid, adaptive, or an adaptive ``_scan`` form bounded
 at ``steps`` attempts) and trains by backpropagating through the solver
-steps.  The solver stats of the last forward are kept in ``ODEBlock.stats``
-(``{"nfe"}`` for fixed-grid methods; ``{"nfe", "n_accept", "n_reject",
-"success", "t_reached"}`` for adaptive ones).
+steps, or by the continuous or the checkpointed adjoint
+(``ode.odeint_adjoint``).  The solver stats of the last forward are kept in
+``ODEBlock.stats`` (``{"nfe"}`` for fixed-grid methods; ``{"nfe",
+"n_accept", "n_reject", "success", "t_reached"}`` for adaptive ones).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from graph_odenet_tpu_torch.models.gat import GATLayer
 from graph_odenet_tpu_torch.models.gcn import GCNLayer, dropout
-from graph_odenet_tpu_torch.ode import odeint
+from graph_odenet_tpu_torch.ode import odeint, odeint_adjoint
 
 __all__ = ["GCNDynamics", "GATDynamics", "ODEBlock", "GCNODE", "GATODE"]
 
@@ -59,11 +60,14 @@ class GATDynamics(nn.Module):
 class ODEBlock(nn.Module):
     """h(t1) = h(0) + ∫ f(t, h) dt, a continuous residual block.
 
-    ``dynamics`` is a module called as ``(t, adj, h) -> dh``.  Only direct
-    backprop through the steps is ported: ``adjoint`` other than False
-    raises (ROADMAP A13).  ``remat=True`` recomputes each dynamics call in
-    the backward (``torch.utils.checkpoint``) instead of storing its
-    activations.
+    ``dynamics`` is a module called as ``(t, adj, h) -> dh``.
+    ``adjoint=True`` trains with the continuous adjoint, ``adjoint=
+    "checkpoint"`` with the checkpointed-forward adjoint (it stores the
+    accepted states and takes fixed rk4 steps back over them); otherwise
+    autograd differentiates through the steps of a reverse-differentiable
+    ``method`` (fixed-grid or ``_scan``).  ``remat=True`` recomputes each
+    dynamics call in the backward (``torch.utils.checkpoint``) instead of
+    storing its activations.
     """
 
     def __init__(
@@ -72,29 +76,32 @@ class ODEBlock(nn.Module):
         adjoint: Union[bool, str] = False, remat: bool = False,
     ):
         super().__init__()
-        if adjoint is not False:
-            raise NotImplementedError(
-                f"adjoint={adjoint!r} is not ported yet (ROADMAP A13); use adjoint=False"
-            )
         self.dynamics = dynamics
         self.t1 = t1
         self.method = method
         self.steps = steps
         self.rtol, self.atol = rtol, atol
+        self.adjoint = adjoint
         self.remat = remat
         self.stats = None
 
     def forward(self, adj, h: torch.Tensor) -> torch.Tensor:
-        def f(t, y):
+        def f(t, y, *params):
+            del params  # the dynamics' own parameters, passed on to the adjoint
             if self.remat:
                 return checkpoint(self.dynamics, t, adj, y, use_reentrant=False)
             return self.dynamics(t, adj, y)
 
-        ys, self.stats = odeint(
-            f, h, [0.0, self.t1], method=self.method, rtol=self.rtol, atol=self.atol,
-            steps_per_interval=self.steps, max_steps_per_interval=self.steps,
-            return_stats=True,
-        )
+        kw = dict(method=self.method, rtol=self.rtol, atol=self.atol,
+                  steps_per_interval=self.steps, max_steps_per_interval=self.steps,
+                  return_stats=True)
+        if self.adjoint:
+            ys, self.stats = odeint_adjoint(
+                f, h, [0.0, self.t1], *self.dynamics.parameters(),
+                checkpoint=self.adjoint == "checkpoint", **kw,
+            )
+        else:
+            ys, self.stats = odeint(f, h, [0.0, self.t1], **kw)
         return ys[-1]
 
 

@@ -23,6 +23,9 @@ on the host (one synchronisation per attempt on a card).
 ``batch_dims=1`` takes a leading axis of ``y0`` as independent problems,
 each with its own controller (``jax.vmap`` of the JAX forms); see
 ``_integrate_batched``.
+
+``odeint_adaptive_ckpt`` is the forward of the checkpointed adjoint: steps
+clipped to land on the requested times, every accepted ``(t, y)`` recorded.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 
 from graph_odenet_tpu_torch.ode.tableaus import DOPRI5, Tableau, rk_step
 
-__all__ = ["odeint_adaptive", "odeint_adaptive_scan"]
+__all__ = ["odeint_adaptive", "odeint_adaptive_scan", "odeint_adaptive_ckpt"]
 
 # dopri5.f controller constants.
 _SAFETY = 0.9
@@ -54,8 +57,11 @@ def _error_ratio(y_err, y0, y1, rtol, atol):
 
 
 def _initial_step(func, t0, y0, f0, order, rtol, atol):
-    """Hairer's starting-step heuristic (torchdiffeq ``_select_initial_step``)."""
-    scale = atol + torch.abs(y0) * rtol
+    """Hairer's starting-step heuristic (torchdiffeq ``_select_initial_step``).
+
+    ``|y0|`` is taken as ``where(y0 >= 0, y0, -y0)``: the same values, and
+    the derivative 1 at 0 that JAX's ``abs`` has (torch's ``abs`` has 0)."""
+    scale = atol + torch.where(y0 >= 0, y0, -y0) * rtol
     d0 = _rms(y0 / scale)
     d1 = _rms(f0 / scale)
     h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), 1e-6, 0.01 * d0 / d1)
@@ -146,9 +152,7 @@ def _attempt_step(func, tab, rtol, atol, s: _State) -> None:
     s.dt = dt_next
 
 
-def _integrate(func, y0, ts, tab, rtol, atol, max_attempts, first_step):
-    ts = torch.as_tensor(ts, dtype=y0.dtype, device=y0.device)
-    t0 = ts[0]
+def _init_state(func, y0, t0, tab, rtol, atol, first_step) -> _State:
     f0 = func(t0, y0)
     if first_step is None:
         dt0 = _initial_step(func, t0, y0, f0, tab.order - 1, rtol, atol)
@@ -157,12 +161,17 @@ def _integrate(func, y0, ts, tab, rtol, atol, max_attempts, first_step):
         dt0 = torch.as_tensor(first_step, dtype=y0.dtype, device=y0.device)
         nfe0 = 1
     zero = torch.zeros((), dtype=y0.dtype, device=y0.device)
-    s = _State(
+    return _State(
         t=t0, y=y0, f=f0, dt=dt0, last_t=t0,
         coeffs=_interp_fit(y0, y0, y0, f0 * 0, f0 * 0, zero),
         facold=torch.full((), 1e-4, dtype=y0.dtype, device=y0.device),
         rejected=False, nfe=nfe0, n_accept=0, n_reject=0,
     )
+
+
+def _integrate(func, y0, ts, tab, rtol, atol, max_attempts, first_step):
+    ts = torch.as_tensor(ts, dtype=y0.dtype, device=y0.device)
+    s = _init_state(func, y0, ts[0], tab, rtol, atol, first_step)
     ys, reached = [y0], True
     for t_target in ts[1:]:
         for _ in range(max_attempts):
@@ -176,6 +185,56 @@ def _integrate(func, y0, ts, tab, rtol, atol, max_attempts, first_step):
         success=reached, t_reached=float(s.t.detach()),
     )
     return torch.stack(ys), stats
+
+
+def _clip(s: _State, t_target):
+    """Clip the proposal ``s.dt`` to the time left to ``t_target``; returns the
+    proposal from before the clip and whether the clip shortened it."""
+    proposal, remaining = s.dt, t_target - s.t
+    s.dt = torch.minimum(proposal, remaining)
+    return proposal, proposal >= remaining
+
+
+def _land(s: _State, took, clipped, proposal, t_target) -> None:
+    """After an attempt: a clipped step that was taken lands on ``t_target``
+    exactly (``t + (t_target − t)`` need not round-trip, and an ulp short
+    would spin the interval on micro-steps), and the next interval starts
+    from the proposal from before the clip, which shrank only because the
+    interval ended."""
+    land = took & clipped
+    s.t = torch.where(land, t_target, s.t)
+    s.dt = torch.where(land, torch.maximum(s.dt, proposal), s.dt)
+
+
+def _integrate_ckpt(func, y0, ts, tab, rtol, atol, trace_per_interval, first_step):
+    ts = torch.as_tensor(ts, dtype=y0.dtype, device=y0.device)
+    s = _init_state(func, y0, ts[0], tab, rtol, atol, first_step)
+    budget = trace_per_interval * (ts.shape[0] - 1)
+    trace_t, trace_y, acc_at, ys, reached = [ts[0]], [y0], [0], [y0], True
+    for t_target in ts[1:]:
+        for _ in range(2 * trace_per_interval + 10):
+            if bool(s.t >= t_target):
+                break
+            proposal, clipped = _clip(s, t_target)
+            n_accept = s.n_accept
+            _attempt_step(func, tab, rtol, atol, s)
+            if s.n_accept > n_accept:
+                _land(s, True, clipped, proposal, t_target)
+                if s.n_accept > budget + 1:  # overflow: JAX's last slot takes it
+                    trace_t.pop(), trace_y.pop()
+                trace_t.append(s.t)
+                trace_y.append(s.y)
+        reached = reached and bool(s.t >= t_target)
+        ys.append(s.y)
+        acc_at.append(s.n_accept)
+    ok = s.n_accept <= budget
+    stats = dict(
+        nfe=s.nfe, n_accept=s.n_accept, n_reject=s.n_reject,
+        success=reached and ok, t_reached=float(s.t.detach()),
+    )
+    trace = dict(t=torch.stack(trace_t), y=torch.stack(trace_y), acc_at_target=acc_at,
+                 n_steps=s.n_accept, ok=ok)
+    return torch.stack(ys), stats, trace
 
 
 # The batched form: a leading axis of ``y0`` holds independent problems, as
@@ -310,6 +369,46 @@ def _integrate_batched(func, y0, ts, tab, rtol, atol, max_attempts, first_step):
     return torch.stack(ys), stats
 
 
+def _integrate_ckpt_batched(func, y0, ts, tab, rtol, atol, trace_per_interval, first_step):
+    """``_integrate_ckpt`` of every sample, as ``jax.vmap`` runs it: each has its
+    own trace in ``[K+2, B]`` buffers, written where it accepts (slot ``K+1``
+    takes the writes of the others and of an overflow)."""
+    ts = torch.as_tensor(ts, dtype=y0.dtype, device=y0.device)
+    s = _init_batched(func, y0, ts[0], tab, rtol, atol, first_step)
+    budget = trace_per_interval * (ts.shape[0] - 1)
+    samples = torch.arange(y0.shape[0], device=y0.device)
+    trace_t = ts[0].repeat(budget + 2, y0.shape[0])
+    trace_y = y0.new_zeros((budget + 2,) + y0.shape)
+    trace_y[0] = y0
+    ys, acc_at, reached, host_reads = [y0], [s.n_accept], torch.ones_like(s.rejected), 0
+    for t_target in ts[1:]:
+        for _ in range(2 * trace_per_interval + 10):
+            done = s.t >= t_target
+            host_reads += 1
+            if bool(done.all()):
+                break
+            proposal, clipped = _clip(s, t_target)
+            s.dt = torch.where(done, proposal, s.dt)
+            n_accept = s.n_accept
+            _attempt_batched(func, tab, rtol, atol, s, done)
+            took = s.n_accept > n_accept
+            _land(s, took, clipped, proposal, t_target)
+            slot = torch.where(took, s.n_accept.clamp(max=budget + 1), budget + 1)
+            trace_t[slot, samples] = s.t
+            trace_y[slot, samples] = s.y
+        reached = reached & (s.t >= t_target)
+        ys.append(s.y)
+        acc_at.append(s.n_accept)
+    ok = s.n_accept <= budget
+    stats = dict(
+        nfe=s.nfe, n_accept=s.n_accept, n_reject=s.n_reject,
+        success=reached & ok, t_reached=s.t.detach(), host_reads=host_reads,
+    )
+    trace = dict(t=trace_t, y=trace_y, acc_at_target=torch.stack(acc_at), n_steps=s.n_accept,
+                 ok=ok)
+    return torch.stack(ys), stats, trace
+
+
 def _solve(func, y0, ts, tab, rtol, atol, max_attempts, first_step, batch_dims):
     if batch_dims == 0:
         return _integrate(func, y0, ts, tab, rtol, atol, max_attempts, first_step)
@@ -346,3 +445,35 @@ def odeint_adaptive_scan(
     """JAX's bounded-scan form: at most ``max_steps_per_interval`` attempts per
     output interval.  Same arguments and returns as ``odeint_adaptive``."""
     return _solve(func, y0, ts, tab, rtol, atol, max_steps_per_interval, first_step, batch_dims)
+
+
+def odeint_adaptive_ckpt(
+    func: Callable, y0: torch.Tensor, ts, *, tab: Tableau = DOPRI5,
+    rtol: float = 1e-7, atol: float = 1e-9, trace_per_interval: int = 32,
+    first_step: float | None = None, batch_dims: int = 0,
+):
+    """Adaptive integration that records the accepted steps (JAX's
+    ``odeint_adaptive_ckpt``): the forward of the checkpointed adjoint.
+
+    The last step of each interval is clipped to land exactly on the output
+    time, so the output times are step boundaries and the rows of ``ys`` are
+    accepted states, not interpolations.  At most ``2·trace_per_interval +
+    10`` attempts an interval.  Returns ``(ys, stats, trace)``: ``trace`` holds
+    ``t`` and ``y`` of the accepted states (``t[0] = ts[0]``, ``y[0] = y0``),
+    ``acc_at_target[i]``, the number of accepted steps when output time i was
+    reached (an index into ``t``), ``n_steps`` and ``ok``.  ``ok`` is False,
+    and so is ``stats["success"]``, when more than ``K = trace_per_interval·
+    (T−1)`` steps were accepted: then, as in JAX's buffers, slot ``K+1``
+    holds the last accepted state and the trace is unusable for gradients.
+
+    ``batch_dims=1`` solves each ``y0[b]`` as its own problem: ``t [K+2, B]``
+    and ``y [K+2, B, ...]`` with each sample's accepted states at the front
+    (slots past its ``n_steps`` hold no state of it), ``acc_at_target [T, B]``
+    and ``[B]`` counts, as ``jax.vmap`` gives them.
+    """
+    if batch_dims == 0:
+        return _integrate_ckpt(func, y0, ts, tab, rtol, atol, trace_per_interval, first_step)
+    if batch_dims == 1:
+        return _integrate_ckpt_batched(func, y0, ts, tab, rtol, atol, trace_per_interval,
+                                       first_step)
+    raise ValueError(f"batch_dims must be 0 or 1, got {batch_dims!r}")

@@ -11,6 +11,9 @@ Methods: the fixed-grid tableaus, the adaptive ones (``dopri5``,
 ``_scan`` forms.  All are differentiable by autograd through the steps.
 The Adams family and ``scipy_solver`` raise ``NotImplementedError`` naming
 their ROADMAP item (A14).
+
+``odeint_adjoint`` takes its gradient with the continuous adjoint or the
+checkpointed-forward adjoint instead (``ode/adjoint.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from graph_odenet_tpu_torch.ode import adaptive, fixed, tableaus
 
-__all__ = ["odeint", "SOLVERS"]
+__all__ = ["odeint", "odeint_adjoint", "SOLVERS"]
 
 _FIXED = {
     "euler": tableaus.EULER,
@@ -115,4 +118,104 @@ def odeint(
             max_steps_per_interval=max_steps_per_interval, first_step=first_step,
             batch_dims=batch_dims,
         )
+    return (ys, stats) if return_stats else ys
+
+
+def _odeint_ckpt_forward(
+    func: Callable, y0: torch.Tensor, ts, *args, method: str = "dopri5",
+    rtol: float = 1e-7, atol: float = 1e-9, steps_per_interval: int = 1,
+    max_steps_per_interval: int = 64, first_step: float | None = None, batch_dims: int = 0,
+    **_ignored,
+):
+    """Forward solve that also returns the accepted-step trace: the forward of
+    the checkpointed adjoint (JAX's ``_odeint_ckpt_forward``).
+
+    Fixed-grid methods emit their substep grid as the trace; the explicit
+    adaptive methods run ``adaptive.odeint_adaptive_ckpt``.  ``_scan``
+    suffixes are stripped: the checkpointed adjoint never differentiates
+    through the forward.  Returns ``(ys, stats, trace)`` with the trace on
+    ``y0``'s device (see ``odeint_adaptive_ckpt``; a fixed grid's ``t`` is
+    ``[K+1]`` for every sample of a batch).
+    """
+    ts = torch.as_tensor(ts, dtype=y0.dtype, device=y0.device)
+
+    def f(t, y):
+        return func(t, y, *args)
+
+    base = method[: -len("_scan")] if method.endswith("_scan") else method
+    if base in _FIXED:
+        n_sub = max(int(steps_per_interval), 1)
+        frac = torch.arange(n_sub, dtype=ts.dtype, device=ts.device) / n_sub
+        seg = ts[:-1, None] + (ts[1:] - ts[:-1])[:, None] * frac
+        ts_fine = torch.cat([seg.reshape(-1), ts[-1:]])
+        ys_fine, nfe = fixed.odeint_fixed(f, _FIXED[base], y0, ts_fine, steps_per_interval=1)
+        acc_at_target = torch.arange(ts.shape[0], device=ts.device) * n_sub
+        trace = dict(t=ts_fine, y=ys_fine, acc_at_target=acc_at_target,
+                     n_steps=(ts.shape[0] - 1) * n_sub, ok=True)
+        return ys_fine[acc_at_target], dict(nfe=nfe), trace
+    if base in _ADAPTIVE:
+        return adaptive.odeint_adaptive_ckpt(
+            f, y0, ts, tab=_ADAPTIVE[base], rtol=rtol, atol=atol,
+            trace_per_interval=max_steps_per_interval, first_step=first_step,
+            batch_dims=batch_dims,
+        )
+    raise ValueError(
+        f"checkpoint adjoint supports fixed-grid and explicit adaptive methods, not "
+        f"{method!r} (adams and scipy have no step trace)"
+    )
+
+
+def odeint_adjoint(
+    func: Callable,
+    y0: torch.Tensor,
+    ts,
+    *params,
+    method: str = "dopri5",
+    rtol: float = 1e-7,
+    atol: float = 1e-9,
+    return_stats: bool = False,
+    checkpoint: bool = False,
+    bwd_method: str = "rk4",
+    bwd_substeps: int = 1,
+    **options,
+):
+    """``odeint`` whose gradient is taken by an adjoint solve, not by autograd
+    through the steps (JAX's ``odeint_adjoint``; torchdiffeq's
+    ``odeint_adjoint``).
+
+    ``params`` are the tensors that ``func(t, y, *params)`` reads and that the
+    gradient must reach (torchdiffeq's ``adjoint_params``): a module's
+    ``tuple(module.parameters())``, which ``func`` may read through the module
+    itself.  Each gets a gradient; one that ``func`` does not read gets zeros.
+
+    The continuous adjoint (``checkpoint=False``) keeps ``ys`` only and solves
+    the augmented system ``[y, a, t̄, θ̄]`` backwards over each output
+    interval with the forward's method and options.  ``checkpoint=True``
+    keeps every accepted state of a forward whose steps land on the output
+    times, and takes one fixed ``bwd_method`` step (``bwd_substeps``
+    substeps) per stored step, ``y`` read from the store.  The forward's
+    solver stats are returned with ``return_stats=True``, as ``odeint``
+    returns them.
+
+    ``batch_dims=1`` solves each ``y0[b]`` as its own problem, as ``jax.vmap``
+    of the JAX function does.  The continuous adjoint then needs each
+    sample's parameter cotangent (each sample's controller measures its own
+    augmented state), so in the backward ``func`` is called with every
+    parameter expanded to one copy per sample (``[B, *p.shape]``) and must
+    compute each sample with its own copy.
+    """
+    from graph_odenet_tpu_torch.ode import adjoint
+
+    opts = dict(method=method, rtol=rtol, atol=atol, **options)
+    if not torch.is_tensor(ts):
+        ts = torch.tensor(ts, dtype=y0.dtype)
+    stats = {}  # the Function's forward fills it
+    if checkpoint:
+        if bwd_method not in adjoint.BWD_TABLEAUS:
+            raise ValueError(f"unknown bwd_method {bwd_method!r}; choose from "
+                             f"{tuple(adjoint.BWD_TABLEAUS)}")
+        bwd = (adjoint.BWD_TABLEAUS[bwd_method], int(bwd_substeps))
+        ys = adjoint._OdeintCkptAdjoint.apply(func, opts, bwd, stats, y0, ts, *params)
+    else:
+        ys = adjoint._OdeintAdjoint.apply(func, opts, stats, y0, ts, *params)
     return (ys, stats) if return_stats else ys

@@ -46,7 +46,7 @@ class NodeClassConfig:
     steps: int = 4               # fixed-grid substeps / attempts of a _scan method
     rtol: float = 1e-3
     atol: float = 1e-4
-    adjoint: Union[bool, str] = False  # only False is ported (A13)
+    adjoint: Union[bool, str] = False  # False | True | "checkpoint"
     activation: str = "tanh"
     # Optimisation (reference defaults).
     lr: float = 0.01

@@ -1,8 +1,9 @@
 """The CUDA kernels (CSR SpMM, weighted SpMM, the bucket mode and its weighted
 form, GAT forward, α/dlogit backward, recompute-α dWh) against their plain
-PyTorch versions, on the card; and config 3's batched adaptive solver on the
+PyTorch versions, on the card; config 3's batched adaptive solver on the
 card (no kernel of its own: one batched solve against one solve per window
-and against the CPU, and no host read inside an attempt).
+and against the CPU, and no host read inside an attempt); and the adjoints'
+one-step check through the kernels (``chip_smoke.adjoint_step_check``).
 
 Every test here needs a CUDA card and skips without one.  On the card
 (which has no JAX, so the repo's conftest cannot load):
@@ -861,6 +862,27 @@ def test_batched_attempt_reads_nothing_on_the_host(cuda):
     assert int(s.n_accept.sum() + s.n_reject.sum()) == wins.shape[0]
     s.y.sum().backward()
     assert torch.isfinite(y0.grad).all()
+
+
+@pytest.mark.parametrize("adjoint", [True, "checkpoint"])
+@pytest.mark.parametrize("name", ["citeseer-gcnode", "citeseer-gatode-dopri5"])
+def test_adjoint_step_through_the_kernels_matches_plain_float64(cuda, name, adjoint):
+    """``chip_smoke.py``'s one-step adjoint check on the calibrated Citeseer
+    twin: GCN-ODE (B1) and config 2's GAT-ODE (B3-B5, hash attention dropout
+    in the encoder), one training step with each adjoint through the kernels
+    in float32 against the same adjoint through the plain path in float64
+    (``ADJ_RTOL``, ``ADJ_F32``); the adjoint's backward launches the kernels
+    and calls no plain version."""
+    import chip_smoke
+
+    from graph_odenet_tpu_torch.configs import get_config
+    from graph_odenet_tpu_torch.data import synthetic_planetoid
+
+    _, cfg = get_config(name)
+    data = synthetic_planetoid("citeseer", seed=cfg.seed, calibrated=True).to(cuda)
+    check = chip_smoke.adjoint_step_check(cfg, data, adjoint, cuda)
+    assert check["max_err_over_tol"] <= 1.0
+    assert check["backward_launches"]["csr" if cfg.model == "gcnode" else "gat_dwh"] > 0
 
 
 # ------------------------------------------- the ring over NCCL, across cards

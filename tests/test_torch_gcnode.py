@@ -132,9 +132,3 @@ def test_remat_gives_the_same_gradients(data):
         grads.append([p.grad for p in model.parameters()])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b)
-
-
-@pytest.mark.parametrize("adjoint", [True, "checkpoint"])
-def test_adjoint_is_not_ported_yet(adjoint):
-    with pytest.raises(NotImplementedError, match="A13"):
-        GCNODE(8, adjoint=adjoint)

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from graph_odenet_tpu_torch.configs import get_config, run_config
+from graph_odenet_tpu_torch.data import synthetic_planetoid
 from graph_odenet_tpu_torch.graph import Graph, from_edges
 from graph_odenet_tpu_torch.ops import csr_spmm, gat_attn, prepare, spmm_csr
 from graph_odenet_tpu_torch.train import (
@@ -37,7 +38,7 @@ def test_port_imports_no_jax():
         f"graph_odenet_tpu_torch/{name}.py"
         for name in ("ops/dropmask", "ops/gat_attn", "ops/sddmm", "models/gat", "ode/adaptive",
                      "data/ogbn", "parallel/halo", "parallel/partition", "parallel/trainer",
-                     "data/nbody", "models/interaction", "train/physics", "utils/plots")
+                     "data/nbody", "models/interaction", "train/physics", "utils/plots", "ode/adjoint")
     } <= names
     bad = {
         (str(f.relative_to(ROOT)), mod)
@@ -98,10 +99,17 @@ def test_config_3_is_the_physics_config(name):
     assert (cfg.rtol, cfg.atol, cfg.lr) == (1e-4, 1e-6, 1e-3)
 
 
-@pytest.mark.parametrize("model,adjoint", [("gatode", True), ("gcnode", "checkpoint")])
-def test_unported_models_name_their_roadmap_item(model, adjoint):
-    with pytest.raises(NotImplementedError, match="A13"):
-        build_model(NodeClassConfig(model=model, adjoint=adjoint), 3, 8)
+@pytest.mark.parametrize("model", ["gcnode", "gatode"])
+@pytest.mark.parametrize("adjoint", [False, True, "checkpoint"])
+def test_build_model_takes_each_adjoint(model, adjoint):
+    """``NodeClassConfig.adjoint`` reaches the ODE block, and a step trains."""
+    m = build_model(NodeClassConfig(model=model, adjoint=adjoint, hidden=4, heads=2), 3, 8,
+                    generator=torch.Generator().manual_seed(0))
+    assert m.odeblock.adjoint == adjoint
+    g = synthetic_planetoid("cora", scale=0.03).graph
+    x = torch.randn(g.n_node_pad, 8, generator=torch.Generator().manual_seed(1))
+    m(prepare(g), x).sum().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in m.parameters())
 
 
 def test_config_2_and_gat_extras():

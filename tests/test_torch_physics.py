@@ -124,8 +124,3 @@ def test_inode_matches_flax(method, batched, remat):
     _check_grads(model, jgrads)
     if method == "dopri5_scan" and batched:
         assert model.stats["success"].all() and model.stats["n_accept"].shape == (3,)
-
-
-def test_inode_adjoint_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A13"):
-        INODE(adjoint=True)
