@@ -140,10 +140,41 @@ so the exit code is non-zero:
              at batch 512 with each adjoint and with direct backprop
              (``remat``): wall ms, peak memory, evaluations.
 
+  resume     (run after config4_gat, while both arxiv twins are built)
+             config 4 at full width (the full arxiv twin, hidden 256, one
+             part, B2, dropout 0.5) trained ``RESUME_EPOCHS`` epochs straight,
+             then stopped after the first ones with a checkpoint every epoch,
+             everything dropped, and resumed to the end in a fresh call: the
+             losses must be bit-equal.  The same for the sharded GAT-ODE
+             (``ring_pallas``, dropout 0.6, ``remat``; B2-w) on the calibrated
+             twin, its losses within ``RESUME_GAT_RTOL`` (its plain per-edge
+             passes add with atomics).  The checkpoint's bytes and each save's
+             and restore's ms.
+  solvers    the Adams family and VCABM through the kernels.  (1)
+             ``pubmed-gcnode`` (B1) trained with rk4, ``implicit_adams``,
+             ``explicit_adams`` and rk4 again, in turns: s/epoch, NFE a
+             forward, test accuracy (each >= 0.65).  (2) One training step of GCN-ODE on ``adams`` and
+             ``adams_scan`` (B1) and of ``pubmed-gatode`` on ``adams_scan``
+             (B3-B5) through the kernels in float32 against the plain path in
+             float64 (``SOLVER_RTOL``, see ``adjoint_step_check``), each solve
+             reaching its end; GCN-ODE's continuous adjoint on
+             ``implicit_adams`` against the plain path and against direct
+             backprop (``SOLVER_ADJ_GAP``); the host reads of one forward per
+             solver attempt.  (3) ``pubmed-gatode`` trained on ``adams_scan``
+             and on ``dopri5_scan``, ``SOLVER_GAT_EPOCHS`` epochs each:
+             s/epoch, test accuracy, host reads a step, peak memory.  (4)
+             ``scipy_solver`` on a float64 card tensor against dopri5
+             (``SCIPY_RTOL``).  (5) ``odeint_checked`` raises on a NaN made on
+             the card.  (6) ``validate_tiling``'s host ms on the full arxiv
+             twin's views.
+
 Then the kernel table (each kernel's launches on its main path, error,
 ms, plain ms, the bound of its work on an H100 and the library call's ms;
 ``adjoint_launches``: B1's in pubmed-gcnode's adjoint step checks, B3-B5's
-in pubmed-gatode's training runs with either adjoint),
+in pubmed-gatode's training runs with either adjoint; ``solver_launches``:
+B1's in the solvers phase's Adams trainings of pubmed-gcnode, B3-B5's in its
+adams_scan training of pubmed-gatode; ``resume_launches``: B2's and B2-w's in
+the resume phase's three runs of each model),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -216,6 +247,9 @@ ADJ_RTOL, ADJ_F32 = 1e-3, 4.0
 # The kernels each model's adjoint backward must launch.
 ADJ_KERNELS = {"gcnode": ("csr_reduce_kernel",),
                "gatode": ("gat_fwd_kernel", "gat_bwd_kernel", "gat_dwh_kernel")}
+# ... and the backward of direct backprop through the steps.
+BACKPROP_KERNELS = {"gcnode": ("csr_reduce_kernel",),
+                    "gatode": ("gat_bwd_kernel", "gat_dwh_kernel")}
 # (2) pubmed-gatode's epochs in the default run, cut from its 300 to keep the
 # phase near a minute (on an H100 80GB HBM3 at 700 W, 40 epochs took
 # 0.11-0.16 s each and reached test accuracy 0.845-0.850 with every adjoint);
@@ -225,6 +259,28 @@ ADJ_KERNELS = {"gcnode": ("csr_reduce_kernel",),
 ADJ_EPOCHS = 100
 ADJ_MIN_TEST_ACC, ADJ_FULL_MIN_TEST_ACC = 0.40, 0.80
 ADJOINTS = (True, "checkpoint")
+# The solvers phase.  (1) pubmed-gcnode trained with each fixed-grid method (each
+# must reach MIN_TEST_ACC).  (2) One step of GCN-ODE on adams and adams_scan and of
+# GAT-ODE on adams_scan through the kernels in float32 against the plain path in
+# float64 at SOLVER_RTOL (atol SOLVER_RTOL of each gradient's largest entry plus
+# ADJ_F32 times the plain float32 path's own error), VCABM_STEPS attempts an
+# interval; GCN-ODE's continuous adjoint on implicit_adams within SOLVER_ADJ_GAP of
+# direct backprop (of each gradient's largest entry).  (3) pubmed-gatode trained
+# SOLVER_GAT_EPOCHS epochs on adams_scan and on dopri5_scan.  (4) scipy_solver on a
+# card tensor against dopri5, both at rtol 1e-10, within SCIPY_RTOL.
+SOLVER_TRAIN_METHODS = ("rk4", "implicit_adams", "explicit_adams", "rk4")  # in turns
+SOLVER_RTOL = 1e-5
+VCABM_STEPS = 32  # the GAT-ODE recipe's attempt budget
+SOLVER_ADJ_GAP = 1e-3
+SOLVER_GAT_EPOCHS = 40
+SCIPY_DIM, SCIPY_RTOL = 256, 1e-8
+VALIDATE_REPEATS = 3
+# The resume phase: epochs before the stop and in all.  Config 4 must resume bit
+# for bit (B2 merges split rows in a fixed order); the sharded GAT-ODE's plain
+# per-edge passes add with atomics, so its losses are held to RESUME_GAT_RTOL.
+RESUME_EPOCHS = (4, 8)
+RESUME_GAT_EPOCHS = (2, 4)
+RESUME_GAT_RTOL = 1e-6
 
 
 def emit(phase, **fields):
@@ -1637,15 +1693,18 @@ class plain_calls:
             setattr(mod, name, fn)
 
 
-def adjoint_step_check(cfg, data, adjoint, dev, seed=0):
+def adjoint_step_check(cfg, data, adjoint, dev, seed=0, rtol=ADJ_RTOL):
     """One training step of ``cfg``'s model on ``data`` (feature dropout 0; GAT-ODE keeps
     its encoder's hash attention dropout, seeded alike) with ``adjoint``:
     through the kernels in float32, its backward profiled, against the same
     adjoint through the plain segment path in float64 with the sums in a
     fixed order (``fixed_order_sums``: GCN-ODE's encoder has a ReLU), at
-    ``ADJ_RTOL``; and the gap of each gradient to direct backprop through the
-    kernels, as a number.  Raises unless the backward launched the model's
-    kernels (``ADJ_KERNELS``) and called no plain version."""
+    ``rtol`` (atol ``rtol`` of each gradient's largest entry plus ``ADJ_F32``
+    times the plain float32 path's own error on it); and the gap of each
+    gradient to direct backprop through the kernels, as a number.  Raises
+    unless the backward launched the model's kernels (``ADJ_KERNELS``; with
+    ``adjoint`` False, direct backprop, ``BACKPROP_KERNELS``) and called no
+    plain version."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1680,7 +1739,8 @@ def adjoint_step_check(cfg, data, adjoint, dev, seed=0):
         launched = {k: v - before[k] for k, v in _kernel_counts().items() if v > before[k]}
     kernel_grads = grads(model)
     seen = sorted({e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
-    missing = [k for k in ADJ_KERNELS[name] if not any(k in s for s in seen)]
+    missing = [k for k in (ADJ_KERNELS if adjoint else BACKPROP_KERNELS)[name]
+               if not any(k in s for s in seen)]
     if missing or plain.count:
         raise AssertionError(f"adjoint {name} {adjoint!r}: backward launched no {missing}, "
                              f"{plain.count} plain-version calls; kernels {seen}")
@@ -1692,22 +1752,25 @@ def adjoint_step_check(cfg, data, adjoint, dev, seed=0):
         with fixed_order_sums(warn_only=True):
             plain_loss = forward(plain_model, data.graph, data.features.to(dtype))
             plain_loss.backward()
-        plain[dtype] = plain_loss.double(), grads(plain_model)
+        plain[dtype] = plain_loss.detach().double(), grads(plain_model)
     (want_loss, want), (_, f32) = plain[torch.float64], plain[torch.float32]
-    err = {"loss": float((loss.double() - want_loss).abs() / want_loss.abs())}
+    err = {"loss": float((loss.detach().double() - want_loss).abs() / want_loss.abs())}
     f32_err = {k: float((f32[k] - g).abs().max() / g.abs().max()) for k, g in want.items()}
     for k, g in want.items():
-        atol = ADJ_RTOL * float(g.abs().max()) + ADJ_F32 * float((f32[k] - g).abs().max())
-        err[k] = float(((kernel_grads[k] - g).abs() / (atol + ADJ_RTOL * g.abs())).max())
-        torch.testing.assert_close(kernel_grads[k], g, rtol=ADJ_RTOL, atol=atol, msg=lambda m, k=k: (
-            f"adjoint {name} {adjoint!r} {k}: {err[k]} of the tolerance\n{m}"))
+        atol = rtol * float(g.abs().max()) + ADJ_F32 * float((f32[k] - g).abs().max())
+        err[k] = float(((kernel_grads[k] - g).abs() / (atol + rtol * g.abs())).max())
+        torch.testing.assert_close(kernel_grads[k], g, rtol=rtol, atol=atol, msg=lambda m, k=k: (
+            f"{cfg.method} {name} adjoint {adjoint!r} {k}: {err[k]} of the tolerance\n{m}"))
 
-    model.odeblock.adjoint = False
-    forward(model, csr, data.features).backward()
-    direct = grads(model)
-    gap = {k: float((g - direct[k]).abs().max() / direct[k].abs().max())
-           for k, g in kernel_grads.items()}
-    return dict(model=name, adjoint=adjoint, rtol=ADJ_RTOL, f32_factor=ADJ_F32, err_over_tol=err,
+    gap = None
+    if adjoint:
+        model.odeblock.adjoint = False
+        forward(model, csr, data.features).backward()
+        direct = grads(model)
+        gap = {k: float((g - direct[k]).abs().max() / direct[k].abs().max())
+               for k, g in kernel_grads.items()}
+    return dict(model=name, method=cfg.method, adjoint=adjoint, rtol=rtol, f32_factor=ADJ_F32,
+                err_over_tol=err,
                 max_err_over_tol=max(v for k, v in err.items() if k != "loss"),
                 plain_f32_rel_err=f32_err,
                 backward_launches=launched, backward_device_kernels=len(seen),
@@ -1865,6 +1928,238 @@ def phase_adjoint(dev, data, epochs=ADJ_EPOCHS):
     return dict(checks=checks, runs=runs)
 
 
+def _zero_kernel_counts():
+    from graph_odenet_tpu_torch.ops import csr_spmm, gat_attn
+
+    csr_spmm.launches = csr_spmm.weighted_launches = 0
+    csr_spmm.bucket_launches = csr_spmm.bucket_weighted_launches = 0
+    for k in gat_attn.launches:
+        gat_attn.launches[k] = 0
+
+
+def reads_per_attempt(cfg, data, dev):
+    """One forward of ``cfg``'s model on the card: its host reads and its
+    solver's attempts (accepted and rejected steps)."""
+    from graph_odenet_tpu_torch.ops import prepare
+    from graph_odenet_tpu_torch.train import build_model
+
+    model = build_model(cfg, data.n_class, data.features.shape[1]).to(dev).eval()
+    csr = prepare(data.graph).to(dev)
+    with torch.no_grad():
+        reads = host_syncs(lambda: model(csr, data.features))
+    stats = dict(model.odeblock.stats)
+    attempts = stats["n_accept"] + stats["n_reject"]
+    return dict(host_reads=reads, attempts=attempts, host_reads_per_attempt=reads / attempts,
+                stats=stats)
+
+
+def phase_solvers(dev, data, arxiv_graph):
+    """The Adams family, VCABM, ``scipy_solver`` and the sanitizers on the card
+    (see the module doc).  Returns the kernels' launches on the Adams trainings."""
+    from graph_odenet_tpu_torch.configs import get_config
+    from graph_odenet_tpu_torch.ode import odeint
+    from graph_odenet_tpu_torch.ops import prepare
+    from graph_odenet_tpu_torch.train import fit_node_classifier
+    from graph_odenet_tpu_torch.utils import odeint_checked, validate_tiling
+
+    _, gcn = get_config("pubmed-gcnode")
+    _, gat = get_config("pubmed-gatode")
+    launches = {}
+
+    def count(run):
+        """``run()`` with every kernel count from 0; the counts it left."""
+        _zero_kernel_counts()
+        out = run()
+        for k, v in _kernel_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    # (1) pubmed-gcnode trained with each fixed-grid method (B1), in turns.
+    trained = []
+    for method in SOLVER_TRAIN_METHODS:
+        run = lambda: fit_node_classifier(dataclasses.replace(gcn, method=method), data,  # noqa: E731
+                                          device=dev)
+        res = count(run) if method != "rk4" else run()
+        epochs = res["epochs_run"]
+        if res["representation"] != "kernel" or not res["best"]["test_acc"] >= MIN_TEST_ACC:
+            raise AssertionError(f"pubmed-gcnode {method}: {res['representation']}, test "
+                                 f"accuracy {res['best']['test_acc']} < {MIN_TEST_ACC}")
+        trained.append(dict(method=method, epochs=epochs, seconds_per_epoch=res["seconds"] / epochs,
+                            test_acc=res["best"]["test_acc"], best_epoch=res["best"]["epoch"],
+                            nfe_per_forward=res["ode_stats"]["nfe"]))
+    # Each epoch aggregates the encoder's, every dynamics evaluation's and the
+    # readout's input forward, backward and in evaluation.
+    if launches.get("csr", 0) < sum(3 * (t["nfe_per_forward"] + 2) * t["epochs"]
+                                    for t in trained if t["method"] != "rk4"):
+        raise AssertionError(f"{launches} kernel launches on the Adams trainings {trained}")
+
+    # (2) One step of each model and VCABM form through the kernels against the
+    # plain path in float64; the continuous adjoint on implicit_adams.
+    checks = [adjoint_step_check(dataclasses.replace(gcn, method=m, steps=VCABM_STEPS), data,
+                                 False, dev, rtol=SOLVER_RTOL) for m in ("adams", "adams_scan")]
+    checks.append(adjoint_step_check(dataclasses.replace(gat, method="adams_scan"), data, False,
+                                     dev, rtol=SOLVER_RTOL))
+    for c in checks:
+        if not c["forward_stats"]["success"]:
+            raise AssertionError(f"{c['model']} {c['method']}: the solve stopped short: "
+                                 f"{c['forward_stats']}")
+    adj = adjoint_step_check(dataclasses.replace(gcn, method="implicit_adams"), data, True, dev)
+    if max(adj["rel_gap_to_direct_backprop"].values()) > SOLVER_ADJ_GAP:
+        raise AssertionError(f"implicit_adams continuous adjoint against direct backprop: "
+                             f"{adj['rel_gap_to_direct_backprop']}")
+    reads = {f"gcnode {m}": reads_per_attempt(dataclasses.replace(gcn, method=m,
+                                                                  steps=VCABM_STEPS), data, dev)
+             for m in ("adams", "adams_scan", "dopri5_scan")}
+
+    # (3) pubmed-gatode trained on adams_scan (B3-B5) beside dopri5_scan.
+    gat_runs = {}
+    for method in ("adams_scan", "dopri5_scan"):
+        cfg = dataclasses.replace(gat, method=method, epochs=SOLVER_GAT_EPOCHS)
+        run = lambda: train_with_adjoint(cfg, data, False, dev)  # noqa: E731
+        r = count(run) if method == "adams_scan" else run()
+        if not (r["loss_last5"] < r["loss_first"] and r["test_acc"] >= ADJ_MIN_TEST_ACC):
+            raise AssertionError(f"pubmed-gatode {method}: loss {r['loss_first']} -> "
+                                 f"{r['loss_last5']}, test accuracy {r['test_acc']}")
+        gat_runs[method] = r
+    if min(launches.get(k, 0) for k in ("gat_fwd", "gat_bwd", "gat_dwh")) == 0:
+        raise AssertionError(f"pubmed-gatode adams_scan: kernel launches {launches}")
+
+    # (4) scipy_solver on a card tensor against dopri5.
+    gen = torch.Generator().manual_seed(0)
+    a = (torch.randn(SCIPY_DIM, SCIPY_DIM, generator=gen, dtype=torch.float64)
+         / SCIPY_DIM ** 0.5).to(dev)
+    y0 = torch.randn(SCIPY_DIM, generator=gen, dtype=torch.float64).to(dev)
+    ts = torch.linspace(0.0, 1.0, 5, dtype=torch.float64, device=dev)
+
+    def field(t, y):
+        return torch.tanh(a @ y) - 0.5 * y + 0.1 * torch.sin(t)
+
+    t0 = time.perf_counter()
+    ys_scipy = odeint(field, y0, ts, method="scipy_solver", rtol=1e-10, atol=1e-12)
+    scipy_ms = (time.perf_counter() - t0) * 1e3
+    ys_dopri, dopri = odeint(field, y0, ts, method="dopri5", rtol=1e-10, atol=1e-12,
+                             return_stats=True)
+    if ys_scipy.device != y0.device or ys_scipy.dtype != y0.dtype:
+        raise AssertionError(f"scipy_solver returned {ys_scipy.dtype} on {ys_scipy.device}")
+    torch.testing.assert_close(ys_scipy, ys_dopri, rtol=SCIPY_RTOL, atol=SCIPY_RTOL)
+
+    # (5) A NaN made on the card is caught.
+    try:
+        odeint_checked(lambda t, y: -y + torch.where(t > 0.5, torch.nan, 0.0),
+                       torch.ones(1000, device=dev), torch.linspace(0.0, 1.0, 5, device=dev),
+                       method="rk4")
+    except RuntimeError as e:
+        nan_message = str(e)
+    else:
+        raise AssertionError("odeint_checked let a NaN made on the card through")
+
+    # (6) validate_tiling on the full arxiv twin (host views, as prepare runs it).
+    t0 = time.perf_counter()
+    csr = prepare(arxiv_graph)
+    prepare_ms = (time.perf_counter() - t0) * 1e3
+    validate_ms = []
+    for _ in range(VALIDATE_REPEATS):
+        t0 = time.perf_counter()
+        validate_tiling(csr)
+        validate_ms.append((time.perf_counter() - t0) * 1e3)
+
+    emit("solvers", pubmed_gcnode=trained, step_checks=checks, implicit_adams_adjoint=adj,
+         reads_per_attempt=reads, pubmed_gatode=gat_runs,
+         scipy=dict(dim=SCIPY_DIM, ms=scipy_ms, rtol=SCIPY_RTOL,
+                    max_abs_diff=float((ys_scipy - ys_dopri).abs().max()), dopri5_stats=dopri),
+         odeint_checked_nan=nan_message,
+         validate_tiling=dict(n_edge=csr.n_edge, host_ms=validate_ms, prepare_ms=prepare_ms),
+         launches=launches)
+    return launches
+
+
+def _resume_run(cfg, data, dev, first, total):
+    """``total`` epochs straight; then ``first`` epochs saving every epoch, the
+    live state dropped, and a fresh call resuming to ``total``.  The losses of
+    both, the checkpoint's bytes and each save's and restore's ms."""
+    import gc
+
+    from graph_odenet_tpu_torch.parallel import fit_sharded_node_classifier
+    from graph_odenet_tpu_torch.utils.checkpoint import Checkpointer
+
+    straight = fit_sharded_node_classifier(dataclasses.replace(cfg, epochs=total), data,
+                                           device=dev)["losses"]
+    ms = {"save": [], "restore": []}
+    real = {k: getattr(Checkpointer, k) for k in ms}
+
+    def timed_call(name):
+        def call(self, *args, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = real[name](self, *args, **kw)
+            torch.cuda.synchronize(dev)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        kw = dict(ckpt_dir=tmp, ckpt_every=1)
+        for k in ms:
+            setattr(Checkpointer, k, timed_call(k))
+        try:
+            res = fit_sharded_node_classifier(dataclasses.replace(cfg, epochs=first, **kw), data,
+                                              device=dev)
+            losses_first = res["losses"]
+            del res  # the failure: nothing is kept but the directory
+            gc.collect()
+            torch.cuda.empty_cache()
+            resumed = fit_sharded_node_classifier(dataclasses.replace(cfg, epochs=total, **kw),
+                                                  data, device=dev)
+        finally:
+            for k, f in real.items():
+                setattr(Checkpointer, k, f)
+        ckpt = Checkpointer(tmp)
+        n_bytes = os.path.getsize(ckpt._path(ckpt.latest_step()))
+    return dict(epochs=(first, total), straight=straight, first=losses_first,
+                resumed=resumed["losses"], epochs_run=resumed["epochs_run"],
+                checkpoint_bytes=n_bytes, save_ms=ms["save"], restore_ms=ms["restore"])
+
+
+def phase_resume(dev, arxiv, arxiv_cal):
+    """Config 4 and the sharded GAT-ODE stopped and resumed from a checkpoint
+    (see the module doc)."""
+    from graph_odenet_tpu_torch.configs import get_config, sharded_train_config
+    from graph_odenet_tpu_torch.parallel import ShardedTrainConfig
+
+    launches = {}
+
+    def counted(kernel, *args):
+        """``_resume_run(*args)`` with every kernel count from 0; fails unless
+        ``kernel`` launched."""
+        _zero_kernel_counts()
+        out = _resume_run(*args)
+        launches[kernel] = _kernel_counts()[kernel]
+        if not launches[kernel]:
+            raise AssertionError(f"the resume path launched no {kernel} kernel")
+        return out
+
+    config4 = counted("bucket", sharded_train_config(get_config(4)[1]), arxiv, dev,
+                      *RESUME_EPOCHS)
+    n = RESUME_EPOCHS[0]
+    if config4["first"] != config4["straight"][:n] or config4["resumed"] != config4["straight"][n:]:
+        raise AssertionError(f"config 4: the resumed run is not the uninterrupted one: {config4}")
+    gat = counted("bucket_weighted", ShardedTrainConfig(
+        model="gatode", hidden=GAT_HIDDEN, heads=GAT_HEADS, steps=GAT_STEPS, dropout=0.6,
+        lr=0.01, weight_decay=5e-4, mode="ring_pallas", remat=True), arxiv_cal, dev,
+        *RESUME_GAT_EPOCHS)
+    n = RESUME_GAT_EPOCHS[0]
+    np.testing.assert_allclose(gat["first"] + gat["resumed"], gat["straight"],
+                               rtol=RESUME_GAT_RTOL, atol=0,
+                               err_msg="the sharded GAT-ODE's resumed run")
+    if gat["epochs_run"] != RESUME_GAT_EPOCHS[1] or len(gat["resumed"]) != RESUME_GAT_EPOCHS[1] - n:
+        raise AssertionError(f"the sharded GAT-ODE resumed at the wrong epoch: {gat}")
+    emit("resume", config4=dict(config4, bit_equal=True), sharded_gatode=dict(
+        gat, rtol=RESUME_GAT_RTOL, max_rel_diff=float(max(
+            abs(a - b) / abs(b) for a, b in zip(gat["first"] + gat["resumed"], gat["straight"])))),
+        launches=launches)
+    return launches
+
+
 def _sparse_csr_pair(csr):
     """Â and Âᵀ of a ``CSRGraph`` as torch CSR tensors (cuSPARSE's operands)."""
     n = csr.n_node_pad
@@ -1949,13 +2244,15 @@ def main():
         ("bench", bench_row, 128), ("pubmed-twin", data.graph, 16),
         ("arxiv-twin", arxiv.graph, ARXIV_HIDDEN),
     ])
-    del arxiv
     arxiv_cal = synthetic_ogbn_arxiv(seed=0, calibrated=True)  # the sharded GAT-ODE's twin
     weighted_buckets = timed("bucket_weighted", phase_bucket_weighted, dev, arxiv_cal.graph)
     gat_bucket_launches = timed("config4_gat", phase_config4_gat, dev, arxiv_cal)
+    resume_launches = timed("resume", phase_resume, dev, arxiv, arxiv_cal)
     del arxiv_cal
     timed("physics", phase_physics, dev, args.physics_epochs)
     adj = timed("adjoint", phase_adjoint, dev, data, args.adjoint_epochs)
+    solver_launches = timed("solvers", phase_solvers, dev, data, arxiv.graph)
+    del arxiv
     # Launches on the adjoint's paths: B1 in pubmed-gcnode's adjoint backward
     # steps, B3-B5 in pubmed-gatode's training runs with either adjoint.
     adjoint_launches = {k: sum(r["kernel_launches"].get(k, 0) for r in adj["runs"].values()
@@ -2034,6 +2331,7 @@ def main():
             "library_ms": library["pubmed-twin"]["ms"],
             "shape": "Pubmed twin, F=16, fwd+bwd",
             "adjoint_launches": adjoint_launches["csr"],
+            "solver_launches": solver_launches.get("csr", 0),
             "bare_ms": main_row["bare_ms"], "library_bare_ms": main_row["library_bare_ms"],
             "host_us": {k: c["host_us"] for k, c in main_row["call_costs"].items()},
             "device_launches_per_call": max(
@@ -2056,6 +2354,7 @@ def main():
             "bound_by": buckets[1]["bound_by"],
             "library_ms": buckets[1]["library_ms"],
             "shape": f"arxiv twin, P=1 (config 4 on one card), F={ARXIV_HIDDEN}, fwd+bwd",
+            "resume_launches": resume_launches["bucket"],
             "host_us_P8": {k: c["host_us"] for k, c in buckets[8]["call_costs"].items()},
             "device_launches_per_call": max(
                 c["launches_per_call"] for r in buckets.values() for c in r["call_costs"].values()),
@@ -2080,6 +2379,7 @@ def main():
             "library_ms": dyn_row["library_ms"],
             "shape": "calibrated arxiv twin, P=1, H=1, F=256 (the dynamics' layers, 16 of the "
                      "18 of a forward), fwd+bwd",
+            "resume_launches": resume_launches["bucket_weighted"],
             "other_shapes": {f"H={h},F={f}": {k: weighted_buckets[h, f][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dpv_plain_ms")}
                 for h, f in GAT_SHAPES},
@@ -2087,7 +2387,8 @@ def main():
         att_entry("csr_spmm_weighted", spmm_src, "graph_odenet_tpu/ops/pallas_spmm.py:479",
                   mask_row, weighted),
         *(dict(att_entry(k, gat_src, replaces, cite_row, gat_launches[k], costs=True),
-               adjoint_launches=adjoint_launches[k]) for k, replaces in (
+               adjoint_launches=adjoint_launches[k],
+               solver_launches=solver_launches.get(k, 0)) for k, replaces in (
             ("gat_fwd", "graph_odenet_tpu/ops/pallas_gat.py:206"),
             ("gat_bwd", "graph_odenet_tpu/ops/pallas_gat.py:890"),
             ("gat_dwh", "graph_odenet_tpu/ops/pallas_spmm.py:736"))),

@@ -14,8 +14,10 @@ This package imports neither JAX nor the JAX package.
                    fused kernels), the counter-hash attention dropout.
   ode              odeint with the fixed-grid and adaptive Runge-Kutta
                    solvers (dopri5 and kin, each with a ``_scan`` form),
-                   batched over independent problems with ``batch_dims=1``;
-                   odeint_adjoint, the continuous and checkpointed adjoints.
+                   batched over independent problems with ``batch_dims=1``,
+                   the fixed-grid and variable-order Adams methods and
+                   ``scipy_solver``; odeint_adjoint, the continuous and
+                   checkpointed adjoints.
   models           GCN, ResGCN, GAT, ResGAT, ODEBlock, GCN-ODE, GAT-ODE,
                    the interaction network and IN-ODE.
   data             Planetoid and OGBN-arxiv loaders and twins, spring n-body.
@@ -23,10 +25,12 @@ This package imports neither JAX nor the JAX package.
   parallel         The edge-partitioned tier (config 4).
   configs          Named configs 0–4 and extras, and ``run_config``.
   convert          Flax parameter trees to torch ``state_dict``s.
-  utils            Device choice, metrics, logging, plots (matplotlib, lazily).
+  utils            Device choice, metrics, logging, plots (matplotlib, lazily),
+                   checkpoints, sanitizers (validate_tiling, odeint_checked),
+                   profiling.
 """
 
 __version__ = "0.1.0"
 
 from graph_odenet_tpu_torch.graph import Graph  # noqa: F401
-from graph_odenet_tpu_torch.ode.api import odeint, odeint_adjoint  # noqa: F401
+from graph_odenet_tpu_torch.ode.api import SOLVERS, odeint, odeint_adjoint  # noqa: F401

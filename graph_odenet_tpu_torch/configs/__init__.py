@@ -21,7 +21,10 @@ import dataclasses
 from graph_odenet_tpu_torch.train.node_classification import NodeClassConfig
 from graph_odenet_tpu_torch.train.physics import PhysicsConfig
 
-__all__ = ["get_config", "run_config", "CONFIG_NAMES", "EXTRA_CONFIGS", "ShardedConfig"]
+__all__ = [
+    "get_config", "run_config", "sharded_train_config", "CONFIG_NAMES", "EXTRA_CONFIGS",
+    "ShardedConfig",
+]
 
 CONFIG_NAMES = {
     0: "cora-gcn-discrete",
@@ -85,7 +88,7 @@ class ShardedConfig:
     mode: str = "ring"    # halo exchange flavour
     dropout: float = 0.5  # feature dropout
     n_parts: int = 8      # at most; the process group's size bounds it
-    ckpt_dir: str | None = None  # ROADMAP A17
+    ckpt_dir: str | None = None
 
 
 def get_config(i):
@@ -127,6 +130,7 @@ def run_config(
     seed: int | None = None,
     rollout: int = 0,
     device="cuda",
+    ckpt_dir: str | None = None,
 ):
     """Run config ``i`` (index or name) end to end on ``device``.
 
@@ -137,6 +141,9 @@ def run_config(
     overrides the config seed (config 4 has none, as in the JAX package).
     Config 4 runs over ``min(8, ranks)`` parts: one process, one part,
     without a process group.
+
+    ``ckpt_dir`` (config 4) replaces the config's checkpoint directory: the
+    run saves there and, when it holds a step, resumes after it.
 
     Config 3 (physics): ``scale`` cuts the simulations and their steps (at
     least 8 and 20); ``rollout > 0`` runs the full deliverable, the discrete
@@ -149,6 +156,8 @@ def run_config(
     if seed is not None and hasattr(cfg, "seed"):
         cfg = dataclasses.replace(cfg, seed=seed)
     if kind == "sharded":
+        if ckpt_dir is not None:
+            cfg = dataclasses.replace(cfg, ckpt_dir=ckpt_dir)
         return _run_sharded(cfg_name, cfg, scale, data_path, calibrated, device)
     if kind == "physics":
         return _run_physics(cfg_name, cfg, scale, rollout, device)
@@ -188,22 +197,28 @@ def _run_physics(cfg_name, cfg, scale, rollout, device):
     )
 
 
-def _run_sharded(cfg_name, cfg: ShardedConfig, scale, data_path, calibrated, device):
-    from graph_odenet_tpu_torch.data.ogbn import load_ogbn_arxiv, synthetic_ogbn_arxiv
-    from graph_odenet_tpu_torch.parallel import (
-        ShardedTrainConfig, fit_sharded_node_classifier, world,
-    )
+def sharded_train_config(cfg: ShardedConfig):
+    """The trainer's ``ShardedTrainConfig`` of config 4's ``cfg``, over
+    ``min(cfg.n_parts, ranks)`` parts."""
+    from graph_odenet_tpu_torch.parallel import ShardedTrainConfig, world
 
-    data = (
-        load_ogbn_arxiv(data_path) if data_path
-        else synthetic_ogbn_arxiv(seed=0, scale=scale, calibrated=calibrated)
-    )
-    tcfg = ShardedTrainConfig(
+    return ShardedTrainConfig(
         model=cfg.model, hidden=cfg.hidden, steps=cfg.steps, t1=cfg.t1, lr=cfg.lr,
         weight_decay=cfg.weight_decay, epochs=cfg.epochs, patience=cfg.patience,
         mode=cfg.mode, dropout=cfg.dropout, n_parts=min(cfg.n_parts, world()[0]),
         ckpt_dir=cfg.ckpt_dir,
     )
-    res = fit_sharded_node_classifier(tcfg, data, device=device)
-    res.pop("params")
+
+
+def _run_sharded(cfg_name, cfg: ShardedConfig, scale, data_path, calibrated, device):
+    from graph_odenet_tpu_torch.data.ogbn import load_ogbn_arxiv, synthetic_ogbn_arxiv
+    from graph_odenet_tpu_torch.parallel import fit_sharded_node_classifier
+
+    data = (
+        load_ogbn_arxiv(data_path) if data_path
+        else synthetic_ogbn_arxiv(seed=0, scale=scale, calibrated=calibrated)
+    )
+    res = fit_sharded_node_classifier(sharded_train_config(cfg), data, device=device)
+    for key in ("params", "losses"):  # the result keeps JAX's keys
+        res.pop(key)
     return dict(config=cfg_name, dataset=data.name, **res)

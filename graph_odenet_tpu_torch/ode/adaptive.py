@@ -36,7 +36,10 @@ import torch
 
 from graph_odenet_tpu_torch.ode.tableaus import DOPRI5, Tableau, rk_step
 
-__all__ = ["odeint_adaptive", "odeint_adaptive_scan", "odeint_adaptive_ckpt"]
+__all__ = [
+    "odeint_adaptive", "odeint_adaptive_scan", "odeint_adaptive_ckpt", "odeint_dopri5",
+    "odeint_dopri5_scan",
+]
 
 # dopri5.f controller constants.
 _SAFETY = 0.9
@@ -477,3 +480,13 @@ def odeint_adaptive_ckpt(
         return _integrate_ckpt_batched(func, y0, ts, tab, rtol, atol, trace_per_interval,
                                        first_step)
     raise ValueError(f"batch_dims must be 0 or 1, got {batch_dims!r}")
+
+
+def odeint_dopri5(func, y0, ts, **kw):
+    """JAX's alias: ``odeint_adaptive`` with DOPRI5."""
+    return odeint_adaptive(func, y0, ts, tab=DOPRI5, **kw)
+
+
+def odeint_dopri5_scan(func, y0, ts, **kw):
+    """JAX's alias: ``odeint_adaptive_scan`` with DOPRI5."""
+    return odeint_adaptive_scan(func, y0, ts, tab=DOPRI5, **kw)

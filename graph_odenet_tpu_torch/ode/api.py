@@ -6,11 +6,14 @@ the solution at every requested time (``ys[0] == y0``).  ``y0`` is one
 tensor; the solvers work on it elementwise and take the error norm over all
 of it, as JAX does over the ravelled state.
 
-Methods: the fixed-grid tableaus, the adaptive ones (``dopri5``,
-``dopri8``, ``bosh3``, ``adaptive_heun``, ``fehlberg2``) and their
-``_scan`` forms.  All are differentiable by autograd through the steps.
-The Adams family and ``scipy_solver`` raise ``NotImplementedError`` naming
-their ROADMAP item (A14).
+Methods (``SOLVERS``, JAX's names): the fixed-grid tableaus; the fixed-grid
+Adams methods ``explicit_adams`` (AB4), ``implicit_adams`` and its alias
+``fixed_adams`` (ABM4, ``ode/adams.py``); the adaptive tableaus
+(``dopri5``, ``dopri8``, ``bosh3``, ``adaptive_heun``, ``fehlberg2``) and
+their ``_scan`` forms; the variable-order Adams ``adams`` and ``adams_scan``
+(``ode/vcabm.py``).  All are differentiable by autograd through the steps.
+``scipy_solver`` is ``scipy.integrate.solve_ivp`` on the host in float64,
+forward only, as JAX's ``pure_callback`` is: a backward through it raises.
 
 ``odeint_adjoint`` takes its gradient with the continuous adjoint or the
 checkpointed-forward adjoint instead (``ode/adjoint.py``).
@@ -22,7 +25,7 @@ from typing import Callable
 
 import torch
 
-from graph_odenet_tpu_torch.ode import adaptive, fixed, tableaus
+from graph_odenet_tpu_torch.ode import adams, adaptive, fixed, tableaus, vcabm
 
 __all__ = ["odeint", "odeint_adjoint", "SOLVERS"]
 
@@ -43,13 +46,45 @@ _ADAPTIVE = {
     "adaptive_heun": tableaus.HEUN12,
     "fehlberg2": tableaus.FEHLBERG2,
 }
-_NOT_PORTED = {
-    m: "A14" for m in (
-        "explicit_adams", "implicit_adams", "fixed_adams", "adams", "adams_scan", "scipy_solver",
-    )
-}
+# Fixed-grid multistep: torchdiffeq's explicit_adams / implicit_adams, and
+# "fixed_adams", its alias for the ABM predictor-corrector.
+_ADAMS = {"explicit_adams": False, "implicit_adams": True, "fixed_adams": True}
 
-SOLVERS = tuple(_FIXED) + tuple(_ADAPTIVE) + tuple(f"{m}_scan" for m in _ADAPTIVE)
+SOLVERS = tuple(_FIXED) + tuple(_ADAMS) + tuple(_ADAPTIVE) + tuple(
+    f"{m}_scan" for m in _ADAPTIVE
+) + ("adams", "adams_scan", "scipy_solver")
+# No JAX configuration vmaps these: each keeps one controller for the state.
+_UNBATCHED = ("adams", "adams_scan", "scipy_solver")
+
+
+class _ScipySolve(torch.autograd.Function):
+    """``solve_ivp`` on the host: forward only, as JAX's ``pure_callback``,
+    which has no JVP.  ``y0`` and ``args`` are inputs so that a backward that
+    reaches the solve raises instead of silently returning nothing."""
+
+    @staticmethod
+    def forward(ctx, func, ts, opts, y0, *args):
+        import numpy as np
+        from scipy.integrate import solve_ivp
+
+        def rhs(t, y):
+            y_dev = torch.as_tensor(y, dtype=y0.dtype, device=y0.device).view(y0.shape)
+            t_dev = torch.as_tensor(t, dtype=y0.dtype, device=y0.device)
+            return func(t_dev, y_dev, *args).detach().reshape(-1).cpu().numpy().astype(np.float64)
+
+        ts64 = ts.detach().cpu().numpy().astype(np.float64)
+        sol = solve_ivp(rhs, (ts64[0], ts64[-1]), y0.detach().reshape(-1).cpu().numpy()
+                        .astype(np.float64), t_eval=ts64, **opts)
+        if not sol.success:
+            raise RuntimeError(f"scipy solve_ivp failed: {sol.message}")
+        ys = torch.from_numpy(np.ascontiguousarray(sol.y.T))
+        return ys.to(dtype=y0.dtype, device=y0.device).view((ts64.shape[0],) + y0.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError(
+            "scipy_solver is forward only (a host solve, like JAX's pure_callback, which has "
+            "no JVP): take gradients with another method or with odeint_adjoint")
 
 
 def odeint(
@@ -65,29 +100,38 @@ def odeint(
     max_steps_per_interval: int = 64,
     first_step: float | None = None,
     return_stats: bool = False,
+    scipy_method: str = "RK45",
+    max_order: int = 12,
     batch_dims: int = 0,
 ):
     """Integrate ``dy/dt = func(t, y, *args)`` over the monotonic times ``ts``.
 
     ``ts`` may be a list or a tensor.  Returns ``ys [T, *y0.shape]`` (and a
     stats dict when ``return_stats=True``: ``{nfe}`` for the fixed-grid
-    methods, ``{nfe, n_accept, n_reject, success, t_reached}`` for the
-    adaptive ones).
+    methods, fixed Adams included, ``{nfe, n_accept, n_reject, success,
+    t_reached}`` for the adaptive ones, ``final_order`` too for ``adams``
+    and ``adams_scan``, and ``{nfe: -1}`` for ``scipy_solver``).
+    ``max_order`` bounds ``adams``' order (at most 12); ``scipy_method`` is
+    ``solve_ivp``'s ``method``.
 
     ``batch_dims=1`` integrates each ``y0[b]`` as its own problem, as
     ``jax.vmap`` over ``odeint`` does: the adaptive methods keep a step size,
     error ratio, accept mask and stats per sample (stats are ``[B]`` tensors,
     plus ``host_reads``) and call ``func`` with ``t`` of shape ``[B]``; the
-    fixed-grid methods are elementwise and take ``y0`` as it is.
+    fixed-grid methods, fixed Adams included, are elementwise and take
+    ``y0`` as it is.  ``adams``, ``adams_scan`` and ``scipy_solver`` take no
+    batch (``ValueError``).
     """
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP {_NOT_PORTED[method]}); "
-            f"ported: {SOLVERS}"
-        )
     if method not in SOLVERS:
         raise ValueError(f"unknown method {method!r}; choose from {SOLVERS}")
+    if batch_dims and method in _UNBATCHED:
+        raise ValueError(f"method {method!r} takes no batch_dims (one controller for the "
+                         f"whole state); batched methods: the fixed-grid and adaptive RK ones")
     ts = torch.as_tensor(ts, dtype=y0.dtype)
+    if method == "scipy_solver":  # solve_ivp integrates decreasing times itself
+        ys = _ScipySolve.apply(func, ts, dict(method=scipy_method, rtol=rtol, atol=atol),
+                               y0, *args)
+        return (ys, dict(nfe=-1)) if return_stats else ys
 
     def f(t, y):
         return func(t, y, *args)
@@ -107,6 +151,21 @@ def odeint(
             f, _FIXED[method], y0, ts, steps_per_interval=steps_per_interval
         )
         stats = dict(nfe=nfe)
+    elif method in _ADAMS:
+        ys, nfe = adams.odeint_adams(
+            f, y0, ts, steps_per_interval=steps_per_interval, corrector=_ADAMS[method]
+        )
+        stats = dict(nfe=nfe)
+    elif method == "adams":
+        ys, stats = vcabm.odeint_vcabm(
+            f, y0, ts, rtol=rtol, atol=atol, max_order=max_order, max_steps=max_steps,
+            first_step=first_step,
+        )
+    elif method == "adams_scan":
+        ys, stats = vcabm.odeint_vcabm_scan(
+            f, y0, ts, rtol=rtol, atol=atol, max_order=max_order,
+            max_steps_per_interval=max_steps_per_interval, first_step=first_step,
+        )
     elif method in _ADAPTIVE:
         ys, stats = adaptive.odeint_adaptive(
             f, y0, ts, tab=_ADAPTIVE[method], rtol=rtol, atol=atol,
@@ -161,7 +220,7 @@ def _odeint_ckpt_forward(
         )
     raise ValueError(
         f"checkpoint adjoint supports fixed-grid and explicit adaptive methods, not "
-        f"{method!r} (adams and scipy have no step trace)"
+        f"{method!r} (adams/scipy have no step trace)"
     )
 
 

@@ -55,6 +55,7 @@ import torch
 
 from graph_odenet_tpu_torch.graph import Graph
 from graph_odenet_tpu_torch.ops import _build
+from graph_odenet_tpu_torch.utils.sanitize import validate_tiling
 
 __all__ = [
     "CSRGraph", "CSRView", "Partition", "LaunchPlan", "prepare", "csr_view", "csr_reduce",
@@ -284,7 +285,8 @@ def _build_view(dst, src, w, n_pad):
 
 
 def prepare(g: Graph) -> CSRGraph:
-    """Host-side, one-time CSR and CSC build of a Graph (on g's device).
+    """Host-side, one-time CSR and CSC build of a Graph (on g's device),
+    checked by ``utils.sanitize.validate_tiling`` before it leaves the host.
 
     Raises ``ValueError`` unless the Graph's real edges are sorted by
     receiver (``from_edges`` sorts them): per-edge data such as attention
@@ -314,11 +316,13 @@ def prepare(g: Graph) -> CSRGraph:
         n_node_pad=g.n_node_pad,
         n_edge=g.n_edge,
     )
+    validate_tiling(csr)
     return csr.to(g.device)
 
 
 def csr_view(rows, cols, weight, n_rows: int, n_cols: int) -> CSRView:
-    """Host-side build of a ``CSRView`` from a block's real edges (numpy).
+    """Host-side build of a ``CSRView`` from a block's real edges (numpy),
+    checked by ``utils.sanitize.validate_tiling``.
 
     ``rows`` (non-decreasing) and ``cols`` index the output rows and the
     gathered table.
@@ -331,13 +335,15 @@ def csr_view(rows, cols, weight, n_rows: int, n_cols: int) -> CSRView:
                       or cols.max() >= n_cols):
         raise ValueError(f"edge indices outside a [{n_rows}, {n_cols}] block")
     row_ptr, col, w, _ = _build_view(rows, cols, np.asarray(weight, dtype=np.float32), n_rows)
-    return CSRView(
+    view = CSRView(
         row_ptr=torch.from_numpy(row_ptr),
         col=torch.from_numpy(col.astype(np.int32)),
         weight=torch.from_numpy(w.astype(np.float32)),
         part=_partition(row_ptr, skip_empty=True),
         n_cols=int(n_cols),
     )
+    validate_tiling(view)
+    return view
 
 
 def row_ids(row_ptr: torch.Tensor, n_edge: int) -> torch.Tensor:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gather", "segment_sum", "segment_softmax"]
+__all__ = ["gather", "segment_sum", "segment_mean", "segment_max", "segment_softmax"]
 
 
 def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -22,6 +22,23 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     """Sum the rows of ``data`` into ``num_segments`` buckets."""
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
     return out.index_add_(0, segment_ids, data)
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Mean of the rows of ``data`` in each bucket; an empty bucket gives 0."""
+    total = segment_sum(data, segment_ids, num_segments)
+    count = segment_sum(data.new_ones(data.shape[:1]), segment_ids, num_segments)
+    return total / count.clamp_min(1.0).view((-1,) + (1,) * (data.dim() - 1))
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Maximum of the rows of ``data`` in each bucket.  An empty bucket gives
+    the dtype's lowest value (``-inf`` for floats), as ``jax.ops.segment_max``
+    does: the buckets start there, not at 0."""
+    lowest = -torch.inf if data.is_floating_point() else torch.iinfo(data.dtype).min
+    out = data.new_full((num_segments,) + tuple(data.shape[1:]), lowest)
+    idx = segment_ids.long().view((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    return out.scatter_reduce(0, idx, data, "amax")
 
 
 def segment_softmax(

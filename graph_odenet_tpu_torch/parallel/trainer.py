@@ -11,6 +11,15 @@ step it all-reduces the parameter gradients once (SUM, before Adam) and
 the loss once; the evaluation sums once, so every rank reports the same
 numbers and stops at the same epoch.  With one part there is no
 collective.
+
+Fault tolerance, as in JAX: with ``ckpt_dir`` set, the parameters, the Adam
+state and the epoch are saved every ``ckpt_every`` epochs and at the last
+(``utils.checkpoint.Checkpointer``), and a new call with the same directory
+resumes at the epoch after the latest save.  Rank 0 writes; every rank
+restores, after a barrier.  JAX derives each epoch's dropout key from the
+epoch; the port draws dropout from two stateful generators (the feature
+masks' on the device, the attention-dropout seeds' on the host), so their
+states are saved too, and a resumed run is the same run.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from graph_odenet_tpu_torch.data.planetoid import NodeClassificationData
 from graph_odenet_tpu_torch.parallel import sharded_gat, sharded_gcn
@@ -50,7 +60,8 @@ class ShardedTrainConfig:
     # keeping its per-edge activations.
     remat: bool = False
     n_parts: Optional[int] = None  # default: the process group's size
-    ckpt_dir: Optional[str] = None  # ROADMAP A17
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 10
 
 
 def _rows_mask(idx: torch.Tensor, n_pad: int, rows: slice) -> torch.Tensor:
@@ -66,7 +77,9 @@ def fit_sharded_node_classifier(
     """Train the edge-partitioned model; returns the JAX package's summary
     keys (``test_acc``, ``val_acc``, ``val_loss``, ``best_epoch``,
     ``epochs_run``, ``step_ms``, ``loss_first``, ``loss_final``,
-    ``seconds``, ``n_parts``, ``params``).
+    ``seconds``, ``n_parts``, ``params``) and ``losses``, the training loss
+    of each epoch this call ran (after a resume, from the epoch after the
+    checkpoint's).
 
     Runs on the rank's card (``cuda:rank``) unless ``device="cpu"``;
     without a card the default raises.  ``cfg.n_parts`` must equal the
@@ -79,8 +92,6 @@ def fit_sharded_node_classifier(
     gat = cfg.model == "gatode"
     if gat and cfg.mode not in sharded_gat.MODES:
         raise ValueError(f"unknown mode {cfg.mode!r} for gatode; one of {sharded_gat.MODES}")
-    if cfg.ckpt_dir:
-        raise NotImplementedError("sharded checkpoints are not ported yet (ROADMAP A17)")
     n_world, rank = world()
     n_parts = cfg.n_parts or n_world
     if n_parts != n_world:
@@ -151,6 +162,25 @@ def fit_sharded_node_classifier(
     def snapshot():
         return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
+    def run_state(epoch):
+        return dict(params=model.state_dict(), opt_state=opt.state_dict(), epoch=epoch,
+                    drop_rng=drop_gen.get_state(), seed_rng=seed_gen.get_state())
+
+    ckpt, start_epoch = None, 0
+    if cfg.ckpt_dir:
+        from graph_odenet_tpu_torch.utils.checkpoint import Checkpointer
+
+        if n_world > 1:  # rank 0's last save is on disk before anyone reads
+            dist.barrier()
+        ckpt = Checkpointer(cfg.ckpt_dir)
+        if ckpt.latest_step() is not None:
+            state = ckpt.restore(run_state(0))
+            model.load_state_dict(state["params"])
+            opt.load_state_dict(state["opt_state"])
+            drop_gen.set_state(state["drop_rng"])
+            seed_gen.set_state(state["seed_rng"])
+            start_epoch = int(state["epoch"]) + 1
+
     eval_every = cfg.eval_every or (1 if g.n_edge < 200_000 else 5)
     best = dict(val_loss=float("inf"), val_acc=0.0, test_acc=0.0, epoch=-1)
     best_params = snapshot()
@@ -158,10 +188,11 @@ def fit_sharded_node_classifier(
     losses = []
     step_ms = None
     t0 = time.perf_counter()
-    for epoch in range(cfg.epochs):
+    epoch = start_epoch - 1
+    for epoch in range(start_epoch, cfg.epochs):
         t_step = time.perf_counter()
         loss = float(train_step())  # waits for the step
-        if epoch > 0:  # steady state
+        if epoch > start_epoch:  # steady state
             dt = (time.perf_counter() - t_step) * 1e3
             step_ms = dt if step_ms is None else min(step_ms, dt)
         losses.append(loss)
@@ -175,6 +206,8 @@ def fit_sharded_node_classifier(
                 bad += 1
                 if bad > cfg.patience:
                     break
+        if ckpt and rank == 0 and (epoch % cfg.ckpt_every == 0 or epoch == cfg.epochs - 1):
+            ckpt.save(epoch, run_state(epoch), wait=True)
     return dict(
         test_acc=best["test_acc"],
         val_acc=best["val_acc"],
@@ -187,4 +220,5 @@ def fit_sharded_node_classifier(
         seconds=time.perf_counter() - t0,
         n_parts=n_parts,
         params=best_params,
+        losses=losses,
     )

@@ -3,7 +3,9 @@ form, GAT forward, α/dlogit backward, recompute-α dWh) against their plain
 PyTorch versions, on the card; config 3's batched adaptive solver on the
 card (no kernel of its own: one batched solve against one solve per window
 and against the CPU, and no host read inside an attempt); and the adjoints'
-one-step check through the kernels (``chip_smoke.adjoint_step_check``).
+one-step check through the kernels (``chip_smoke.adjoint_step_check``), the
+same check of the Adams family, config 4's bit-equal resume and
+``validate_tiling`` inside ``prepare`` of a card graph.
 
 Every test here needs a CUDA card and skips without one.  On the card
 (which has no JAX, so the repo's conftest cannot load):
@@ -951,3 +953,78 @@ def test_sharded_gat_across_cards_over_nccl(cuda, tmp_path):
             np.testing.assert_allclose(r[k], one[k], rtol=1e-4, err_msg=k)
         for k in ("val_acc", "test_acc"):
             np.testing.assert_allclose(r[k], one[k], atol=2e-3, err_msg=k)
+
+
+# ----------------------------------------- the Adams family, resume, sanitizers
+
+
+@pytest.mark.parametrize("name,method", [
+    ("citeseer-gcnode", "adams"), ("citeseer-gcnode", "adams_scan"),
+    ("citeseer-gcnode", "implicit_adams"), ("citeseer-gatode-dopri5", "adams_scan"),
+])
+def test_adams_step_through_the_kernels_matches_plain_float64(cuda, name, method):
+    """``chip_smoke.py``'s one-step solver check on the calibrated Citeseer
+    twin: GCN-ODE (B1) and GAT-ODE (B3-B5) on the Adams family through the
+    kernels in float32 against the plain path in float64 (``SOLVER_RTOL``);
+    the backward launches the kernels and calls no plain version; and the
+    solver takes the steps (and, for VCABM, ends at the order) that the same
+    model takes on the CPU in float64."""
+    import copy
+    import dataclasses
+
+    import chip_smoke
+
+    from graph_odenet_tpu_torch.configs import get_config
+    from graph_odenet_tpu_torch.data import synthetic_planetoid
+    from graph_odenet_tpu_torch.train import build_model
+
+    _, cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, method=method, steps=chip_smoke.VCABM_STEPS
+                              if method.startswith("adams") else cfg.steps)
+    data = synthetic_planetoid("citeseer", seed=cfg.seed, calibrated=True)
+    check = chip_smoke.adjoint_step_check(cfg, data.to(cuda), False, cuda,
+                                          rtol=chip_smoke.SOLVER_RTOL)
+    assert check["max_err_over_tol"] <= 1.0
+    model = build_model(cfg, data.n_class, data.features.shape[1],
+                        generator=torch.Generator().manual_seed(0))
+    model.dropout = 0.0
+    cpu = copy.deepcopy(model).double()
+    with torch.no_grad():
+        cpu(data.graph, data.features.double(), **(  # the check's attention dropout
+            dict(deterministic=False, seed_generator=torch.Generator().manual_seed(0))
+            if cfg.model == "gatode" else {}))
+    want = {k: v for k, v in cpu.odeblock.stats.items() if k != "t_reached"}
+    assert {k: v for k, v in check["forward_stats"].items() if k != "t_reached"} == want
+
+
+def test_config4_resume_is_bit_equal_on_the_card(cuda):
+    """``chip_smoke.py``'s resume of config 4 at a tenth of the arxiv twin
+    (hidden 256, dropout 0.5, B2): 3 epochs straight against 2, a stop and a
+    fresh call to 3, the losses bit for bit."""
+    import chip_smoke
+
+    from graph_odenet_tpu_torch.configs import get_config, sharded_train_config
+    from graph_odenet_tpu_torch.data import synthetic_ogbn_arxiv
+
+    run = chip_smoke._resume_run(sharded_train_config(get_config(4)[1]),
+                                 synthetic_ogbn_arxiv(seed=0, scale=0.1), cuda, 2, 3)
+    assert run["first"] + run["resumed"] == run["straight"] and run["epochs_run"] == 3
+
+
+def test_validate_tiling_runs_inside_prepare_on_a_card_graph(cuda, monkeypatch):
+    """``prepare`` of a Graph on the card checks its views before they reach
+    a kernel, and ``validate_tiling`` reads a view held on the card."""
+    import dataclasses
+
+    from graph_odenet_tpu_torch.utils import validate_tiling
+
+    g = _split_hub_graph(np.random.default_rng(0)).to(cuda)
+    seen = []
+    real = csr_spmm.validate_tiling
+    monkeypatch.setattr(csr_spmm, "validate_tiling", lambda c: seen.append(c) or real(c))
+    csr = prepare(g)
+    assert len(seen) == 1 and csr.device.type == "cuda" and csr.part.n_slots > 0
+    validate_tiling(csr)
+    bad = dataclasses.replace(csr, senders=csr.senders.clone().fill_(g.n_node_pad))
+    with pytest.raises(ValueError, match="senders"):
+        validate_tiling(bad)

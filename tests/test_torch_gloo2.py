@@ -6,7 +6,7 @@ twin with every rank returning the same result.  The same for the GAT
 tier: ``gat_sharded`` in both modes with attention dropout (values 1e-5,
 gradients 2e-5) and the sharded GAT-ODE's log-probs, loss and parameter
 gradients (rtol 2e-4) against JAX's on the same mesh, and the GAT-ODE
-trainer."""
+trainer.  And a checkpointed run resumed in the same world."""
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +32,7 @@ TRAIN_CFG = dict(model="gcnode", hidden=64, steps=2, epochs=60, eval_every=5, lr
 GAT_TRAIN_CFG = dict(model="gatode", hidden=16, heads=2, steps=2, epochs=8, eval_every=2,
                      lr=0.005, dropout=0.4, mode="ring_pallas", remat=True)
 GAT_MODES = ("ring", "ring_pallas")
+RESUME_CFG = dict(model="gcnode", hidden=16, steps=2, dropout=0.5, eval_every=2)
 GAT_RATE, GAT_SEED = 0.4, 99
 GRAD_TOL = dict(rtol=2e-5, atol=2e-5)
 FWD_TOL = dict(rtol=2e-4, atol=1e-6)
@@ -65,6 +66,8 @@ def all_ranks(tmp_path_factory, gat_params, gat_inputs):
         "sharded_gatode": dict(scale=SCALE, params=gat_params, hidden=HIDDEN, heads=HEADS,
                                steps=STEPS, modes=GAT_MODES, remat=False, drop_seed=5),
         "train_gat": dict(scale=SCALE, cfg=GAT_TRAIN_CFG),
+        "resume": dict(scale=SCALE, cfg=RESUME_CFG, epochs=5, first=3,
+                       ckpt_dir=str(store / "ckpt")),
     })
 
 
@@ -102,6 +105,18 @@ def test_trainer_two_ranks_trains_and_agrees(world):
         assert r0[k] == r1[k], k
     for k in r0["params"]:
         np.testing.assert_array_equal(r0["params"][k], r1["params"][k], err_msg=k)
+
+
+def test_two_rank_resume_rank_0_writes_and_both_restore(all_ranks):
+    """The bit-identical resume in a world of two: rank 0 alone saves (each
+    epoch of both calls, 3 + 2), both ranks restore the latest step after a
+    barrier, and both continue exactly as the uninterrupted run did."""
+    r0, r1 = (r["resume"] for r in all_ranks[1])
+    assert (r0["save"], r1["save"]) == (5, 0)
+    assert r0["restore"] == r1["restore"] == 1
+    for r in (r0, r1):
+        assert r["epochs_run"] == 5 and r["resumed"] == r["straight"][3:]
+    assert r0["straight"] == r1["straight"]
 
 
 # ------------------------------------------------------------- the GAT tier

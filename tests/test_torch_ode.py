@@ -74,9 +74,3 @@ def test_rk_step_matches_kutta_three_eighths():
     assert len(ks) == 4 and y_err is None
     np.testing.assert_allclose(float(y1), np.exp(-0.05), rtol=1e-6)
     np.testing.assert_allclose(float(f1), -0.5 * float(y1), rtol=1e-6)
-
-
-@pytest.mark.parametrize("method,item", [("adams", "A14"), ("adams_scan", "A14"), ("scipy_solver", "A14")])
-def test_unported_methods_name_their_roadmap_item(method, item):
-    with pytest.raises(NotImplementedError, match=item):
-        todeint(lambda t, y: y, torch.ones(2), [0.0, 1.0], method=method)

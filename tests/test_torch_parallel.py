@@ -8,6 +8,8 @@ gloo worlds of 2 and 4 ranks are in ``test_torch_gloo2.py`` and
 ``test_torch_gloo4.py``.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -321,12 +323,87 @@ def test_run_config_4_on_cpu():
     assert np.isfinite(res["loss_final"]) and res["step_ms"] > 0 and 0.0 <= res["test_acc"] <= 1.0
 
 
-@pytest.mark.parametrize("cfg,item", [(dict(ckpt_dir="ckpt"), "A17")])
-def test_unported_trainer_options_name_their_roadmap_item(twins, cfg, item):
+RESUME_CFG = {
+    "gcnode": dict(model="gcnode", hidden=16, steps=2, dropout=0.5, eval_every=2),
+    "gatode": dict(model="gatode", hidden=8, heads=2, steps=2, dropout=0.5, eval_every=2,
+                   mode="ring_pallas"),
+}
+
+
+@pytest.mark.parametrize("model", sorted(RESUME_CFG))
+def test_resume_is_bit_identical(twins, tmp_path, model):
+    """tests/test_fault_recovery.py:45-75 through the trainer, dropout
+    included: 5 epochs straight, against 3 epochs, a lost process (nothing
+    kept but the checkpoint directory) and a fresh call to 5.  The resumed
+    epochs' losses and the last checkpoint (parameters, Adam state, both
+    dropout generators) are bit-equal to the uninterrupted run's."""
+    from graph_odenet_tpu_torch.parallel import ShardedTrainConfig, fit_sharded_node_classifier
+    from graph_odenet_tpu_torch.utils import Checkpointer
+
+    td = twins[0]
+    cfg = dict(RESUME_CFG[model], ckpt_every=1)
+    straight = fit_sharded_node_classifier(
+        ShardedTrainConfig(**cfg, epochs=5, ckpt_dir=str(tmp_path / "a")), td, device="cpu")
+    first = fit_sharded_node_classifier(
+        ShardedTrainConfig(**cfg, epochs=3, ckpt_dir=str(tmp_path / "b")), td, device="cpu")
+    assert first["losses"] == straight["losses"][:3]  # deterministic up to the fault
+    del first  # the failure: the live state is lost
+    resumed = fit_sharded_node_classifier(
+        ShardedTrainConfig(**cfg, epochs=5, ckpt_dir=str(tmp_path / "b")), td, device="cpu")
+    assert resumed["epochs_run"] == 5 and resumed["losses"] == straight["losses"][3:]
+    a, b = Checkpointer(str(tmp_path / "a")), Checkpointer(str(tmp_path / "b"))
+    assert a.latest_step() == b.latest_step() == 4
+    sa, sb = a.restore(None), b.restore(None)
+    assert sa["epoch"] == sb["epoch"] == 4
+    for part in ("params", "drop_rng", "seed_rng"):
+        for k, v in (sa[part].items() if isinstance(sa[part], dict) else [("", sa[part])]):
+            w = sb[part][k] if k else sb[part]
+            torch.testing.assert_close(v, w, rtol=0, atol=0, msg=lambda m: f"{part} {k}: {m}")
+    for i, st in sa["opt_state"]["state"].items():
+        for k, v in st.items():
+            torch.testing.assert_close(v, sb["opt_state"]["state"][i][k], rtol=0, atol=0)
+
+
+def test_trainer_restart_resumes_from_the_latest_step(twins, tmp_path):
+    """tests/test_sharded_train.py:51-68: a fresh call with a larger epoch
+    budget picks up after the last saved epoch instead of starting over."""
     from graph_odenet_tpu_torch.parallel import ShardedTrainConfig, fit_sharded_node_classifier
 
-    with pytest.raises(NotImplementedError, match=item):
-        fit_sharded_node_classifier(ShardedTrainConfig(**cfg), twins[0], device="cpu")
+    ckpt = str(tmp_path / "ckpt")
+    common = dict(model="gcnode", hidden=32, steps=2, ckpt_dir=ckpt, ckpt_every=1)
+    fit_sharded_node_classifier(ShardedTrainConfig(**common, epochs=4), twins[0], device="cpu")
+    res = fit_sharded_node_classifier(ShardedTrainConfig(**common, epochs=6), twins[0],
+                                      device="cpu")
+    assert res["epochs_run"] == 6 and len(res["losses"]) == 2  # epochs 4 and 5 only
+    assert res["loss_first"] is not None and res["step_ms"] is not None
+
+
+def test_checkpoint_every_and_the_last_epoch(twins, tmp_path):
+    """JAX's schedule: every ``ckpt_every`` epochs and the last; the newest
+    three are kept.  A call with nothing left to run runs nothing."""
+    from graph_odenet_tpu_torch.parallel import ShardedTrainConfig, fit_sharded_node_classifier
+    from graph_odenet_tpu_torch.utils import Checkpointer
+
+    cfg = ShardedTrainConfig(model="gcnode", hidden=8, steps=2, epochs=8, ckpt_every=3,
+                             ckpt_dir=str(tmp_path))
+    fit_sharded_node_classifier(cfg, twins[0], device="cpu")
+    assert Checkpointer(str(tmp_path)).steps() == [3, 6, 7]
+    again = fit_sharded_node_classifier(cfg, twins[0], device="cpu")
+    assert again["epochs_run"] == 8 and again["losses"] == []
+
+
+def test_run_config_4_resumes_from_ckpt_dir(tmp_path):
+    """``run_config(4, ckpt_dir=)``: the second call resumes after the latest
+    step, here epoch 20 of 30 (the last step's file removed), and ends where
+    the first ended, bit for bit, dropout 0.5 included."""
+    from graph_odenet_tpu_torch.configs import run_config
+
+    first = run_config(4, scale=SCALE, device="cpu", ckpt_dir=str(tmp_path))
+    assert sorted(os.listdir(tmp_path)) == ["step_10.pt", "step_20.pt", "step_29.pt"]
+    os.unlink(tmp_path / "step_29.pt")
+    second = run_config(4, scale=SCALE, device="cpu", ckpt_dir=str(tmp_path))
+    assert set(second) == JAX_CONFIG4_KEYS and second["epochs_run"] == 30
+    assert second["loss_final"] == first["loss_final"]
 
 
 def test_mesh_helpers_without_a_process_group(monkeypatch):

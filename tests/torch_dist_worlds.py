@@ -207,6 +207,38 @@ def train(rank, n_ranks, *, scale, cfg):
     return res
 
 
+def resume(rank, n_ranks, *, scale, cfg, epochs, first, ckpt_dir):
+    """``epochs`` straight, then ``first`` epochs saving to ``ckpt_dir`` and a
+    fresh call resuming to ``epochs``; each rank's losses and its count of
+    checkpoint saves and restores."""
+    from graph_odenet_tpu_torch.parallel import ShardedTrainConfig, fit_sharded_node_classifier
+    from graph_odenet_tpu_torch.utils.checkpoint import Checkpointer
+
+    data, calls = _twin(scale), {"save": 0, "restore": 0}
+    real = {k: getattr(Checkpointer, k) for k in calls}
+
+    def counted(name):
+        def call(self, *args, **kw):
+            calls[name] += 1
+            return real[name](self, *args, **kw)
+        return call
+
+    def fit(**kw):
+        return fit_sharded_node_classifier(ShardedTrainConfig(**cfg, **kw), data, device="cpu")
+
+    straight = fit(epochs=epochs)
+    for k in calls:
+        setattr(Checkpointer, k, counted(k))
+    try:
+        fit(epochs=first, ckpt_dir=ckpt_dir, ckpt_every=1)
+        resumed = fit(epochs=epochs, ckpt_dir=ckpt_dir, ckpt_every=1)
+    finally:
+        for k, f in real.items():
+            setattr(Checkpointer, k, f)
+    return dict(straight=straight["losses"], resumed=resumed["losses"],
+                epochs_run=resumed["epochs_run"], **calls)
+
+
 def config4_world(rank, n_ranks, *, scale, f, cfg, device):
     """The arxiv twin over the world (on ``cuda:rank`` with ``device="cuda"``):
     each mode's output rows and ``d sum(sin(Â x))/dx`` rows (error over rtol
@@ -319,5 +351,6 @@ def _wall_ms(fn, dev, iters=10):
 
 
 TASKS = {"spmm_modes": spmm_modes, "sharded_gcn": sharded_gcn, "train": train, "train_gat": train,
+         "resume": resume,
          "config4_world": config4_world, "gat_modes": gat_modes, "sharded_gatode": sharded_gatode,
          "gat_world": gat_world}
