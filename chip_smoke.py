@@ -167,6 +167,26 @@ so the exit code is non-zero:
              (``SCIPY_RTOL``).  (5) ``odeint_checked`` raises on a NaN made on
              the card.  (6) ``validate_tiling``'s host ms on the full arxiv
              twin's views.
+  surfaces   (last) the bench functions, the CLI, ``entry()`` and A20 on the
+             card.  (1) ``bench.spmm_bench()`` (the bench shape, F=128),
+             ``gat_bench`` at H=8/F=8 with dropout 0.6, at H=1/F=128 and at
+             H=8/F=8 with dropout 0.6 and ``use_scores=False`` (B1-w),
+             ``ode_bench(representation="kernel")``, ``ode_model_bench`` of
+             GCN-ODE and GAT-ODE with ``mode="train_step"`` and
+             ``scaling_bench()`` on one card, each at the JAX package's
+             defaults and with every kernel count from 0: each must launch
+             its kernels and call no plain version.  (2) The CLI in
+             subprocesses: ``node --dataset pubmed --calibrated --model
+             gcnode --representation kernel`` for ``SURFACE_EPOCHS`` epochs
+             with ``--ckpt-dir``, then ``predict``, whose test accuracy must
+             equal ``node``'s best (both through B1, plain versions refused),
+             and ``python -m graph_odenet_tpu_torch.cli bench spmm``.  (3)
+             ``entry()``'s forward on the card against the same forward on
+             the CPU in float64 (``SLICE_TOL``).  (4) A20 on the full arxiv
+             twin at one part through B2, against the plain version in
+             float64 at TOL: the two column halves at F=256 reduced apart
+             and joined equal the whole, and ``[b, B, F]`` (one launch)
+             equals ``b`` single calls.
 
 Then the kernel table (each kernel's launches on its main path, error,
 ms, plain ms, the bound of its work on an H100 and the library call's ms;
@@ -174,7 +194,8 @@ ms, plain ms, the bound of its work on an H100 and the library call's ms;
 in pubmed-gatode's training runs with either adjoint; ``solver_launches``:
 B1's in the solvers phase's Adams trainings of pubmed-gcnode, B3-B5's in its
 adams_scan training of pubmed-gatode; ``resume_launches``: B2's and B2-w's in
-the resume phase's three runs of each model),
+the resume phase's three runs of each model; ``surfaces_launches``: each
+kernel's in the surfaces phase, CLI subprocesses included),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -184,6 +205,7 @@ import dataclasses
 import json
 import os
 import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -281,6 +303,29 @@ VALIDATE_REPEATS = 3
 RESUME_EPOCHS = (4, 8)
 RESUME_GAT_EPOCHS = (2, 4)
 RESUME_GAT_RTOL = 1e-6
+# The surfaces phase: the CLI's epochs of pubmed-gcnode, the batch of A20's
+# leading axis and its width, and the kernels each bench record must launch.
+SURFACE_EPOCHS, A20_BATCH, A20_F = 30, 4, 64
+GAT_KERNELS = ("gat_fwd", "gat_bwd", "gat_dwh")
+# The CLI's own main, run as a subprocess with every plain version refused; the
+# kernels' launch counts follow its JSON line.
+CLI_LAUNCHER = """
+import json, sys
+from graph_odenet_tpu_torch import cli
+from graph_odenet_tpu_torch.ops import csr_spmm, gat_attn
+
+def refuse(*args, **kw):
+    raise AssertionError("a plain version ran on the card")
+
+for mod, name in ((csr_spmm, "_reduce_plain"), (csr_spmm, "_bucket_reduce_plain"),
+                  (gat_attn, "gat_fwd_plain"), (gat_attn, "gat_bwd_plain"),
+                  (gat_attn, "gat_dwh_plain")):
+    setattr(mod, name, refuse)
+cli.main(sys.argv[1:])
+print(json.dumps(dict(csr=csr_spmm.launches, csr_weighted=csr_spmm.weighted_launches,
+                      bucket=csr_spmm.bucket_launches,
+                      bucket_weighted=csr_spmm.bucket_weighted_launches, **gat_attn.launches)))
+"""
 
 
 def emit(phase, **fields):
@@ -1675,7 +1720,8 @@ class plain_calls:
 
         self.count = 0
         self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
-            (csr_spmm, "_reduce_plain"), (gat_attn, "gat_fwd_plain"),
+            (csr_spmm, "_reduce_plain"), (csr_spmm, "_bucket_reduce_plain"),
+            (gat_attn, "gat_fwd_plain"),
             (gat_attn, "gat_bwd_plain"), (gat_attn, "gat_dwh_plain"))]
 
         def counting(fn):
@@ -2160,6 +2206,135 @@ def phase_resume(dev, arxiv, arxiv_cal):
     return launches
 
 
+def _run_cli(*argv, launcher=True):
+    """The port's CLI in a subprocess on the card: its JSON line and, through
+    ``CLI_LAUNCHER``, its kernels' launch counts (plain versions refused);
+    without ``launcher``, as users run it, ``python -m``."""
+    cmd = [sys.executable, "-c", CLI_LAUNCHER] if launcher else [
+        sys.executable, "-m", "graph_odenet_tpu_torch.cli"]
+    run = subprocess.run([*cmd, *argv], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if run.returncode:
+        raise AssertionError(f"cli {' '.join(argv)}: exit {run.returncode}\n{run.stderr[-4000:]}")
+    lines = run.stdout.strip().splitlines()
+    return json.loads(lines[-2 if launcher else -1]), json.loads(lines[-1]) if launcher else {}
+
+
+def phase_surfaces(dev, arxiv):
+    """The bench functions, the CLI, ``entry()`` and A20 on the card (see the
+    module doc).  Returns each kernel's launches in the phase."""
+    from graph_odenet_tpu_torch import bench
+    from graph_odenet_tpu_torch.entry import entry
+    from graph_odenet_tpu_torch.ops import csr_spmm
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver, spmm_sharded
+
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (1) The bench functions at the JAX package's defaults.
+    for what, fn, kernels in (
+        ("spmm_bench", bench.spmm_bench, ("csr",)),
+        ("gat_bench H=8 F=8 dropout 0.6",
+         lambda: bench.gat_bench(heads=8, feat=8, dropout=0.6), GAT_KERNELS),
+        ("gat_bench H=1 F=128", bench.gat_bench, GAT_KERNELS),
+        ("gat_bench H=8 F=8 dropout 0.6 use_scores=False",
+         lambda: bench.gat_bench(heads=8, feat=8, dropout=0.6, use_scores=False),
+         ("gat_fwd", "gat_bwd", "csr_weighted")),
+        ("ode_bench kernel", lambda: bench.ode_bench(representation="kernel"), ("csr",)),
+        ("ode_model_bench gcnode train_step",
+         lambda: bench.ode_model_bench("gcnode", mode="train_step"), ()),
+        ("ode_model_bench gatode train_step",
+         lambda: bench.ode_model_bench("gatode", mode="train_step"), GAT_KERNELS),
+        ("scaling_bench", bench.scaling_bench, ("bucket",)),
+    ):
+        _zero_kernel_counts()
+        with plain_calls() as plain:
+            rec = fn()
+            torch.cuda.synchronize()
+        counts = _kernel_counts()
+        if plain.count or not all(counts[k] for k in kernels) \
+                or rec["device"] != torch.cuda.get_device_name(dev):
+            raise AssertionError(f"{what}: launches {counts}, plain calls {plain.count}, "
+                                 f"record {rec}")
+        add(counts)
+        emit("surfaces", what=what, record=rec, launches=counts)
+
+    # (2) The CLI: train and save, restore and evaluate, bench.
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        data_flags = ("--dataset", "pubmed", "--calibrated", "--model", "gcnode")
+        trained, n_launches = _run_cli("node", *data_flags, "--representation", "kernel",
+                                       "--epochs", str(SURFACE_EPOCHS), "--ckpt-dir", tmp,
+                                       "--quiet")
+        predicted, p_launches = _run_cli("predict", "--ckpt-dir", tmp, *data_flags)
+    if not (n_launches["csr"] and p_launches["csr"]) \
+            or predicted["test_acc"] != trained["best"]["test_acc"]:
+        raise AssertionError(f"cli node {trained} ({n_launches}), predict {predicted} "
+                             f"({p_launches})")
+    add(n_launches)
+    add(p_launches)
+    emit("surfaces", what="cli node, predict", node=trained, node_launches=n_launches,
+         predict=predicted, predict_launches=p_launches)
+    rec, _ = _run_cli("bench", "spmm", launcher=False)
+    if rec["device"] != torch.cuda.get_device_name(dev) or not rec["kernel_edges_per_s"] > 0:
+        raise AssertionError(f"cli bench spmm: {rec}")
+    emit("surfaces", what="cli bench spmm", record=rec)
+
+    # (3) entry(): the card's forward against the CPU's in float64.
+    fn, (params, adj, x) = entry()
+    with torch.no_grad():
+        out = fn(params, adj, x)
+        ref = fn({k: v.double().cpu() for k, v in params.items()}, adj.double().cpu(),
+                 x.double().cpu())
+    torch.cuda.synchronize()
+    entry_err = _err(out.cpu(), ref, SLICE_TOL)
+    if out.shape != ref.shape or not torch.isfinite(out).all() or entry_err[1] > 1.0:
+        raise AssertionError(f"entry(): {tuple(out.shape)}, error {entry_err}")
+    emit("surfaces", what="entry", shape=list(out.shape), max_abs_err=entry_err[0],
+         max_err_over_tol=entry_err[1], tolerance="rtol=atol=1e-4 against the CPU in float64")
+
+    # (4) A20 at one part through B2: column halves and a leading batch axis.
+    pg = partition_by_receiver(arxiv.graph, 1).to(dev)
+    view, rows = pg.bucket(0, 0).fwd, pg.block_size
+    rng = np.random.default_rng(50)
+    x = _randn(rng, (rows, ARXIV_HIDDEN), dev)
+    xb = _randn(rng, (A20_BATCH, rows, A20_F), dev)
+    half = ARXIV_HIDDEN // 2
+    _zero_kernel_counts()
+    with plain_calls() as plain:
+        full = spmm_sharded(pg, x)
+        joined = torch.cat([spmm_sharded(pg, x[:, h * half:(h + 1) * half].contiguous(),
+                                         check_vma=False) for h in (0, 1)], dim=1)
+        before = csr_spmm.bucket_launches
+        batched = spmm_sharded(pg, xb)
+        batch_launches = csr_spmm.bucket_launches - before
+        singles = torch.stack([spmm_sharded(pg, xb[i].contiguous()) for i in range(A20_BATCH)])
+        torch.cuda.synchronize()
+    counts = _kernel_counts()
+    add(counts)
+
+    def plain64(t):
+        return csr_spmm._bucket_reduce_plain(view, t.double(), t.new_empty(
+            (rows, t.shape[1]), dtype=torch.float64), accumulate=False)
+
+    want = plain64(x)
+    want_b = torch.stack([plain64(xb[i]) for i in range(A20_BATCH)])
+    errs = dict(full=_err(full, want, TOL), halves_joined=_err(joined, want, TOL),
+                batched=_err(batched, want_b, TOL), singles=_err(singles, want_b, TOL))
+    if plain.count or batch_launches != 1 or counts["bucket"] != 3 + 1 + A20_BATCH \
+            or max(e[1] for e in errs.values()) > 1.0:
+        raise AssertionError(f"A20: errors {errs}, launches {counts}, batched call "
+                             f"{batch_launches}, plain calls {plain.count}")
+    emit("surfaces", what="A20 one part, B2", n_node_pad=rows, F=ARXIV_HIDDEN, batch=A20_BATCH,
+         batch_F=A20_F, max_abs_err={k: e[0] for k, e in errs.items()},
+         max_err_over_tol={k: e[1] for k, e in errs.items()},
+         tolerance="rtol=atol=1e-5 against the plain version in float64",
+         batched_call_launches=batch_launches, launches=counts)
+    emit("surfaces", what="launches", launches=launches)
+    return launches
+
+
 def _sparse_csr_pair(csr):
     """Â and Âᵀ of a ``CSRGraph`` as torch CSR tensors (cuSPARSE's operands)."""
     n = csr.n_node_pad
@@ -2252,6 +2427,7 @@ def main():
     timed("physics", phase_physics, dev, args.physics_epochs)
     adj = timed("adjoint", phase_adjoint, dev, data, args.adjoint_epochs)
     solver_launches = timed("solvers", phase_solvers, dev, data, arxiv.graph)
+    surface_launches = timed("surfaces", phase_surfaces, dev, arxiv)
     del arxiv
     # Launches on the adjoint's paths: B1 in pubmed-gcnode's adjoint backward
     # steps, B3-B5 in pubmed-gatode's training runs with either adjoint.
@@ -2332,6 +2508,7 @@ def main():
             "shape": "Pubmed twin, F=16, fwd+bwd",
             "adjoint_launches": adjoint_launches["csr"],
             "solver_launches": solver_launches.get("csr", 0),
+            "surfaces_launches": surface_launches.get("csr", 0),
             "bare_ms": main_row["bare_ms"], "library_bare_ms": main_row["library_bare_ms"],
             "host_us": {k: c["host_us"] for k, c in main_row["call_costs"].items()},
             "device_launches_per_call": max(
@@ -2355,6 +2532,7 @@ def main():
             "library_ms": buckets[1]["library_ms"],
             "shape": f"arxiv twin, P=1 (config 4 on one card), F={ARXIV_HIDDEN}, fwd+bwd",
             "resume_launches": resume_launches["bucket"],
+            "surfaces_launches": surface_launches.get("bucket", 0),
             "host_us_P8": {k: c["host_us"] for k, c in buckets[8]["call_costs"].items()},
             "device_launches_per_call": max(
                 c["launches_per_call"] for r in buckets.values() for c in r["call_costs"].values()),
@@ -2380,15 +2558,18 @@ def main():
             "shape": "calibrated arxiv twin, P=1, H=1, F=256 (the dynamics' layers, 16 of the "
                      "18 of a forward), fwd+bwd",
             "resume_launches": resume_launches["bucket_weighted"],
+            "surfaces_launches": surface_launches.get("bucket_weighted", 0),
             "other_shapes": {f"H={h},F={f}": {k: weighted_buckets[h, f][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dpv_plain_ms")}
                 for h, f in GAT_SHAPES},
         },
-        att_entry("csr_spmm_weighted", spmm_src, "graph_odenet_tpu/ops/pallas_spmm.py:479",
-                  mask_row, weighted),
+        dict(att_entry("csr_spmm_weighted", spmm_src, "graph_odenet_tpu/ops/pallas_spmm.py:479",
+                       mask_row, weighted),
+             surfaces_launches=surface_launches.get("csr_weighted", 0)),
         *(dict(att_entry(k, gat_src, replaces, cite_row, gat_launches[k], costs=True),
                adjoint_launches=adjoint_launches[k],
-               solver_launches=solver_launches.get(k, 0)) for k, replaces in (
+               solver_launches=solver_launches.get(k, 0),
+               surfaces_launches=surface_launches.get(k, 0)) for k, replaces in (
             ("gat_fwd", "graph_odenet_tpu/ops/pallas_gat.py:206"),
             ("gat_bwd", "graph_odenet_tpu/ops/pallas_gat.py:890"),
             ("gat_dwh", "graph_odenet_tpu/ops/pallas_spmm.py:736"))),

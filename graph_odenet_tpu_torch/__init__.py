@@ -22,12 +22,18 @@ This package imports neither JAX nor the JAX package.
                    the interaction network and IN-ODE.
   data             Planetoid and OGBN-arxiv loaders and twins, spring n-body.
   train            Full-batch node-classification and physics trainers.
-  parallel         The edge-partitioned tier (config 4).
+  parallel         The edge-partitioned tier (config 4), on meshes of
+                   process groups (feature-axis tensor parallelism too).
   configs          Named configs 0–4 and extras, and ``run_config``.
   convert          Flax parameter trees to torch ``state_dict``s.
   utils            Device choice, metrics, logging, plots (matplotlib, lazily),
                    checkpoints, sanitizers (validate_tiling, odeint_checked),
                    profiling.
+  bench            The benchmark functions (SpMM, GAT attention, ODE solves,
+                   the ODE models, sharded scaling), one record each.
+  cli              ``python -m graph_odenet_tpu_torch.cli``: node, predict,
+                   physics, config, bench.
+  entry            ``entry()``: one GCN-ODE forward on the Cora twin.
 """
 
 __version__ = "0.1.0"

@@ -23,6 +23,11 @@ The first bucket reduced into an output writes it (``accumulate=False``);
 the others add into it, so no output is zero-filled and then read.  With
 one part (no process group) every mode is one bucket reduction.
 
+Every exchange runs on the process group it is given (``group=``; the
+default group when None): the edge axis of a mesh (``mesh.make_mesh``).
+Feature-axis tensor parallelism (``spmm_sharded(feat_axis=)``) runs the
+same exchange on each rank's column slice, over its edge group alone.
+
 For the sharded GAT (``parallel.sharded_gat``), whose per-edge weights are
 traced, the ring is built from differentiable pieces instead of one
 Function: ``_bucket_spmm_weighted`` (one hop's attention-weighted bucket
@@ -37,7 +42,7 @@ import torch
 import torch.distributed as dist
 
 from graph_odenet_tpu_torch.ops.csr_spmm import bucket_reduce, row_ids
-from graph_odenet_tpu_torch.parallel.mesh import check_backend, world
+from graph_odenet_tpu_torch.parallel.mesh import check_backend, global_rank, world
 from graph_odenet_tpu_torch.parallel.partition import Bucket, PartitionedGraph
 
 __all__ = ["spmm_sharded", "bucket_reduce_pallas", "ring_hop", "all_gather_rows", "MODES"]
@@ -143,79 +148,81 @@ def _bucket_spmm_weighted(
     return _BucketSpMMWeighted.apply(chunk.contiguous(), pv_h.contiguous(), acc, bucket, rows, feat)
 
 
-def _exchange(send: torch.Tensor, recv: torch.Tensor, me: int, n_parts: int, step: int = -1):
-    """Post the ring hop: ``send`` to rank me − 1, ``recv`` from rank me + 1
-    (``step=1``: the reverse hop)."""
+def _exchange(send: torch.Tensor, recv: torch.Tensor, me: int, n_parts: int, step: int = -1,
+              group=None):
+    """Post the ring hop within ``group``: ``send`` to its rank me − 1,
+    ``recv`` from its rank me + 1 (``step=1``: the reverse hop)."""
     return dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, (me + step) % n_parts),
-        dist.P2POp(dist.irecv, recv, (me - step) % n_parts),
+        dist.P2POp(dist.isend, send, global_rank(group, (me + step) % n_parts), group=group),
+        dist.P2POp(dist.irecv, recv, global_rank(group, (me - step) % n_parts), group=group),
     ])
 
 
 class _RingHop(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, me, n_parts, pending):
-        ctx.me, ctx.n_parts = me, n_parts
+    def forward(ctx, t, me, n_parts, pending, group):
+        ctx.me, ctx.n_parts, ctx.group = me, n_parts, group
         nxt = torch.empty_like(t)
-        pending.extend(_exchange(t, nxt, me, n_parts))
+        pending.extend(_exchange(t, nxt, me, n_parts, group=group))
         return nxt
 
     @staticmethod
     def backward(ctx, g):
         back = torch.empty_like(g)
-        for req in _exchange(g.contiguous(), back, ctx.me, ctx.n_parts, step=1):
+        for req in _exchange(g.contiguous(), back, ctx.me, ctx.n_parts, step=1, group=ctx.group):
             req.wait()
-        return back, None, None, None
+        return back, None, None, None, None
 
 
-def ring_hop(t: torch.Tensor, pending: list) -> torch.Tensor:
+def ring_hop(t: torch.Tensor, pending: list, group=None) -> torch.Tensor:
     """One differentiable hop of the ring: sends ``t`` to rank me − 1 and
     returns what rank me + 1 sent.  The exchange is only posted: its
     requests are appended to ``pending``, and the caller waits for them
     before it reads the result, so the hop overlaps what runs in between.
     The backward sends the gradient to rank me + 1 and receives from rank
     me − 1 (what ``ppermute`` transposes to).  Every rank calls it in the
-    same order."""
-    n_parts, me = world()
-    return _RingHop.apply(t.contiguous(), me, n_parts, pending)
+    same order of ``group`` (the default group when None)."""
+    n_parts, me = world(group)
+    return _RingHop.apply(t.contiguous(), me, n_parts, pending, group)
 
 
 class _AllGatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, n_parts):
+    def forward(ctx, t, n_parts, group):
+        ctx.n_parts, ctx.group = n_parts, group
         full = t.new_empty((n_parts * t.shape[0], *t.shape[1:]))
-        dist.all_gather_into_tensor(full, t)
+        dist.all_gather_into_tensor(full, t, group=group)
         return full
 
     @staticmethod
     def backward(ctx, g):
-        n = g.shape[0] // dist.get_world_size()
-        dt = g.new_empty((n, *g.shape[1:]))
-        dist.reduce_scatter_tensor(dt, g.contiguous(), op=dist.ReduceOp.SUM)
-        return dt, None
+        dt = g.new_empty((g.shape[0] // ctx.n_parts, *g.shape[1:]))
+        dist.reduce_scatter_tensor(dt, g.contiguous(), op=dist.ReduceOp.SUM, group=ctx.group)
+        return dt, None, None
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of ``t [B, ...]`` in rank order, ``[P·B, ...]``,
-    differentiable: the backward reduce-scatters the gathered gradient.
-    With one part it is ``t`` itself and posts nothing."""
-    n_parts, _ = world()
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's rows of ``t [B, ...]`` in ``group``'s rank order (the
+    default group when None), ``[P·B, ...]``, differentiable: the backward
+    reduce-scatters the gathered gradient.  With one part it is ``t``
+    itself and posts nothing."""
+    n_parts, _ = world(group)
     if n_parts == 1:
         return t
-    return _AllGatherRows.apply(t.contiguous(), n_parts)
+    return _AllGatherRows.apply(t.contiguous(), n_parts, group)
 
 
 class _RingSpMM(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, pg, me, n_parts):
-        ctx.pg, ctx.me, ctx.n_parts = pg, me, n_parts
+    def forward(ctx, x, pg, me, n_parts, group):
+        ctx.pg, ctx.me, ctx.n_parts, ctx.group = pg, me, n_parts, group
         out = torch.empty_like(x)
         chunk = x
         for k in range(n_parts):
             reqs = []
             if k < n_parts - 1:
                 nxt = torch.empty_like(chunk)
-                reqs = _exchange(chunk, nxt, me, n_parts)  # overlaps the reduction
+                reqs = _exchange(chunk, nxt, me, n_parts, group=group)  # overlaps the reduction
             bucket_reduce(pg.bucket(me, (me + k) % n_parts).fwd, chunk, out, accumulate=k > 0)
             for req in reqs:
                 req.wait()
@@ -232,21 +239,21 @@ class _RingSpMM(torch.autograd.Function):
             bucket_reduce(pg.bucket(me, (me + k + 1) % n_parts).bwd, g, acc, accumulate=k > 0)
             if k < n_parts - 1:
                 nxt = torch.empty_like(acc)
-                for req in _exchange(acc, nxt, me, n_parts):
+                for req in _exchange(acc, nxt, me, n_parts, group=ctx.group):
                     req.wait()
                 acc = nxt
-        return acc, None, None, None
+        return acc, None, None, None, None
 
 
 class _AllgatherSpMM(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, pg, me, n_parts):
-        ctx.pg, ctx.me, ctx.n_parts = pg, me, n_parts
+    def forward(ctx, x, pg, me, n_parts, group):
+        ctx.pg, ctx.me, ctx.n_parts, ctx.group = pg, me, n_parts, group
         B = pg.block_size
         x_full = x
         if n_parts > 1:
             x_full = x.new_empty((n_parts * B, x.shape[1]))
-            dist.all_gather_into_tensor(x_full, x)
+            dist.all_gather_into_tensor(x_full, x, group=group)
         out = torch.empty_like(x)
         for b in range(n_parts):
             bucket_reduce(pg.bucket(me, b).fwd, x_full[b * B:(b + 1) * B], out, accumulate=b > 0)
@@ -261,10 +268,24 @@ class _AllgatherSpMM(torch.autograd.Function):
         for b in range(n_parts):
             bucket_reduce(pg.bucket(me, b).bwd, g, dx_full[b * B:(b + 1) * B], accumulate=False)
         if n_parts == 1:
-            return dx_full, None, None, None
+            return dx_full, None, None, None, None
         dx = torch.empty_like(g)
-        dist.reduce_scatter_tensor(dx, dx_full, op=dist.ReduceOp.SUM)
-        return dx, None, None, None
+        dist.reduce_scatter_tensor(dx, dx_full, op=dist.ReduceOp.SUM, group=ctx.group)
+        return dx, None, None, None, None
+
+
+def _check_feat_slices(x: torch.Tensor, feat_axis) -> None:
+    """Raise unless every rank along ``feat_axis`` holds a column slice of
+    the same width as this rank's.  One gather of one integer a rank; no
+    feature moves."""
+    n_feat, _ = world(feat_axis)
+    width = torch.tensor([x.shape[-1]], dtype=torch.int64, device=x.device)
+    widths = width
+    if n_feat > 1:
+        widths = width.new_empty(n_feat)
+        dist.all_gather_into_tensor(widths, width, group=feat_axis)
+    if bool((widths != width).any()):
+        raise ValueError(f"the feature slices along feat_axis differ in width: {widths.tolist()}")
 
 
 def spmm_sharded(
@@ -272,29 +293,48 @@ def spmm_sharded(
     x: torch.Tensor,
     *,
     mode: str = "ring",
+    group=None,
     feat_axis=None,
     check_vma=None,
 ) -> torch.Tensor:
-    """``(Â x)`` of this rank's node block; ``x`` is the block's rows ``[B, F]``.
+    """``(Â x)`` of this rank's node block; ``x`` is the block's rows ``[B, F]``
+    (or ``[b, B, F]``, below).
 
-    ``pg.n_parts`` must equal the size of the default process group (one
-    part without a process group).  ``feat_axis`` (feature-axis tensor
-    parallelism) and ``check_vma`` (the 2-D mesh) are not ported yet.
+    ``group`` is the edge axis: the process group whose rank ``r`` holds
+    node block ``r`` (the default group when None); ``pg.n_parts`` must
+    equal its size (one part without a process group).
+
+    ``feat_axis`` (feature-axis tensor parallelism, JAX's second mesh axis):
+    the process group of the ranks that hold other column slices of the same
+    block's rows.  ``x`` is then this rank's slice ``[B, F/PF]``; the halo
+    exchange runs on ``group`` alone, over the slice, and the edge metadata
+    ``pg`` is replicated along ``feat_axis``.  Along ``feat_axis`` nothing
+    moves but a check that every slice has the same width.
+
+    A leading batch axis, ``x [b, B, F]`` (what ``jax.vmap(...,
+    spmd_axis_name=)`` gives the JAX call on a (data, edge) mesh), is folded
+    into the columns: one reduction over ``[B, b·F]``, the launches of one
+    call.
+
+    ``check_vma`` steers the checker of JAX's ``shard_map`` and has no
+    meaning here: it is accepted and ignored.
     """
-    if feat_axis is not None or check_vma is not None:
-        raise NotImplementedError(
-            "feat_axis and check_vma (feature-axis tensor parallelism, the 2-D mesh) "
-            "are not ported yet (ROADMAP A20)"
-        )
+    del check_vma
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
-    n_parts, me = world()
+    n_parts, me = world(group)
     if pg.n_parts != n_parts:
         raise ValueError(f"partitioning has {pg.n_parts} parts, the process group {n_parts}")
-    if x.dim() != 2 or x.shape[0] != pg.block_size:
-        raise ValueError(f"spmm_sharded takes the block's rows [{pg.block_size}, F], got {tuple(x.shape)}")
+    if x.dim() not in (2, 3) or x.shape[-2] != pg.block_size:
+        raise ValueError(f"spmm_sharded takes the block's rows [{pg.block_size}, F] "
+                         f"or [b, {pg.block_size}, F], got {tuple(x.shape)}")
+    if feat_axis is not None:
+        _check_feat_slices(x, feat_axis)
     if n_parts > 1:
-        check_backend(x)
-    x = x.contiguous()
+        check_backend(x, group)
+    if x.dim() == 3:
+        b, rows, f = x.shape
+        out = spmm_sharded(pg, x.permute(1, 0, 2).reshape(rows, b * f), mode=mode, group=group)
+        return out.view(rows, b, f).permute(1, 0, 2)
     fn = _AllgatherSpMM if mode == "allgather" else _RingSpMM
-    return fn.apply(x, pg, me, n_parts)
+    return fn.apply(x.contiguous(), pg, me, n_parts, group)

@@ -2,29 +2,108 @@
 
 Counterpart of ``graph_odenet_tpu/parallel/mesh.py``.  The JAX package
 runs one program over a device mesh; the port runs one process per card
-(SPMD over ``torch.distributed``), and the "edge" axis of the mesh is the
-default process group.  Rank ``r`` owns node block ``r`` and works on ``cuda:r`` of
-its host.  CUDA tensors travel through NCCL, CPU tensors through gloo;
-nothing stages a card's tensor through the host.
+(SPMD over ``torch.distributed``).  With one mesh axis, the "edge" axis is
+the default process group: rank ``r`` owns node block ``r`` and works on
+``cuda:r`` of its host.  ``make_mesh`` lays the default group's ranks out
+on a mesh of several named axes and gives each axis its process group;
+every collective of ``parallel/`` takes the group it runs on (``group=``,
+the default group when None).  CUDA tensors travel through NCCL, CPU
+tensors through gloo; nothing stages a card's tensor through the host.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import math
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from graph_odenet_tpu_torch.utils.device import resolve_device
 
-__all__ = ["world", "device_for", "bootstrap_distributed", "check_backend"]
+__all__ = [
+    "world", "global_rank", "Mesh", "make_mesh", "device_for", "bootstrap_distributed",
+    "check_backend",
+]
 
 
-def world() -> tuple[int, int]:
-    """``(n_parts, rank)`` of the default process group; ``(1, 0)`` without one."""
+def world(group=None) -> tuple[int, int]:
+    """``(size, rank)`` within ``group`` (the default process group when
+    None); ``(1, 0)`` without a process group."""
     if not (dist.is_available() and dist.is_initialized()):
         return 1, 0
-    return dist.get_world_size(), dist.get_rank()
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def global_rank(group, rank: int) -> int:
+    """The default group's rank of ``group``'s rank ``rank``: point-to-point
+    ops name their peer by it."""
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place on a mesh of processes: the mesh's ``shape`` and
+    ``axis_names``, the rank's coordinate along each axis (``coords``) and
+    the process group of the ranks that differ from it along that axis
+    alone (``groups``; None for an axis that spans the default group, or
+    when there is no process group)."""
+
+    shape: tuple
+    axis_names: tuple
+    coords: tuple
+    groups: tuple
+
+    def _axis(self, name: str) -> int:
+        if name not in self.axis_names:
+            raise KeyError(f"no mesh axis {name!r}; axes {self.axis_names}")
+        return self.axis_names.index(name)
+
+    def size(self, name: str) -> int:
+        return self.shape[self._axis(name)]
+
+    def coord(self, name: str) -> int:
+        return self.coords[self._axis(name)]
+
+    def group(self, name: str):
+        return self.groups[self._axis(name)]
+
+
+def make_mesh(
+    shape: Optional[Sequence[int]] = None, axis_names: Sequence[str] = ("data", "edge"),
+) -> Mesh:
+    """Lay the default group's ranks out on a mesh, in row-major order.
+
+    Counterpart of ``graph_odenet_tpu/parallel/mesh.make_mesh``.  Without a
+    ``shape`` every rank is on the last axis (``(1, P)`` for two axes, ``(P,)``
+    for one).  ``(P,)`` with ``("edge",)`` is the layout every collective
+    takes with ``group=None``.  Every rank must call it with the same
+    arguments: each group of the mesh is created on every rank, in the same
+    order (``dist.new_subgroups_by_enumeration``).  Without a process group
+    the shape must be all ones.
+    """
+    n, rank = world()
+    axis_names = tuple(axis_names)
+    if shape is None:
+        shape = (1, n) if len(axis_names) == 2 else (n,)
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} does not name its axes {axis_names}")
+    if math.prod(shape) != n:
+        raise ValueError(f"mesh shape {shape} != {n} ranks")
+    ranks = np.arange(n).reshape(shape)
+    groups = []
+    for a, size in enumerate(shape):
+        if size == n:  # the whole default group, in rank order
+            groups.append(None)
+            continue
+        lines = np.moveaxis(ranks, a, -1).reshape(-1, size)
+        groups.append(dist.new_subgroups_by_enumeration(lines.tolist())[0])
+    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+    return Mesh(shape, axis_names, coords, tuple(groups))
 
 
 def device_for(device, rank: int) -> torch.device:
@@ -65,10 +144,11 @@ def bootstrap_distributed(
     return world()
 
 
-def check_backend(t: torch.Tensor) -> None:
-    """Raise unless the process group's backend moves ``t`` where it lies:
-    NCCL for a CUDA tensor, gloo for a CPU tensor."""
-    backend = dist.get_backend()
+def check_backend(t: torch.Tensor, group=None) -> None:
+    """Raise unless ``group``'s backend (the default group's when None)
+    moves ``t`` where it lies: NCCL for a CUDA tensor, gloo for a CPU
+    tensor."""
+    backend = dist.get_backend() if group is None else dist.get_backend(group)
     want = "nccl" if t.is_cuda else "gloo"
     if backend != want:
         raise ValueError(

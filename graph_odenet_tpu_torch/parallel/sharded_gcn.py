@@ -89,61 +89,66 @@ def forward_with(
 def forward(
     params: ShardedGCNODE, pg: PartitionedGraph, x: torch.Tensor, *, steps: int = 4,
     t1: float = 1.0, mode: str = "ring", dropout: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[torch.Generator] = None, group=None,
 ) -> torch.Tensor:
     """Log-probs of the rank's node block ``[B, C]``; ``x`` is its rows.
 
     ``dropout``/``generator``: feature dropout on training steps (pass a
     generator on the features' device, seeded alike on every rank).
+    ``group``: the process group the blocks are spread over (the default
+    group when None).
     """
-    _, me = world()
+    _, me = world(group)
     drop = None
     if dropout > 0.0 and generator is not None:
         rows = slice(me * pg.block_size, (me + 1) * pg.block_size)
         drop = lambda h: _feature_dropout(h, dropout, generator, rows, pg.n_node_pad)  # noqa: E731
-    agg = lambda h: spmm_sharded(pg, h, mode=mode)  # noqa: E731
+    agg = lambda h: spmm_sharded(pg, h, mode=mode, group=group)  # noqa: E731
     return forward_with(params, agg, x, steps=steps, t1=t1, drop=drop)
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ranks in place (nothing with one part); returns ``t``."""
-    if world()[0] > 1:
-        dist.all_reduce(t)
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over ``group``'s ranks in place (the default group when
+    None; nothing with one part); returns ``t``."""
+    if world(group)[0] > 1:
+        dist.all_reduce(t, group=group)
     return t
 
 
-def loss_fn(params, pg, x, labels_1h, weight, *, total_weight=None, **kw) -> torch.Tensor:
+def loss_fn(params, pg, x, labels_1h, weight, *, total_weight=None, group=None,
+            **kw) -> torch.Tensor:
     """The rank's share of the masked NLL: its sum over its rows divided by
-    the global weight (``total_weight``; all-reduced from ``weight`` when
-    not given).  The shares sum to the JAX package's loss."""
-    lp = forward(params, pg, x, **kw)
+    the global weight (``total_weight``; all-reduced from ``weight`` over
+    ``group`` when not given).  The shares sum to the JAX package's loss."""
+    lp = forward(params, pg, x, group=group, **kw)
     if total_weight is None:
-        total_weight = all_reduce_sum(weight.sum().detach())
+        total_weight = all_reduce_sum(weight.sum().detach(), group)
     return -(lp * labels_1h).sum(-1).mul(weight).sum() / torch.clamp(total_weight, min=1.0)
 
 
-def all_reduce_grads(params: nn.Module) -> None:
-    """Sum every parameter gradient over the ranks (one collective)."""
-    if world()[0] == 1:
+def all_reduce_grads(params: nn.Module, group=None) -> None:
+    """Sum every parameter gradient over ``group``'s ranks (the default
+    group when None; one collective)."""
+    if world(group)[0] == 1:
         return
     grads = [p.grad for p in params.parameters()]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     for g, v in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(v.view_as(g))
 
 
-def train_step(params, pg, x, labels_1h, weight, *, lr: float = 0.01, **kw):
-    """One SGD step on the global loss; returns ``(params, loss)``, with the
-    loss all-reduced."""
+def train_step(params, pg, x, labels_1h, weight, *, lr: float = 0.01, group=None, **kw):
+    """One SGD step on the global loss over ``group`` (the default group
+    when None); returns ``(params, loss)``, with the loss all-reduced."""
     params.zero_grad(set_to_none=True)
-    loss = loss_fn(params, pg, x, labels_1h, weight, **kw)
+    loss = loss_fn(params, pg, x, labels_1h, weight, group=group, **kw)
     loss.backward()
-    all_reduce_grads(params)
+    all_reduce_grads(params, group)
     with torch.no_grad():
         for p in params.parameters():
             p -= lr * p.grad
-    return params, all_reduce_sum(loss.detach())
+    return params, all_reduce_sum(loss.detach(), group)
 
 
 def shard_batch(n_parts: int, rank: int, *arrays):

@@ -2,6 +2,7 @@
 
 from graph_odenet_tpu_torch.train.node_classification import (  # noqa: F401
     NodeClassConfig,
+    adjacency,
     build_model,
     choose_representation,
     fit_node_classifier,

@@ -18,6 +18,7 @@ from typing import Optional, Union
 import torch
 
 from graph_odenet_tpu_torch.data.planetoid import NodeClassificationData
+from graph_odenet_tpu_torch.graph import to_dense
 from graph_odenet_tpu_torch.models import GAT, GATODE, GCN, GCNODE, ResGAT, ResGCN
 from graph_odenet_tpu_torch.ops.csr_spmm import prepare
 from graph_odenet_tpu_torch.utils.device import resolve_device
@@ -25,7 +26,8 @@ from graph_odenet_tpu_torch.utils.logging import MetricsLogger
 from graph_odenet_tpu_torch.utils.metrics import masked_accuracy, masked_nll
 
 __all__ = [
-    "NodeClassConfig", "GAT_FAMILY", "build_model", "choose_representation", "fit_node_classifier",
+    "NodeClassConfig", "GAT_FAMILY", "build_model", "choose_representation", "adjacency",
+    "fit_node_classifier",
 ]
 
 #: Largest padded graph that aggregates through dense Â by default.
@@ -102,6 +104,19 @@ def choose_representation(graph, model: str) -> str:
     return "kernel" if on_cuda else "segment"
 
 
+def adjacency(graph, representation: str):
+    """``graph`` (on its device) as a model's ``adj``: dense Â (``"dense"``),
+    the Graph itself for the segment ops (``"segment"``), or the CSR
+    kernel's ``CSRGraph`` (``"kernel"``)."""
+    if representation == "dense":
+        return to_dense(graph)
+    if representation == "segment":
+        return graph
+    if representation == "kernel":
+        return prepare(graph)
+    raise ValueError(f"unknown representation {representation!r}")
+
+
 def fit_node_classifier(
     cfg: NodeClassConfig,
     data: NodeClassificationData,
@@ -130,14 +145,7 @@ def fit_node_classifier(
         representation = (
             choose_representation(data.graph, cfg.model) if cfg.dense_adj else "segment"
         )
-    if representation == "dense":
-        adj = data.dense_adj()
-    elif representation == "segment":
-        adj = data.graph
-    elif representation == "kernel":
-        adj = prepare(data.graph)
-    else:
-        raise ValueError(f"unknown representation {representation!r}")
+    adj = adjacency(data.graph, representation)
 
     # Adam(weight_decay) adds L2 to the gradient, as the reference does.
     opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, weight_decay=cfg.weight_decay)

@@ -955,6 +955,27 @@ def test_sharded_gat_across_cards_over_nccl(cuda, tmp_path):
             np.testing.assert_allclose(r[k], one[k], atol=2e-3, err_msg=k)
 
 
+def test_feature_tp_across_cards_over_nccl(cuda, tmp_path):
+    """Feature-axis tensor parallelism across four cards over NCCL: a (edge,
+    feat) = (2, 2) mesh (``make_mesh``; the halo exchange on each edge
+    group, the width check on each feature group) on the full arxiv twin at
+    F = 256, ``spmm_sharded`` in ``ring`` and ``allgather`` against the
+    one-part ``spmm_csr`` on the same card (values and ``d sum(sin(·))/dx``,
+    rtol = atol = 1e-5), through B2.  Skips with fewer than four cards."""
+    from torch_dist_worlds import run_world
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    ranks = [r["feature_tp_world"] for r in run_world(
+        4, tmp_path, {"feature_tp_world": dict(scale=1.0, f=256, device="cuda")},
+        backend="nccl", timeout=600)]
+    print({"ranks": ranks})
+    assert sorted(r["coords"] for r in ranks) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    for r in ranks:
+        assert max(r["err_over_tol"].values()) <= 1.0, r["err_over_tol"]
+        assert r["launches"] > 0
+
+
 # ----------------------------------------- the Adams family, resume, sanitizers
 
 

@@ -8,7 +8,12 @@ rtol 2e-4); and its dropout mask, which does not depend on the partitioning
 modes with attention dropout against JAX's on the same mesh and against one
 part (values 1e-5, gradients 2e-5), and the sharded GAT-ODE under ``remat``
 (the recomputed forward posts its ring hops inside the backward) against
-JAX's and against one part."""
+JAX's and against one part.  And the meshes of two axes (``make_mesh``):
+feature-axis tensor parallelism on a (edge, feat) = (2, 2) mesh and a
+leading batch axis on a (data, edge) = (2, 2) mesh against JAX's
+single-device ``spmm`` (the JAX tests' tolerances), slices of unequal width
+refused, and two rings on subgroups of 2 ranks at once, each with its own
+result; and ``bench.scaling_bench`` over the 4 ranks."""
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +22,8 @@ import pytest
 import torch
 
 from graph_odenet_tpu.data.ogbn import synthetic_ogbn_arxiv as jtwin
+from graph_odenet_tpu.graph import from_edges as jfrom_edges
+from graph_odenet_tpu.ops import spmm as jspmm_one
 from graph_odenet_tpu.parallel import gat_sharded as jgat_sharded
 from graph_odenet_tpu.parallel import make_mesh
 from graph_odenet_tpu.parallel import partition_by_receiver as jpartition
@@ -40,6 +47,7 @@ STEPS, DROP_SEED = 2, 11
 GAT_MODES = ("ring", "ring_pallas")
 GAT_RATE, GAT_SEED = 0.4, 99
 GRAD_TOL = dict(rtol=2e-5, atol=2e-5)
+SPMM_2D_MODES = ("ring", "allgather")
 
 
 @pytest.fixture(scope="module")
@@ -63,11 +71,31 @@ def gat_inputs(jd):
     return _gat_inputs(jd.graph, 2, 4, seed=30)
 
 
+def _mesh_graph(seed, n, density, node_multiple):
+    """The JAX 2-D mesh tests' graphs: edges of a random ``[n, n]`` mask."""
+    rng = np.random.default_rng(seed)
+    s, r = np.nonzero(rng.random((n, n)) < density)
+    return rng, s, r, jfrom_edges(s, r, n_node=n, normalize="row", node_multiple=node_multiple)
+
+
 @pytest.fixture(scope="module")
-def all_ranks(tmp_path_factory, params, gat_params, gat_inputs):
+def mesh_inputs():
+    """``test_spmm_sharded_feature_tp``'s graph and ``x [64, 32]``, and
+    ``test_spmm_sharded_2d_mesh_data_by_edge``'s graph and ``xb [8, 96, 16]``."""
+    rng, s, r, g = _mesh_graph(3, 64, 0.3, 4)
+    x = rng.standard_normal((g.n_node_pad, 32)).astype(np.float32)
+    rng, s2, r2, g2 = _mesh_graph(7, 96, 0.06, 8)
+    xb = rng.standard_normal((8, g2.n_node_pad, 16)).astype(np.float32)
+    return dict(feat=(s, r, 64, x, g), data=(s2, r2, 96, xb, g2))
+
+
+@pytest.fixture(scope="module")
+def all_ranks(tmp_path_factory, params, gat_params, gat_inputs, mesh_inputs):
     """Every check of this module in one world: each rank's results by task."""
     x = np.random.default_rng(1).standard_normal((768, 16)).astype(np.float32)
     store = tmp_path_factory.mktemp("gloo4")
+    s, r, n, xf, _ = mesh_inputs["feat"]
+    s2, r2, n2, xb, _ = mesh_inputs["data"]
     return x, run_world(N_RANKS, store, {
         "spmm_modes": dict(scale=SCALE, x=x, modes=MODES),
         "sharded_gcn": dict(scale=SCALE, params=params, steps=STEPS, mode="ring",
@@ -76,6 +104,10 @@ def all_ranks(tmp_path_factory, params, gat_params, gat_inputs):
                           seed=GAT_SEED),
         "sharded_gatode": dict(scale=SCALE, params=gat_params, hidden=HIDDEN, heads=HEADS,
                                steps=STEPS, modes=GAT_MODES, remat=True, drop_seed=DROP_SEED),
+        "feature_tp": dict(s=s, r=r, n=n, x=xf, modes=SPMM_2D_MODES),
+        "data_edge": dict(s=s2, r=r2, n=n2, xb=xb, modes=SPMM_2D_MODES),
+        "two_rings": dict(scale=SCALE, x=x, params=params, steps=STEPS),
+        "scaling": dict(n_nodes=256, deg=8, feat=32, iters=2),
     })
 
 
@@ -200,3 +232,86 @@ def test_gatode_dropout_masks_do_not_depend_on_the_partitioning(all_ranks, gat_p
         four = np.concatenate([r["sharded_gatode"][mode]["lp_drop"] for r in all_ranks[1]])
         np.testing.assert_allclose(four, one.numpy(), **TOL)
         assert not np.allclose(four, plain.numpy(), atol=1e-3)  # the masks did drop
+
+
+# ------------------------------------------------------ meshes of two axes
+
+
+def _jax_rows_grad(g, x):
+    """JAX's single-device ``spmm(g, x)`` and ``d sum(spmm(g, x)²)/dx``."""
+    f = lambda v: jspmm_one(g, v)  # noqa: E731
+    out = f(jnp.asarray(x))
+    return np.asarray(out), np.asarray(jax.grad(lambda v: jnp.sum(f(v) ** 2))(jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("mode", SPMM_2D_MODES)
+def test_spmm_sharded_feature_tp_matches_jax(all_ranks, mesh_inputs, mode):
+    *_, x, g = mesh_inputs["feat"]
+    want, want_dx = _jax_rows_grad(g, x)
+    got, got_dx = np.zeros_like(want), np.zeros_like(want)
+    b, w = want.shape[0] // 2, want.shape[1] // 2
+    for rank in all_ranks[1]:
+        res = rank["feature_tp"]
+        e, f = res["coords"]
+        part = (slice(e * b, (e + 1) * b), slice(f * w, (f + 1) * w))
+        got[part], got_dx[part] = res[mode]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got_dx, want_dx, rtol=1e-5, atol=1e-6)
+
+
+def test_feature_slices_of_unequal_width_are_refused(all_ranks):
+    for rank in all_ranks[1]:
+        assert "differ in width" in rank["feature_tp"].get("mismatch", ""), rank["feature_tp"]
+
+
+@pytest.mark.parametrize("mode", SPMM_2D_MODES)
+def test_spmm_sharded_batch_axis_on_data_edge_mesh_matches_jax_vmap(all_ranks, mesh_inputs, mode):
+    *_, xb, g = mesh_inputs["data"]
+    f = jax.vmap(lambda v: jspmm_one(g, v))
+    want = np.asarray(f(jnp.asarray(xb)))
+    want_dx = np.asarray(jax.grad(lambda v: jnp.sum(f(v) ** 2))(jnp.asarray(xb)))
+    got, got_dx = np.zeros_like(want), np.zeros_like(want)
+    nb, b = want.shape[0] // 2, want.shape[1] // 2
+    for rank in all_ranks[1]:
+        res = rank["data_edge"]
+        d, e = res["coords"]
+        part = (slice(d * nb, (d + 1) * nb), slice(e * b, (e + 1) * b))
+        got[part], got_dx[part] = res[mode]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_dx, want_dx, rtol=1e-5, atol=1e-5)
+
+
+def test_two_rings_on_subgroups_each_give_their_own_result(all_ranks, jd, params):
+    x, ranks = all_ranks
+    td = synthetic_ogbn_arxiv(seed=0, scale=SCALE)
+    pg1 = partition_by_receiver(td.graph, 1)
+    model = sharded_gcn.init_params(td.features.shape[1], 16, td.n_class)
+    model.load_state_dict(params_from_sharded(params))
+    y1h, w = _labels_weight(td)
+    for ring in (0, 1):
+        members = [r["two_rings"] for r in ranks if r["two_rings"]["coords"][0] == ring]
+        assert [m["coords"][1] for m in members] == [0, 1]
+        xr = x * (ring + 1)
+        want, want_dx = _jax_rows_grad(jd.graph, xr)
+        for mode in ("allgather", "ring", "ring_pallas"):
+            np.testing.assert_allclose(np.concatenate([m[mode][0] for m in members]), want,
+                                       err_msg=f"ring {ring} {mode}", **TOL)
+            np.testing.assert_allclose(np.concatenate([m[mode][1] for m in members]), want_dx,
+                                       err_msg=f"ring {ring} {mode} dx", **TOL)
+        model.zero_grad(set_to_none=True)
+        loss = sharded_gcn.loss_fn(model, pg1, td.features * (ring + 1), y1h, w, steps=STEPS)
+        loss.backward()
+        for m in members:
+            np.testing.assert_array_equal(m["gathered"], xr)
+            np.testing.assert_allclose(m["sum"], xr.sum(0), rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(m["loss"], float(loss.detach()), **FWD_TOL)
+            for k, p in model.named_parameters():
+                np.testing.assert_allclose(m["grads"][k], p.grad.numpy(), err_msg=k, **FWD_TOL)
+
+
+def test_scaling_bench_over_four_ranks(all_ranks):
+    for rank in all_ranks[1]:
+        r = rank["scaling"]
+        assert (r["n_devices"], r["platform"], r["device"], r["harness_only"]) == (4, "cpu", "cpu",
+                                                                                   True)
+        assert r["t1_ms"] > 0 and r["tn_ms"] > 0 and r["efficiency"] > 0

@@ -38,7 +38,8 @@ def test_port_imports_no_jax():
         f"graph_odenet_tpu_torch/{name}.py"
         for name in ("ops/dropmask", "ops/gat_attn", "ops/sddmm", "models/gat", "ode/adaptive",
                      "data/ogbn", "parallel/halo", "parallel/partition", "parallel/trainer",
-                     "data/nbody", "models/interaction", "train/physics", "utils/plots", "ode/adjoint")
+                     "data/nbody", "models/interaction", "train/physics", "utils/plots", "ode/adjoint",
+                     "bench/__init__", "cli", "entry", "parallel/mesh")
     } <= names
     bad = {
         (str(f.relative_to(ROOT)), mod)

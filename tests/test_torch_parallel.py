@@ -283,7 +283,13 @@ def test_sharded_forward_dropout_draws_one_global_mask(twins):
         sharded_gcn.forward(model, pg, td.features, steps=2))
 
 
-def test_spmm_sharded_checks_and_unported_options(twins):
+def test_spmm_sharded_checks_and_unported_options(twins, monkeypatch):
+    """The argument checks; ``check_vma`` ignored; ``feat_axis`` refusing
+    slices of another width (a feature axis of two ranks, the other rank's
+    width delivered by a stand-in gather; the 4-rank gloo world runs the
+    real one)."""
+    from graph_odenet_tpu_torch.parallel import halo
+
     td, _ = twins
     x = torch.randn(td.graph.n_node_pad, 4)
     pg1 = partition_by_receiver(td.graph, 1)
@@ -293,13 +299,21 @@ def test_spmm_sharded_checks_and_unported_options(twins):
         spmm_sharded(pg1, x, mode="scatter")
     with pytest.raises(ValueError, match="rows"):
         spmm_sharded(pg1, x[:-1])
-    for kw in (dict(feat_axis="feat"), dict(check_vma=False)):
-        with pytest.raises(NotImplementedError, match="A20"):
-            spmm_sharded(pg1, x, **kw)
-    # One part: every mode is Â x.
+    # One part: every mode is Â x, whatever check_vma says.
     want = csr_spmm.spmm_csr_reference(csr_spmm.prepare(td.graph), x)
     for mode in ("allgather", "ring", "ring_pallas"):
-        torch.testing.assert_close(spmm_sharded(pg1, x, mode=mode), want, rtol=1e-5, atol=1e-6)
+        for vma in (None, False, True):
+            torch.testing.assert_close(spmm_sharded(pg1, x, mode=mode, check_vma=vma), want,
+                                       rtol=1e-5, atol=1e-6)
+    feat, other = object(), []
+    monkeypatch.setattr(halo, "world", lambda group=None: (2, 0) if group is feat else (1, 0))
+    monkeypatch.setattr(halo.dist, "all_gather_into_tensor",
+                        lambda out, t, group: out.copy_(torch.tensor([int(t[0]), other[-1]])))
+    other.append(3)
+    with pytest.raises(ValueError, match="width"):
+        spmm_sharded(pg1, x, feat_axis=feat)
+    other.append(4)
+    torch.testing.assert_close(spmm_sharded(pg1, x, feat_axis=feat), want, rtol=1e-5, atol=1e-6)
 
 
 # The keys of graph_odenet_tpu.configs.run_config(4)'s result.

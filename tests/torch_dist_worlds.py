@@ -189,6 +189,100 @@ def sharded_gatode(rank, n_ranks, *, scale, params, hidden, heads, steps, modes,
     return out
 
 
+def _edge_graph(s, r, n, node_multiple):
+    from graph_odenet_tpu_torch.graph import from_edges
+
+    return from_edges(s, r, n_node=n, normalize="row", node_multiple=node_multiple)
+
+
+def _rows_grad(fn, x):
+    """``fn(x)`` and ``d sum(fn(x)²)/dx`` (the JAX tests' loss), as numpy."""
+    x = x.clone().requires_grad_(True)
+    y = fn(x)
+    (y ** 2).sum().backward()
+    return _np(y), _np(x.grad)
+
+
+def feature_tp(rank, n_ranks, *, s, r, n, x, modes):
+    """A (edge, feat) = (2, 2) mesh: this rank's block rows of its column
+    slice of ``x``, through ``spmm_sharded`` with ``feat_axis``; per mode the
+    output and ``d sum(out²)/dx`` slices.  Then every rank of feat coordinate
+    1 passes a slice one column narrower: the error each rank raised."""
+    from graph_odenet_tpu_torch.parallel import make_mesh, partition_by_receiver, spmm_sharded
+
+    mesh = make_mesh((2, 2), ("edge", "feat"))
+    pg = partition_by_receiver(_edge_graph(s, r, n, 4), mesh.size("edge"))
+    b, w = pg.block_size, x.shape[1] // mesh.size("feat")
+    e, f = mesh.coord("edge"), mesh.coord("feat")
+    xs = torch.from_numpy(x[e * b:(e + 1) * b, f * w:(f + 1) * w])
+    kw = dict(group=mesh.group("edge"), feat_axis=mesh.group("feat"))
+    out = {mode: _rows_grad(lambda v: spmm_sharded(pg, v, mode=mode, **kw), xs)
+           for mode in modes}
+    try:
+        spmm_sharded(pg, xs[:, :w - f].contiguous(), **kw)
+    except ValueError as err:
+        out["mismatch"] = str(err)
+    return dict(out, coords=(e, f))
+
+
+def data_edge(rank, n_ranks, *, s, r, n, xb, modes):
+    """A (data, edge) = (2, 2) mesh: this rank's batch slice of its block's
+    rows of ``xb [b, N, F]`` through ``spmm_sharded`` (``check_vma=False``, as
+    the JAX test passes it); per mode the output and ``d sum(out²)/dx``."""
+    from graph_odenet_tpu_torch.parallel import make_mesh, partition_by_receiver, spmm_sharded
+
+    mesh = make_mesh((2, 2), ("data", "edge"))
+    pg = partition_by_receiver(_edge_graph(s, r, n, 8), mesh.size("edge"))
+    b, nb = pg.block_size, xb.shape[0] // mesh.size("data")
+    d, e = mesh.coord("data"), mesh.coord("edge")
+    xs = torch.from_numpy(xb[d * nb:(d + 1) * nb, e * b:(e + 1) * b])
+    out = {mode: _rows_grad(lambda v: spmm_sharded(pg, v, mode=mode, group=mesh.group("edge"),
+                                                   check_vma=False), xs)
+           for mode in modes}
+    return dict(out, coords=(d, e))
+
+
+def two_rings(rank, n_ranks, *, scale, x, params, steps):
+    """Two rings of 2 ranks at once, on the subgroups {0, 1} and {2, 3}; ring
+    p works on ``p + 1`` times ``x`` (and the twin's features): ``spmm_sharded``
+    in every mode with ``d sum(out²)/dx``, ``all_gather_rows`` and
+    ``all_reduce_sum`` of its block's row sums, and the sharded GCN-ODE's loss
+    and gradients all-reduced over the ring."""
+    from graph_odenet_tpu_torch.convert import params_from_sharded
+    from graph_odenet_tpu_torch.parallel import make_mesh, partition_by_receiver
+    from graph_odenet_tpu_torch.parallel import sharded_gcn as sg
+    from graph_odenet_tpu_torch.parallel import spmm_sharded
+    from graph_odenet_tpu_torch.parallel.halo import MODES, all_gather_rows
+
+    mesh = make_mesh((2, 2), ("ring", "edge"))
+    ring, group = mesh.coord("ring"), mesh.group("edge")
+    data = _twin(scale)
+    pg = partition_by_receiver(data.graph, mesh.size("edge"))
+    me, scale_ = mesh.coord("edge"), float(ring + 1)
+    (xs,) = sg.shard_batch(2, me, torch.from_numpy(x) * scale_)
+    out = {mode: _rows_grad(lambda v: spmm_sharded(pg, v, mode=mode, group=group), xs)
+           for mode in MODES}
+    out["gathered"] = _np(all_gather_rows(xs, group))
+    out["sum"] = _np(sg.all_reduce_sum(xs.sum(0), group))
+    model = sg.init_params(params["w_in"].shape[0], params["w_in"].shape[1], data.n_class)
+    model.load_state_dict(params_from_sharded(params))
+    y1h, w = _labels_weight(data)
+    xf, y1h, w = sg.shard_batch(2, me, data.features * scale_, y1h, w)
+    loss = sg.loss_fn(model, pg, xf, y1h, w, steps=steps, group=group)
+    loss.backward()
+    sg.all_reduce_grads(model, group)
+    out["loss"] = float(sg.all_reduce_sum(loss.detach(), group))
+    out["grads"] = {k: _np(p.grad) for k, p in model.named_parameters()}
+    return dict(out, coords=(ring, me))
+
+
+def scaling(rank, n_ranks, **kw):
+    """``bench.scaling_bench`` over the world."""
+    from graph_odenet_tpu_torch.bench import scaling_bench
+
+    return scaling_bench(device="cpu", **kw)
+
+
 def _labels_weight(data):
     """One-hot labels (zeros on padding) and the training-node weight."""
     n_pad = data.graph.n_node_pad
@@ -244,7 +338,7 @@ def config4_world(rank, n_ranks, *, scale, f, cfg, device):
     each mode's output rows and ``d sum(sin(Â x))/dx`` rows (error over rtol
     = atol = 1e-5 against the one-part ``spmm_csr``), then config 4's
     trainer."""
-    from graph_odenet_tpu_torch.ops import csr_spmm, prepare, spmm_csr
+    from graph_odenet_tpu_torch.ops import csr_spmm
     from graph_odenet_tpu_torch.parallel import (
         ShardedTrainConfig, fit_sharded_node_classifier, partition_by_receiver, spmm_sharded,
     )
@@ -254,18 +348,8 @@ def config4_world(rank, n_ranks, *, scale, f, cfg, device):
     data = _twin(scale)
     g = data.graph
     pg = partition_by_receiver(g, n_ranks).to(dev)
-    x = torch.from_numpy(
-        np.random.default_rng(0).standard_normal((g.n_node_pad, f)).astype(np.float32)).to(dev)
-    xr = x.clone().requires_grad_(True)
-    want = spmm_csr(prepare(g).to(dev), xr)
-    up = torch.cos(want).detach()
-    (want_dx,) = torch.autograd.grad(want, xr, up)
+    x, want, up, want_dx = _whole_graph_spmm(g, f, dev)
     rows = slice(rank * pg.block_size, (rank + 1) * pg.block_size)
-
-    def over_tol(a, b):
-        a, b = a.detach(), b.detach()
-        return float(((a - b).abs() / (1e-5 + 1e-5 * b.abs())).max())
-
     errs, ms = {}, {}
     for mode in ("allgather", "ring", "ring_pallas"):
         def fwd_bwd():
@@ -274,13 +358,64 @@ def config4_world(rank, n_ranks, *, scale, f, cfg, device):
             return y, torch.autograd.grad(y, xs, up[rows])[0]
 
         y, dx = fwd_bwd()
-        errs[mode] = max(over_tol(y, want[rows]), over_tol(dx, want_dx[rows]))
+        errs[mode] = max(_over_tol(y, want[rows]), _over_tol(dx, want_dx[rows]))
         ms[mode] = _wall_ms(fwd_bwd, dev)
     csr_spmm.bucket_launches = 0
     res = fit_sharded_node_classifier(ShardedTrainConfig(**cfg), data, device=device)
     res.pop("params")
     return dict(err_over_tol=errs, spmm_fwd_bwd_ms=ms, launches=csr_spmm.bucket_launches,
                 device=str(dev), **res)
+
+
+def _over_tol(a, b):
+    """Largest |a − b| over rtol = atol = 1e-5."""
+    a, b = a.detach(), b.detach()
+    return float(((a - b).abs() / (1e-5 + 1e-5 * b.abs())).max())
+
+
+def _whole_graph_spmm(g, f, dev):
+    """``x [N, f]`` (seed 0), ``Â x`` through the one-part ``spmm_csr`` on
+    ``dev``, the upstream ``cos(Â x)`` and ``d sum(sin(Â x))/dx``."""
+    from graph_odenet_tpu_torch.ops import prepare, spmm_csr
+
+    x = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((g.n_node_pad, f)).astype(np.float32)).to(dev)
+    xr = x.clone().requires_grad_(True)
+    want = spmm_csr(prepare(g).to(dev), xr)
+    up = torch.cos(want).detach()
+    return x, want.detach(), up, torch.autograd.grad(want, xr, up)[0]
+
+
+def feature_tp_world(rank, n_ranks, *, scale, f, device):
+    """A (edge, feat) = (ranks / 2, 2) mesh on the arxiv twin (on ``cuda:rank``
+    with ``device="cuda"``): per mode, this rank's slice of ``Â x`` and of ``d
+    sum(sin(Â x))/dx`` as error over rtol = atol = 1e-5 against the one-part
+    ``spmm_csr`` on the same device, and the ms of a fwd+bwd; B2's launches."""
+    from graph_odenet_tpu_torch.ops import csr_spmm
+    from graph_odenet_tpu_torch.parallel import make_mesh, partition_by_receiver, spmm_sharded
+    from graph_odenet_tpu_torch.parallel.mesh import device_for
+
+    dev = device_for(device, rank)
+    mesh = make_mesh((n_ranks // 2, 2), ("edge", "feat"))
+    g = _twin(scale).graph
+    pg = partition_by_receiver(g, mesh.size("edge")).to(dev)
+    x, want, up, want_dx = _whole_graph_spmm(g, f, dev)
+    e, c, b, w = mesh.coord("edge"), mesh.coord("feat"), pg.block_size, f // 2
+    part = (slice(e * b, (e + 1) * b), slice(c * w, (c + 1) * w))
+    kw = dict(group=mesh.group("edge"), feat_axis=mesh.group("feat"))
+    csr_spmm.bucket_launches = 0
+    errs, ms = {}, {}
+    for mode in ("ring", "allgather"):
+        def fwd_bwd():
+            xs = x[part].contiguous().requires_grad_(True)
+            y = spmm_sharded(pg, xs, mode=mode, **kw)
+            return y, torch.autograd.grad(y, xs, up[part].contiguous())[0]
+
+        y, dx = fwd_bwd()
+        errs[mode] = max(_over_tol(y, want[part]), _over_tol(dx, want_dx[part]))
+        ms[mode] = _wall_ms(fwd_bwd, dev)
+    return dict(err_over_tol=errs, spmm_fwd_bwd_ms=ms, launches=csr_spmm.bucket_launches,
+                coords=(e, c), device=str(dev))
 
 
 def gat_world(rank, n_ranks, *, scale, heads, feat, cfg, device):
@@ -353,4 +488,5 @@ def _wall_ms(fn, dev, iters=10):
 TASKS = {"spmm_modes": spmm_modes, "sharded_gcn": sharded_gcn, "train": train, "train_gat": train,
          "resume": resume,
          "config4_world": config4_world, "gat_modes": gat_modes, "sharded_gatode": sharded_gatode,
-         "gat_world": gat_world}
+         "gat_world": gat_world, "feature_tp": feature_tp, "data_edge": data_edge,
+         "two_rings": two_rings, "scaling": scaling, "feature_tp_world": feature_tp_world}
