@@ -187,6 +187,27 @@ so the exit code is non-zero:
              float64 at TOL: the two column halves at F=256 reduced apart
              and joined equal the whole, and ``[b, B, F]`` (one launch)
              equals ``b`` single calls.
+  bf16       (after surfaces) the bfloat16 tier.  (a) Each bf16 entry against
+             its plain version on the card on the same inputs: B1 fwd+bwd
+             (``csr_reduce`` on bf16 features, forward and transposed) on the
+             Pubmed twin at F = 16 and the bench graph at F = 128; B2 on the
+             arxiv twin at P = 8 and P = 1, F = 256 (every bucket's write,
+             add and CSC write forms); B4 and B5 on a bf16 Wh on the Citeseer
+             twin (H=8/F=8 with hash dropout 0.6, H=1/F=64, H=1/F=6) and the
+             bench graph (H=8/F=8 hash, H=1/F=128).  bf16 outputs within one
+             bf16 ulp plus ``BF16_ATOL``, the f32 outputs of B4/B5 at
+             ``BF16_F32_TOL``; each call one launch of its own kernel, 20
+             repeats bit-equal; ms of the bf16 call, the f32 call at the same
+             shape and the plain version, the bound with 2-byte features, and
+             ``torch.sparse.mm`` on bf16 CSR tensors or the error it raises.
+             B2's bf16 launches on a path: ``spmm_sharded`` fwd+bwd at one
+             part.  (b) ``pubmed-gcnode`` (B1) and config 2 (B3-B5) built
+             with ``dtype=torch.bfloat16`` (``param_dtype`` float32) and with
+             float32 from the same seed, trained by the trainer's recipe in
+             the smoke's own loop: step-0 loss, s/epoch, test accuracy (the
+             bf16 runs >= 0.65 and >= 0.60), peak memory, the kernel and bf16
+             launches (none of a plain version), and the ODE state's dtype
+             (bf16 for GCN-ODE, f32 for the GAT-ODE on the kernels).
 
 Then the kernel table (each kernel's launches on its main path, error,
 ms, plain ms, the bound of its work on an H100 and the library call's ms;
@@ -195,7 +216,9 @@ in pubmed-gatode's training runs with either adjoint; ``solver_launches``:
 B1's in the solvers phase's Adams trainings of pubmed-gcnode, B3-B5's in its
 adams_scan training of pubmed-gatode; ``resume_launches``: B2's and B2-w's in
 the resume phase's three runs of each model; ``surfaces_launches``: each
-kernel's in the surfaces phase, CLI subprocesses included),
+kernel's in the surfaces phase, CLI subprocesses included; ``bf16``: the
+bf16 entry's figures from the bf16 phase for B1, B2, B4 and B5, its
+``launches`` those of the bf16 model runs, for B2 of ``spmm_sharded``),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -307,6 +330,15 @@ RESUME_GAT_RTOL = 1e-6
 # leading axis and its width, and the kernels each bench record must launch.
 SURFACE_EPOCHS, A20_BATCH, A20_F = 30, 4, 64
 GAT_KERNELS = ("gat_fwd", "gat_bwd", "gat_dwh")
+# The bf16 phase.  A bf16 output (B1, B2) is held within one bf16 ulp of the
+# plain version's on the card plus BF16_ATOL (both round an f32 sum once, the
+# sums in other orders); the f32 outputs of B4/B5 on a bf16 Wh at
+# BF16_F32_TOL.  Every checked call is repeated BF16_REPEATS times, bit-equal.
+BF16_ATOL = 1e-5
+BF16_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_REPEATS = 20
+BF16_GAT_LIBRARY = ("none: no single PyTorch call computes a per-receiver softmax over the "
+                    "edge logits and the weighted gather")
 # The CLI's own main, run as a subprocess with every plain version refused; the
 # kernels' launch counts follow its JSON line.
 CLI_LAUNCHER = """
@@ -443,10 +475,11 @@ def bound(n_bytes, n_flops):
                 bound_by="bytes" if t_bytes >= t_flops else "operations")
 
 
-def spmm_work(n_rows, n_edge, f, accumulate=False):
+def spmm_work(n_rows, n_edge, f, accumulate=False, es=4):
     """(bytes, flops) of one SpMM ``out (+)= A x`` over a CSR view: x and out
-    (read too when added into), int64 row pointers, int32 columns, f32 weights."""
-    n_bytes = (3 if accumulate else 2) * n_rows * f * 4 + (n_rows + 1) * 8 + n_edge * 8
+    (read too when added into) of ``es`` bytes an element (4 f32, 2 bf16),
+    int64 row pointers, int32 columns, f32 weights."""
+    n_bytes = (3 if accumulate else 2) * n_rows * f * es + (n_rows + 1) * 8 + n_edge * 8
     return n_bytes, 2 * n_edge * f + (n_rows * f if accumulate else 0)
 
 
@@ -459,18 +492,19 @@ def weighted_bucket_work(n_rows, n_edge, h, f, accumulate=False):
     return n_bytes, 2 * n_edge * h * f + (n_rows * h * f if accumulate else 0)
 
 
-def attention_work(kernel, n, e, h, f):
+def attention_work(kernel, n, e, h, f, es=4):
     """(bytes, flops) of one call of a GAT kernel or the weighted SpMM on a
     graph of ``n`` padded nodes and ``e`` edges at H = ``h``, F = ``f``: each
-    input read once, each output written once; the f32 operations of the
+    input read once, each output written once, Wh in ``es`` bytes an element
+    (4 f32, 2 bf16; every other array f32); the f32 operations of the
     softmax and the weighted sums (the dropout hash's integer operations not
     counted)."""
     return {
         "csr_spmm_weighted": (2 * n * h * f * 4 + (n + 1) * 8 + e * 4 + e * h * 4,
                               2 * e * h * f),
-        "gat_fwd": (e * h * 4 + 2 * n * h * f * 4 + (n + 1) * 8 + e * 4 + 2 * n * h * 4,
+        "gat_fwd": (e * h * 4 + n * h * f * (es + 4) + (n + 1) * 8 + e * 4 + 2 * n * h * 4,
                     e * h * (2 * f + 5)),
-        "gat_bwd": (e * h * 4 + 2 * n * h * f * 4 + 3 * n * h * 4 + 2 * e * 4 + e * h * 4,
+        "gat_bwd": (e * h * 4 + n * h * f * (es + 4) + 3 * n * h * 4 + 2 * e * 4 + e * h * 4,
                     e * h * (2 * f + 6)),
         "gat_dwh": (4 * n * h * 4 + 2 * n * h * f * 4 + (n + 1) * 8 + e * 4,
                     e * h * (2 * f + 8)),
@@ -2365,6 +2399,336 @@ def phase_library(dev, graphs, iters=20):
     return out
 
 
+def _bf16_err(got, want, atol=BF16_ATOL):
+    """(max abs err, max err over tolerance) of bf16 ``got`` against bf16
+    ``want``, the tolerance one bf16 ulp of ``want`` plus ``atol`` (both
+    round an f32 sum once, the two sums in other orders); a NaN in ``got``
+    counts as an infinite error."""
+    w = want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - 8)  # |w| in [2^(e-1), 2^e), 8 bits
+    d = (got.float() - w).abs().nan_to_num(nan=float("inf"))
+    return float(d.max()), float((d / (ulp + atol)).max())
+
+
+def _bit_equal_repeats(fn, first, n=BF16_REPEATS):
+    """Whether ``n`` more calls of ``fn`` return ``first`` bit for bit."""
+    outs = [fn() for _ in range(n)]
+    torch.cuda.synchronize()
+    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
+    return all(a is b or torch.equal(a, b)  # None (no α·D asked for) is None
+               for o in outs for a, b in zip(as_tuple(o), as_tuple(first)))
+
+
+def _library_bf16(make, iters):
+    """ms of ``make()``'s call (``torch.sparse.mm`` on bf16 CSR tensors), or the
+    error torch raises for it."""
+    try:
+        fn = make()
+        return dict(library_ms=timed_ms(fn, iters))
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
+        return dict(library_ms=None, library_error=f"{type(exc).__name__}: {str(exc)[:200]}")
+
+
+def _bf16_row(name, errs, repeats, costs, times, work, **extra):
+    """One shape's record; raises unless every call is one launch of its own
+    kernel, the repeats are bit-equal and the errors within tolerance."""
+    over = max(e[1] for e in errs.values())
+    if over > 1.0 or not repeats:
+        raise AssertionError(f"bf16 {name}: {errs} of the tolerance, repeats equal: {repeats}")
+    for form, (c, kernel) in costs.items():
+        if c["launches_per_call"] > 1 or any(kernel not in k for k in c["kernels"]):
+            raise AssertionError(f"bf16 {name} {form}: {c['launches_per_call']} launches a "
+                                 f"call, kernels {c['kernels']}")
+    row = dict(shape=name, max_abs_err=max(e[0] for e in errs.values()), max_err_over_tol=over,
+               repeats_bit_equal=BF16_REPEATS,
+               launches_per_call={k: c["launches_per_call"] for k, (c, _) in costs.items()},
+               host_us={k: c["host_us"] for k, (c, _) in costs.items()},
+               device_us={k: c["device_us"] for k, (c, _) in costs.items()},
+               ms=times["bf16"], f32_ms=times["f32"], plain_ms=times["plain"],
+               **bound(*work), **extra)
+    emit("bf16_kernel", **row)
+    return row
+
+
+def bf16_spmm(name, g, f, dev, iters, seed):
+    """B1 fwd+bwd on bf16 features at one shape: ``csr_reduce(x)`` and
+    ``csr_reduce(g, transpose=True)`` against the plain version on the card."""
+    from graph_odenet_tpu_torch.ops import prepare
+    from graph_odenet_tpu_torch.ops.csr_spmm import _reduce_plain, csr_reduce
+
+    rng = np.random.default_rng(seed)
+    csr = prepare(g).to(dev)
+    x32, up32 = _randn(rng, (g.n_node_pad, f), dev), _randn(rng, (g.n_node_pad, f), dev)
+    x, up = x32.to(torch.bfloat16), up32.to(torch.bfloat16)
+
+    def plain():
+        return (_reduce_plain(csr.row_ptr, csr.senders, csr.weight, x),
+                _reduce_plain(csr.t_row_ptr, csr.t_receivers, csr.t_weight, up))
+
+    def kernel():
+        return csr_reduce(csr, x), csr_reduce(csr, up, transpose=True)
+
+    out, dx = kernel()
+    ref, dref = plain()
+    errs = {"fwd": _bf16_err(out, ref), "bwd": _bf16_err(dx, dref)}
+    repeats = _bit_equal_repeats(kernel, (out, dx))
+    costs = {"csr_fwd": (call_costs(lambda: csr_reduce(csr, x), calls=200), "csr_reduce_kernel"),
+             "csr_bwd": (call_costs(lambda: csr_reduce(csr, up, transpose=True), calls=200),
+                         "csr_reduce_kernel")}
+    times = alternate({
+        "bf16": kernel, "plain": plain,
+        "f32": lambda: (csr_reduce(csr, x32), csr_reduce(csr, up32, transpose=True)),
+    }, iters)
+
+    def library():
+        a, at = (m.to(torch.bfloat16) for m in _sparse_csr_pair(csr))
+        torch.sparse.mm(a, x)  # raises here where torch takes no bf16 CSR product
+        return lambda: (torch.sparse.mm(a, x), torch.sparse.mm(at, up))
+
+    work = (2 * v for v in spmm_work(g.n_node_pad, csr.n_edge, f, es=2))
+    return _bf16_row(f"{name}, F={f}, fwd+bwd", errs, repeats, costs, times, work,
+                     f32_bound_ms=bound(*(2 * v for v in spmm_work(g.n_node_pad, csr.n_edge,
+                                                                    f)))["bound_ms"],
+                     **_library_bf16(library, iters))
+
+
+def bf16_buckets(dev, graph, f, iters):
+    """B2 on bf16 rows of the arxiv twin at P = 8 and P = 1: every bucket's
+    write form (CSR view, into NaNs), add form (into random rows) and CSC
+    write form against the plain version on the card; at P = 1 the repeats,
+    costs and ms of fwd+bwd (the one bucket's CSR and CSC write forms)."""
+    from graph_odenet_tpu_torch.ops.csr_spmm import _bucket_reduce_plain, bucket_reduce
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver
+
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(41)
+    x32 = _randn(rng, (graph.n_node_pad, f), dev)
+    x = x32.to(bf16)
+    rows = {}
+    for n_parts in BUCKET_PARTS:
+        pg = partition_by_receiver(graph, n_parts).to(dev)
+        B = pg.block_size
+        errs = {}
+        nan = lambda: torch.full((B, f), float("nan"), device=dev, dtype=bf16)  # noqa: E731
+        for p in range(n_parts):
+            for b in range(n_parts):
+                bk, chunk = pg.bucket(p, b), x[b * B:(b + 1) * B]
+                base = _randn(rng, (B, f), dev).to(bf16)
+                for form, view, accumulate, start in (
+                        ("write", bk.fwd, False, nan), ("add", bk.fwd, True, base.clone),
+                        ("csc_write", bk.bwd, False, nan)):
+                    got = bucket_reduce(view, chunk, start(), accumulate=accumulate)
+                    want = _bucket_reduce_plain(view, chunk, start(), accumulate=accumulate)
+                    errs[form] = max(errs.get(form, (0.0, 0.0)), _bf16_err(got, want),
+                                     key=lambda e: e[1])
+        rows[n_parts] = errs
+    bk = pg.bucket(0, 0)  # P = 1: config 4 on one card
+    up32 = _randn(rng, (B, f), dev)
+    up = up32.to(bf16)
+
+    def fwd_bwd(xx, uu):
+        return (bucket_reduce(bk.fwd, xx, torch.empty_like(xx), accumulate=False),
+                bucket_reduce(bk.bwd, uu, torch.empty_like(uu), accumulate=False))
+
+    first = fwd_bwd(x, up)
+    repeats = _bit_equal_repeats(lambda: fwd_bwd(x, up), first)
+    out = torch.empty_like(x)
+    costs = {"write": (call_costs(lambda: bucket_reduce(bk.fwd, x, out, accumulate=False),
+                                  calls=100), "csr_reduce_kernel"),
+             "add": (call_costs(lambda: bucket_reduce(bk.fwd, x, out), calls=100),
+                     "csr_reduce_kernel")}
+    times = alternate({
+        "bf16": lambda: fwd_bwd(x, up), "f32": lambda: fwd_bwd(x32, up32),
+        "plain": lambda: (
+            _bucket_reduce_plain(bk.fwd, x, torch.empty_like(x), accumulate=False),
+            _bucket_reduce_plain(bk.bwd, up, torch.empty_like(up), accumulate=False)),
+    }, iters)
+
+    def library():
+        a, at = (_sparse_csr(v).to(bf16) for v in (bk.fwd, bk.bwd))
+        torch.sparse.mm(a, x)
+        return lambda: (torch.sparse.mm(a, x), torch.sparse.mm(at, up))
+
+    errs = {f"P={p} {form}": e for p, r in rows.items() for form, e in r.items()}
+    work = (2 * v for v in spmm_work(B, bk.fwd.n_edge, f, es=2))
+    return _bf16_row(f"arxiv twin, P=1, F={f}, fwd+bwd; every bucket at P=8 and P=1", errs,
+                     repeats, costs, times, work,
+                     f32_bound_ms=bound(*(2 * v for v in spmm_work(B, bk.fwd.n_edge, f)))[
+                         "bound_ms"], **_library_bf16(library, iters))
+
+
+def bf16_attention(name, g, heads, feat, hashed, dev, iters, seed):
+    """B4 and B5 on a bf16 Wh at one shape against their plain versions on the
+    card (f32 outputs, ``BF16_F32_TOL``); one record per kernel."""
+    from graph_odenet_tpu_torch.ops import gat_attn, prepare
+    from graph_odenet_tpu_torch.ops.sddmm import edge_scores
+
+    rng = np.random.default_rng(seed)
+    csr = prepare(g).to(dev)
+    n = g.n_node_pad
+    s_src, s_dst = (_randn(rng, (n, heads), dev) * 1.5 for _ in range(2))
+    logits = edge_scores(csr, s_src, s_dst)
+    wh32, up = _randn(rng, (n, heads, feat), dev), _randn(rng, (n, heads, feat), dev)
+    wh = wh32.to(torch.bfloat16)
+    drop = (4321 + seed, 0.6) if hashed else None
+    out, m, l = gat_attn.gat_fwd(csr, logits, wh, drop=drop)
+    beta = (up * out).sum(-1)
+    calls = {
+        "gat_fwd": (lambda w: gat_attn.gat_fwd(csr, logits, w, drop=drop),
+                    lambda: gat_attn.gat_fwd_plain(csr, logits, wh, drop=drop)),
+        "gat_bwd": (lambda w: gat_attn.gat_bwd(csr, logits, w, up, m, l, beta, drop=drop),
+                    lambda: gat_attn.gat_bwd_plain(csr, logits, wh, up, m, l, beta, drop=drop)),
+    }
+    shape = f"{name}, H={heads}, F={feat}{', hash dropout 0.6' if hashed else ''}"
+    rows = {}
+    for kernel, (call, plain) in calls.items():
+        got, want = call(wh), plain()
+        names = ("out", "m", "l") if kernel == "gat_fwd" else ("dlogits",)
+        errs = {k: _err(a, b.double(), BF16_F32_TOL) for k, a, b in zip(names, got, want)}
+        repeats = _bit_equal_repeats(lambda: call(wh), got)
+        costs = {kernel: (call_costs(lambda: call(wh), calls=200), f"{kernel}_kernel")}
+        times = alternate({"bf16": lambda: call(wh), "f32": lambda: call(wh32),
+                           "plain": plain}, iters)
+        work = attention_work(kernel, n, csr.n_edge, heads, feat, es=2)
+        rows[kernel] = _bf16_row(
+            f"{shape}, {kernel}", errs, repeats, costs, times, work,
+            f32_bound_ms=bound(*attention_work(kernel, n, csr.n_edge, heads, feat))["bound_ms"],
+            library_ms=None, library_error=BF16_GAT_LIBRARY)
+    return rows
+
+
+def bf16_train(cfg, data, adj, dtype, dev, gat):
+    """``cfg``'s model built with ``dtype`` (``param_dtype`` float32) and
+    trained by the trainer's recipe: Adam with the config's lr and weight
+    decay (L2 in the gradient), its epochs and early stopping on validation
+    loss, its dropout (the feature masks drawn in float32 whatever the
+    dtype, so both runs drop the same features).  The step-0 loss, s/epoch,
+    the best epoch's test accuracy, peak device memory and the kernel
+    launches; the dtype of the ODE state."""
+    from graph_odenet_tpu_torch.models import GATODE, GCNODE
+    from graph_odenet_tpu_torch.ops import csr_spmm, gat_attn
+    from graph_odenet_tpu_torch.utils.metrics import masked_accuracy, masked_nll
+
+    ode = dict(t1=cfg.t1, method=cfg.method, steps=cfg.steps, rtol=cfg.rtol, atol=cfg.atol,
+               adjoint=cfg.adjoint, activation=cfg.activation)
+    kw = dict(n_class=data.n_class, dropout=cfg.dropout, dtype=dtype,
+              generator=torch.Generator().manual_seed(cfg.seed), **ode)
+    n_in = data.features.shape[1]
+    model = (GATODE(n_in, hidden=cfg.hidden, heads=cfg.heads, **kw) if gat
+             else GCNODE(n_in, hidden=cfg.hidden, **kw)).to(dev)
+    states = []
+    model.odeblock.dynamics.register_forward_pre_hook(lambda m, a: states.append(a[2].dtype))
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, weight_decay=cfg.weight_decay)
+    gens = dict(generator=torch.Generator(device=dev).manual_seed(cfg.seed))
+    if gat:
+        gens["seed_generator"] = torch.Generator().manual_seed(cfg.seed)
+    best, bad, losses = dict(val_loss=float("inf"), test_acc=0.0, epoch=-1), 0, []
+    _zero_kernel_counts()
+    for counts in (csr_spmm.bf16_launches, gat_attn.bf16_launches):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        for epoch in range(cfg.epochs):
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            loss = masked_nll(model(adj, data.features, deterministic=False, **gens),
+                              data.labels, data.idx_train)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+            model.eval()
+            with torch.no_grad():
+                out = model(adj, data.features)
+                val_loss = float(masked_nll(out, data.labels, data.idx_val))
+            if val_loss < best["val_loss"]:
+                best = dict(val_loss=val_loss, epoch=epoch,
+                            test_acc=float(masked_accuracy(out, data.labels, data.idx_test)))
+                bad = 0
+            else:
+                bad += 1
+                if bad > cfg.patience:
+                    break
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(dtype=str(dtype).removeprefix("torch."), epochs_run=epoch + 1,
+                seconds_per_epoch=seconds / (epoch + 1), best=best,
+                step0_loss=float(losses[0]), last_loss=float(losses[-1]),
+                peak_bytes=torch.cuda.max_memory_allocated(dev), plain_calls=plain.count,
+                launches=_kernel_counts(),
+                bf16_launches={**csr_spmm.bf16_launches, **gat_attn.bf16_launches},
+                state_dtypes=sorted({str(d).removeprefix("torch.") for d in states}),
+                ode_stats=model.odeblock.stats)
+
+
+def bf16_sharded_launches(dev, graph, f, calls=3):
+    """B2 on bf16 rows through the entry point: ``spmm_sharded`` at one part
+    (mode ``ring``), forward and backward ``calls`` times; its bf16 launches
+    and the dtypes of its output and gradient."""
+    from graph_odenet_tpu_torch.ops import csr_spmm
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver, spmm_sharded
+
+    pg = partition_by_receiver(graph, 1).to(dev)
+    x = _randn(np.random.default_rng(42), (pg.block_size, f), dev).to(torch.bfloat16)
+    csr_spmm.bf16_launches["bucket"] = 0
+    with plain_calls() as plain:
+        for _ in range(calls):
+            xr = x.clone().requires_grad_(True)
+            out = spmm_sharded(pg, xr, mode="ring")
+            (dx,) = torch.autograd.grad(out, xr, torch.ones_like(out))
+        torch.cuda.synchronize()
+    if plain.count or (out.dtype, dx.dtype) != (torch.bfloat16, torch.bfloat16):
+        raise AssertionError(f"spmm_sharded in bf16: {plain.count} plain calls, "
+                             f"{out.dtype} out, {dx.dtype} gradient")
+    return csr_spmm.bf16_launches["bucket"]
+
+
+def phase_bf16(dev, data, bench_row, bench, arxiv, iters=20, bench_iters=10):
+    """The bf16 tier on the card (see the module doc)."""
+    from graph_odenet_tpu_torch.configs import get_config
+    from graph_odenet_tpu_torch.data import synthetic_planetoid
+    from graph_odenet_tpu_torch.ops import prepare
+
+    cite = synthetic_planetoid("citeseer", seed=42, calibrated=True).graph
+    spmm = [bf16_spmm("pubmed-twin", data.graph, 16, dev, iters, seed=50),
+            bf16_spmm("bench", bench_row, 128, dev, bench_iters, seed=51)]
+    bucket = bf16_buckets(dev, arxiv.graph, ARXIV_HIDDEN, bench_iters)
+    bucket["launches"] = bf16_sharded_launches(dev, arxiv.graph, ARXIV_HIDDEN)
+    att = [bf16_attention("citeseer-twin", cite, 8, 8, True, dev, iters, seed=52),
+           bf16_attention("citeseer-twin", cite, 1, 64, False, dev, iters, seed=53),
+           bf16_attention("citeseer-twin", cite, 1, 6, False, dev, iters, seed=54),
+           bf16_attention("bench", bench, 8, 8, True, dev, bench_iters, seed=55),
+           bf16_attention("bench", bench, 1, 128, False, dev, bench_iters, seed=56)]
+
+    models = {}
+    for name, gat in (("pubmed-gcnode", False), (2, True)):
+        _, cfg = get_config(name)
+        twin = data if not gat else synthetic_planetoid(
+            "citeseer", seed=cfg.seed, calibrated=True).to(dev)
+        adj = prepare(twin.graph)  # the kernels (B1; B3-B5)
+        runs = {str(d).removeprefix("torch."): bf16_train(cfg, twin, adj, d, dev, gat)
+                for d in (torch.float32, torch.bfloat16)}
+        r = runs["bfloat16"]
+        floor = GAT_MIN_TEST_ACC if gat else MIN_TEST_ACC
+        need = ("gat_fwd", "gat_bwd") if gat else ("csr",)
+        if r["plain_calls"] or not r["best"]["test_acc"] >= floor or not all(
+                r["bf16_launches"][k] > 0 for k in need) or (gat and not r["launches"]["gat_dwh"]):
+            raise AssertionError(f"{name} in bf16: {r}")
+        want_state = "float32" if gat else "bfloat16"  # the GAT kernels return f32
+        if r["state_dtypes"] != [want_state]:
+            raise AssertionError(f"{name} in bf16 integrated a {r['state_dtypes']} state")
+        models[str(name)] = runs
+        emit("bf16_model", config=str(name), dataset=twin.name, **{
+            k: {f: v[f] for f in ("epochs_run", "seconds_per_epoch", "best", "step0_loss",
+                                  "last_loss", "peak_bytes", "plain_calls", "bf16_launches",
+                                  "launches", "state_dtypes", "ode_stats")}
+            for k, v in runs.items()})
+    return dict(spmm=spmm, bucket=bucket, att=att, models=models)
+
+
 def main():
     import argparse
 
@@ -2428,6 +2792,7 @@ def main():
     adj = timed("adjoint", phase_adjoint, dev, data, args.adjoint_epochs)
     solver_launches = timed("solvers", phase_solvers, dev, data, arxiv.graph)
     surface_launches = timed("surfaces", phase_surfaces, dev, arxiv)
+    bf16 = timed("bf16", phase_bf16, dev, data, bench_row, bench, arxiv)
     del arxiv
     # Launches on the adjoint's paths: B1 in pubmed-gcnode's adjoint backward
     # steps, B3-B5 in pubmed-gatode's training runs with either adjoint.
@@ -2485,6 +2850,28 @@ def main():
                     for r in checked if r is not row})
         return entry
 
+    def bf16_entry(rows_of, launched, tolerance):
+        """The ``bf16`` object of a kernel's entry: the first row's shape, every
+        row's worst error over its tolerance, the others' figures."""
+        row = rows_of[0]
+        pick = ("ms", "f32_ms", "plain_ms", "bound_ms", "f32_bound_ms", "bound_by",
+                "library_ms", "library_error", "launches_per_call", "max_err_over_tol")
+        return dict(
+            {k: row[k] for k in pick if k in row}, launches=launched, shape=row["shape"],
+            max_err_over_tol=max(r["max_err_over_tol"] for r in rows_of), tolerance=tolerance,
+            repeats_bit_equal=BF16_REPEATS,
+            other_shapes={r["shape"]: {k: r[k] for k in pick if k in r} for r in rows_of[1:]})
+
+    ulp_tol = f"one bf16 ulp + {BF16_ATOL} against the plain version on the card"
+    f32_tol = "rtol=atol=1e-4 (f32 outputs) against the plain version on the card"
+    bf16_gcn = bf16["models"]["pubmed-gcnode"]["bfloat16"]["bf16_launches"]
+    bf16_gat = bf16["models"]["2"]["bfloat16"]["bf16_launches"]
+    bf16_objects = {
+        "csr_spmm": bf16_entry(bf16["spmm"], bf16_gcn["csr"], ulp_tol),
+        "csr_spmm_bucket": bf16_entry([bf16["bucket"]], bf16["bucket"]["launches"], ulp_tol),
+        **{k: bf16_entry([r[k] for r in bf16["att"]], bf16_gat[k], f32_tol)
+           for k in ("gat_fwd", "gat_bwd")},
+    }
     main_row = rows[0]  # the slice's shape: Pubmed twin, F = 16
     cite_row, mask_row = att[0], att[7]  # config 2's encoder shape; the bench's no-hint shape
     dyn_row = weighted_buckets[GAT_SHAPES[1]]  # the sharded GAT-ODE's dynamics: H = 1, F = 256
@@ -2509,6 +2896,7 @@ def main():
             "adjoint_launches": adjoint_launches["csr"],
             "solver_launches": solver_launches.get("csr", 0),
             "surfaces_launches": surface_launches.get("csr", 0),
+            "bf16": bf16_objects["csr_spmm"],
             "bare_ms": main_row["bare_ms"], "library_bare_ms": main_row["library_bare_ms"],
             "host_us": {k: c["host_us"] for k, c in main_row["call_costs"].items()},
             "device_launches_per_call": max(
@@ -2533,6 +2921,7 @@ def main():
             "shape": f"arxiv twin, P=1 (config 4 on one card), F={ARXIV_HIDDEN}, fwd+bwd",
             "resume_launches": resume_launches["bucket"],
             "surfaces_launches": surface_launches.get("bucket", 0),
+            "bf16": bf16_objects["csr_spmm_bucket"],
             "host_us_P8": {k: c["host_us"] for k, c in buckets[8]["call_costs"].items()},
             "device_launches_per_call": max(
                 c["launches_per_call"] for r in buckets.values() for c in r["call_costs"].values()),
@@ -2569,7 +2958,8 @@ def main():
         *(dict(att_entry(k, gat_src, replaces, cite_row, gat_launches[k], costs=True),
                adjoint_launches=adjoint_launches[k],
                solver_launches=solver_launches.get(k, 0),
-               surfaces_launches=surface_launches.get(k, 0)) for k, replaces in (
+               surfaces_launches=surface_launches.get(k, 0),
+               **({"bf16": bf16_objects[k]} if k in bf16_objects else {})) for k, replaces in (
             ("gat_fwd", "graph_odenet_tpu/ops/pallas_gat.py:206"),
             ("gat_bwd", "graph_odenet_tpu/ops/pallas_gat.py:890"),
             ("gat_dwh", "graph_odenet_tpu/ops/pallas_spmm.py:736"))),

@@ -30,6 +30,11 @@ edge-parallel GCN-ODE (``parallel.sharded_gcn.init_params``: ``w_in``,
 nine arrays of its edge-parallel GAT-ODE (``parallel.sharded_gat
 .init_gatode_params``), likewise kept by ``ShardedGATODE``.  Only numpy is
 read, so this module needs no JAX.
+
+Every leaf keeps its dtype.  A bfloat16 leaf (``param_dtype=bfloat16``)
+arrives as a numpy array of ``ml_dtypes``' bfloat16, which
+``torch.from_numpy`` refuses: it is widened to float32, which is exact, and
+rounded back with ``.to(torch.bfloat16)``, which is exact too.
 """
 
 from __future__ import annotations
@@ -46,6 +51,16 @@ __all__ = [
 
 _SHARDED_GCN = ("w_in", "b_in", "w_dyn", "b_dyn", "w_out", "b_out")
 _SHARDED_GAT = tuple(f"{p}_{layer}" for layer in ("enc", "dyn", "out") for p in ("w", "a_src", "a_dst"))
+
+
+def _tensor(value, transpose: bool = False) -> torch.Tensor:
+    """A numpy leaf as a tensor of its own dtype (bf16 through float32)."""
+    bf16 = getattr(value, "dtype", None) is not None and value.dtype.name == "bfloat16"
+    a = np.asarray(value, dtype=np.float32) if bf16 else np.asarray(value)
+    if transpose:
+        a = a.reshape(a.shape[0], -1).T
+    t = torch.from_numpy(np.array(a, order="C"))
+    return t.to(torch.bfloat16) if bf16 else t
 
 
 def _module_name(flax_name: str, in_dynamics: bool) -> str:
@@ -75,11 +90,9 @@ def params_from_flax(tree: Mapping) -> dict:
                     in_dynamics or name == "dynamics",
                 )
             elif name == "kernel":
-                kernel = np.asarray(value, dtype=np.float32)
-                kernel = kernel.reshape(kernel.shape[0], -1)
-                out[prefix + "weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T))
+                out[prefix + "weight"] = _tensor(value, transpose=True)
             elif name in ("bias", "attn_src", "attn_dst"):
-                out[prefix + name] = torch.from_numpy(np.array(value, dtype=np.float32))
+                out[prefix + name] = _tensor(value)
             else:
                 raise KeyError(f"no torch counterpart for flax parameter {prefix}{name}")
 
@@ -98,11 +111,8 @@ def params_from_interaction(tree: Mapping) -> dict:
         for name, value in node.items():
             m = re.fullmatch(r"Dense_(\d+)", name)
             if m:
-                kernel = np.asarray(value["kernel"], dtype=np.float32)
-                out[f"{prefix}layers.{m.group(1)}.weight"] = torch.from_numpy(
-                    np.ascontiguousarray(kernel.T))
-                out[f"{prefix}layers.{m.group(1)}.bias"] = torch.from_numpy(
-                    np.array(value["bias"], dtype=np.float32))
+                out[f"{prefix}layers.{m.group(1)}.weight"] = _tensor(value["kernel"], transpose=True)
+                out[f"{prefix}layers.{m.group(1)}.bias"] = _tensor(value["bias"])
             elif name in _INTERACTION_MODULES:
                 walk(value, f"{prefix}{_INTERACTION_MODULES[name]}.")
             else:
@@ -115,7 +125,7 @@ def params_from_interaction(tree: Mapping) -> dict:
 def _flat_params(params: Mapping, names: tuple) -> dict:
     if sorted(params) != sorted(names):
         raise KeyError(f"expected the parameters {names}, got {sorted(params)}")
-    return {k: torch.from_numpy(np.array(params[k], dtype=np.float32)) for k in names}
+    return {k: _tensor(params[k]) for k in names}
 
 
 def params_from_sharded(params: Mapping) -> dict:

@@ -61,8 +61,20 @@
 // kernel's alpha3d mode that parallel/halo.py::_bucket_spmm_weighted runs per
 // ring hop of the edge-partitioned GAT, forward over the bucket's CSR view and
 // backward (numerators permuted) over its CSC view.
+//
+// bfloat16 (gode_csr_reduce_bf16): x and out in bf16, the plain and bucket
+// modes (scaled and positional), for JAX's bf16-training tier (spmm_pallas
+// on bf16 messages, whose kernels add in f32 and write the messages' dtype).
+// A lane loads 4 bf16 (8 bytes) or 1 and widens them to floats; weights,
+// products, the edge slots' shuffles, the split rows' partial rows and
+// their merge stay f32, and each output element is rounded once, when it is
+// stored (the accumulate form adds the f32 sum to the widened out, then
+// rounds).  The bytes halve; the schedule is the f32 one.  The weighted
+// modes take f32 only: their tables (the GAT backward's g) are f32.
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "segments.cuh"
 
@@ -83,8 +95,8 @@ enum class Mode : int { kScaled = 0, kAlpha = 1, kPositional = 2 };
 // f .. f+V-1 (`live`: f < F).  Every lane runs the same number of steps, so
 // the shuffles see the whole warp.  Single lanes (V = 1): each edge slot
 // loads its own edges' columns and weights.
-template <int G, int V, Mode kMode>
-__device__ __forceinline__ Lane<V> gather_segment(const CsrPlan& plan, const float* __restrict__ x,
+template <int G, int V, Mode kMode, class T>
+__device__ __forceinline__ Lane<V> gather_segment(const CsrPlan& plan, const T* __restrict__ x,
                                                   const float* __restrict__ alpha, int64_t F,
                                                   int64_t heads, int64_t head, int64_t p0,
                                                   int64_t p1, int lane, int64_t f, bool live) {
@@ -96,7 +108,7 @@ __device__ __forceinline__ Lane<V> gather_segment(const CsrPlan& plan, const flo
       if constexpr (kMode == Mode::kPositional) {
         acc.add(Lane<V>::ldg(x + p * F + f));
       } else {
-        const float* row = x + static_cast<int64_t>(__ldg(plan.col + p)) * F + f;
+        const T* row = x + static_cast<int64_t>(__ldg(plan.col + p)) * F + f;
         acc.fma(kMode == Mode::kScaled ? __ldg(plan.w + p) : __ldg(alpha + p * heads + head),
                 Lane<V>::ldg(row));
       }
@@ -145,11 +157,12 @@ __device__ __forceinline__ Lane<V> gather_segment(const CsrPlan& plan, const flo
 }
 
 // Grid: warp items (segment s, chunk k) with the chunk slowest, then, in the
-// write form, one warp per empty row.  A chunk is G*V features wide.
-template <int G, int V, Mode kMode>
+// write form, one warp per empty row.  A chunk is G*V features wide.  T is
+// the storage type of x and out (float or __nv_bfloat16).
+template <int G, int V, Mode kMode, class T>
 __global__ void __launch_bounds__(kThreads)
-csr_reduce_kernel(const CsrPlan plan, const float* __restrict__ x, const float* __restrict__ alpha,
-                  float* __restrict__ out, float* __restrict__ partial, int64_t F, int64_t feat,
+csr_reduce_kernel(const CsrPlan plan, const T* __restrict__ x, const float* __restrict__ alpha,
+                  T* __restrict__ out, float* __restrict__ partial, int64_t F, int64_t feat,
                   int64_t n_chunks, int add) {
   constexpr int64_t kWidth = G * V;
   const int64_t item = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
@@ -158,7 +171,7 @@ csr_reduce_kernel(const CsrPlan plan, const float* __restrict__ x, const float* 
   if (item >= n_items) {  // the write form's empty rows: zeros
     const int64_t j = item - n_items;
     if (add || j >= plan.n_empty) return;
-    float* dst = out + static_cast<int64_t>(plan.empty_row[j]) * F;
+    T* dst = out + static_cast<int64_t>(plan.empty_row[j]) * F;
     for (int64_t f = static_cast<int64_t>(lane) * V; f < F; f += 32 * V) Lane<V>::zero().st(dst + f);
     return;
   }
@@ -169,21 +182,21 @@ csr_reduce_kernel(const CsrPlan plan, const float* __restrict__ x, const float* 
   const bool live = f < F;  // F % V == 0, so the lane's V features are all in range
   const int64_t heads = kMode == Mode::kAlpha ? F / feat : 1;
   const int64_t head = kMode == Mode::kAlpha ? (live ? f / feat : 0) : 0;
-  Lane<V> acc = gather_segment<G, V, kMode>(plan, x, alpha, F, heads, head, plan.seg_ptr[s],
+  Lane<V> acc = gather_segment<G, V, kMode, T>(plan, x, alpha, F, heads, head, plan.seg_ptr[s],
                                             plan.seg_ptr[s + 1], lane, f, live);
   int64_t row = plan.seg_row[s];
   const int slot = plan.seg_slot[s];
   // A segment of a split row: only the last of the row's warps to arrive writes it.
   if (slot >= 0 && !merge_split_row<G, V>(plan, slot, chunk, partial, F, f, live, acc, row)) return;
   if (sub == 0 && live) {
-    float* dst = out + row * F + f;
+    T* dst = out + row * F + f;
     if (add) acc.add(Lane<V>::ld(dst));
     acc.st(dst);
   }
 }
 
-template <int G, int V>
-int launch(const CsrPlan& plan, const float* x, const float* alpha, float* out, float* partial,
+template <int G, int V, class T>
+int launch(const CsrPlan& plan, const T* x, const float* alpha, T* out, float* partial,
            int64_t F, int64_t feat, int mode, int add, cudaStream_t st) {
   const int64_t n_chunks = (F + G * V - 1) / (G * V);
   if (plan.n_split * n_chunks > plan.n_arrivals) return static_cast<int>(cudaErrorInvalidValue);
@@ -194,50 +207,49 @@ int launch(const CsrPlan& plan, const float* x, const float* alpha, float* out, 
   const unsigned nb = static_cast<unsigned>(blocks);
   switch (static_cast<Mode>(mode)) {
     case Mode::kScaled:
-      csr_reduce_kernel<G, V, Mode::kScaled>
+      csr_reduce_kernel<G, V, Mode::kScaled, T>
           <<<nb, kThreads, 0, st>>>(plan, x, alpha, out, partial, F, feat, n_chunks, add);
       break;
-    case Mode::kAlpha:
-      csr_reduce_kernel<G, V, Mode::kAlpha>
-          <<<nb, kThreads, 0, st>>>(plan, x, alpha, out, partial, F, feat, n_chunks, add);
+    case Mode::kAlpha:  // f32 only: the entries refuse bf16 in this mode
+      if constexpr (std::is_same_v<T, float>) {
+        csr_reduce_kernel<G, V, Mode::kAlpha, T>
+            <<<nb, kThreads, 0, st>>>(plan, x, alpha, out, partial, F, feat, n_chunks, add);
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
       break;
     default:
-      csr_reduce_kernel<G, V, Mode::kPositional>
+      csr_reduce_kernel<G, V, Mode::kPositional, T>
           <<<nb, kThreads, 0, st>>>(plan, x, alpha, out, partial, F, feat, n_chunks, add);
       break;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// One launch: out (+)= A x over the view of `plan` (see the header).  `mode`:
-// 0 scaled by the plan's weights, 1 weighted by alpha [L, F / feat] (feat
-// divides F), 2 positional (x is the view's [>= L, F] message array).
-// `lanes` (G, a power of two <= 32) and `vec` (V, 1 or 4) shape a warp item;
-// V = 4 needs F % 4 == 0, G >= 8, x and out 16-byte aligned and, weighted,
-// feat % 4 == 0.  `accumulate` nonzero adds into out; zero writes every row
-// of out (the plan's empty rows with zeros) and reads none.  `partial` holds
-// one row of F floats per slot of the split rows and may be null when the
-// plan has none; the plan's arrival counters must cover n_split times the
-// number of chunks.  Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() after the launch (0 on success).
-extern "C" int gode_csr_reduce_f32(const CsrPlan* plan, const float* x, const float* alpha,
-                                   float* out, float* partial, int64_t F, int64_t feat, int mode,
-                                   int lanes, int vec, int accumulate, void* stream) {
+// Both entries: the checks, then one launch.  `kAlign` is the alignment of a
+// V = 4 lane's x and out rows (16 bytes for f32, 8 for bf16).
+template <class T>
+int reduce_entry(const CsrPlan* plan, const T* x, const float* alpha, T* out, float* partial,
+                 int64_t F, int64_t feat, int mode, int lanes, int vec, int accumulate,
+                 void* stream) {
   const auto bad = static_cast<int>(cudaErrorInvalidValue);
   if (F < 1 || feat < 1 || F % feat != 0 || mode < 0 || mode > 2) return bad;
   if (plan->n_split > 0 && partial == nullptr) return bad;
   if (vec == 4) {
-    const auto misaligned = [](const void* p) {
-      return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+    const auto misaligned = [](const void* p, uintptr_t a) {
+      return reinterpret_cast<uintptr_t>(p) % a != 0;
     };
-    if (F % 4 != 0 || misaligned(x) || misaligned(out) || misaligned(partial)) return bad;
+    constexpr uintptr_t kAlign = 4 * sizeof(T);
+    if (F % 4 != 0 || misaligned(x, kAlign) || misaligned(out, kAlign) ||
+        misaligned(partial, 16)) {
+      return bad;
+    }
     if (mode == static_cast<int>(Mode::kAlpha) && feat % 4 != 0) return bad;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int add = accumulate != 0;
-#define GODE_LAUNCH(G_, V_) return launch<G_, V_>(*plan, x, alpha, out, partial, F, feat, mode, add, st)
+#define GODE_LAUNCH(G_, V_) \
+  return launch<G_, V_, T>(*plan, x, alpha, out, partial, F, feat, mode, add, st)
   if (vec == 4) {
     switch (lanes) {
       case 8: GODE_LAUNCH(8, 4);
@@ -257,4 +269,35 @@ extern "C" int gode_csr_reduce_f32(const CsrPlan* plan, const float* x, const fl
     default: return bad;
   }
 #undef GODE_LAUNCH
+}
+
+}  // namespace
+
+// One launch: out (+)= A x over the view of `plan` (see the header).  `mode`:
+// 0 scaled by the plan's weights, 1 weighted by alpha [L, F / feat] (feat
+// divides F), 2 positional (x is the view's [>= L, F] message array).
+// `lanes` (G, a power of two <= 32) and `vec` (V, 1 or 4) shape a warp item;
+// V = 4 needs F % 4 == 0, G >= 8, x and out 16-byte aligned and, weighted,
+// feat % 4 == 0.  `accumulate` nonzero adds into out; zero writes every row
+// of out (the plan's empty rows with zeros) and reads none.  `partial` holds
+// one row of F floats per slot of the split rows and may be null when the
+// plan has none; the plan's arrival counters must cover n_split times the
+// number of chunks.  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int gode_csr_reduce_f32(const CsrPlan* plan, const float* x, const float* alpha,
+                                   float* out, float* partial, int64_t F, int64_t feat, int mode,
+                                   int lanes, int vec, int accumulate, void* stream) {
+  return reduce_entry<float>(plan, x, alpha, out, partial, F, feat, mode, lanes, vec, accumulate,
+                             stream);
+}
+
+// The same launch on bf16 x and out (modes 0 and 2; mode 1 is refused):
+// features widened to f32, summed in f32 (partial rows included), each
+// output element rounded once.  V = 4 needs x and out 8-byte aligned.
+extern "C" int gode_csr_reduce_bf16(const CsrPlan* plan, const __nv_bfloat16* x,
+                                    __nv_bfloat16* out, float* partial, int64_t F, int mode,
+                                    int lanes, int vec, int accumulate, void* stream) {
+  if (mode == static_cast<int>(Mode::kAlpha)) return static_cast<int>(cudaErrorInvalidValue);
+  return reduce_entry<__nv_bfloat16>(plan, x, nullptr, out, partial, F, 1, mode, lanes, vec,
+                                     accumulate, stream);
 }

@@ -1,5 +1,6 @@
 // Fused GAT attention for Hopper (sm_90a): forward, α/dlogit backward and
-// recompute-α dWh.  f32 only; index math is 64-bit where it indexes edges.
+// recompute-α dWh.  f32, and gat_fwd and gat_bwd also on a bf16 Wh (below);
+// index math is 64-bit where it indexes edges.
 // Every sum is taken in a fixed order, so every result is deterministic.
 //
 // Replaces, in graph_odenet_tpu/ops/:
@@ -74,9 +75,19 @@
 //     the last warp to arrive (segments.cuh::merge_split_row, as the CSR
 //     kernel does), so a call is one launch; an edgeless row's one empty
 //     segment writes zeros, so every row is written.
+// bfloat16 (gode_gat_fwd_bf16, gode_gat_bwd_bf16): the counterpart of JAX's
+// kernels on a bf16 Wh, which upcast the gathered values and compute and
+// return f32 (pallas_gat.py::_vals_edge_major, out_shape f32).  Only the Wh
+// gathers change: a lane loads 4 bf16 (8 bytes) or 1 and widens them
+// (segments.cuh::Lane), so the dominant bytes halve.  The logits, the
+// per-warp weight tile, the dropout hash, g, m, l, β and every output (out,
+// the partial states, dlogits) stay f32.  gat_dwh reads g and the score
+// tables only, all f32, and has no bf16 form; its caller rounds dWh to Wh's
+// dtype.
 
 #include <cmath>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "dropmask.cuh"
@@ -160,10 +171,10 @@ __device__ __forceinline__ void add_weighted(Lane<V>& acc, const float* tile, in
 // exactly D, so a sender that dominates many rows rounds its D·Wh the same
 // way in each of them, and the backward's sums over that sender (its dWh)
 // add those errors up instead of averaging them out.
-template <int G, int V>
+template <int G, int V, class TW>
 __global__ void __launch_bounds__(kThreads)
 gat_fwd_kernel(const CsrPlan plan, const float* __restrict__ logits,
-               const float* __restrict__ wh, DropMask mask, float* __restrict__ out,
+               const TW* __restrict__ wh, DropMask mask, float* __restrict__ out,
                float* __restrict__ m_out, float* __restrict__ l_out,
                float* __restrict__ p_acc, float* __restrict__ p_stat, int H, int F, int Hp,
                int n_chunks) {
@@ -324,10 +335,10 @@ constexpr int kZeroPerWarp = 1024;  // padding floats of dlogits one warp zeroes
 // a batch's α [32][Hk], its D [32][Hk] and its senders [32]; the (edge, head)
 // pairs are j = l / Hk + k·(32 / Hk), head l % Hk of the chunk.  Then the
 // warp items past n_seg·n_chunks: zeros for dlogits[E·H, n_rows·H).
-template <int V>
+template <int V, class TW>
 __global__ void __launch_bounds__(kThreads)
 gat_bwd_kernel(const CsrPlan plan, const float* __restrict__ logits,
-               const float* __restrict__ wh, const float* __restrict__ g,
+               const TW* __restrict__ wh, const float* __restrict__ g,
                const float* __restrict__ m, const float* __restrict__ l,
                const float* __restrict__ beta, DropMask mask, float* __restrict__ dlogits,
                float* __restrict__ alpha_d, int H, int F, int Lh, int K, int Ge, int n_chunks,
@@ -505,25 +516,27 @@ DropMask make_mask(int mode, const float* dmask, uint32_t seed, uint32_t keep24,
   return DropMask{mode, dmask, seed, keep24, inv_keep};
 }
 
-bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
+bool misaligned(const void* p, uintptr_t align = 16) {
+  return reinterpret_cast<uintptr_t>(p) % align != 0;
+}
 
 bool power_of_two_to_32(int x) { return x >= 1 && x <= 32 && (x & (x - 1)) == 0; }
 
-template <int G, int V>
-int launch_fwd(const CsrPlan& plan, const float* logits, const float* wh, DropMask mask,
+template <int G, int V, class TW>
+int launch_fwd(const CsrPlan& plan, const float* logits, const TW* wh, DropMask mask,
                float* out, float* m, float* l, float* p_acc, float* p_stat, int H, int F, int Hp,
                int n_chunks, cudaStream_t st) {
   const int64_t blocks = (plan.n_seg * n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (int rc = check_launch(blocks)) return rc;
   if (blocks == 0) return 0;
   const size_t smem = static_cast<size_t>(kWarpsPerBlock) * 32 * (Hp + 1) * sizeof(float);
-  gat_fwd_kernel<G, V><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+  gat_fwd_kernel<G, V, TW><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
       plan, logits, wh, mask, out, m, l, p_acc, p_stat, H, F, Hp, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int V>
-int launch_bwd(const CsrPlan& plan, const float* logits, const float* wh, const float* g,
+template <int V, class TW>
+int launch_bwd(const CsrPlan& plan, const float* logits, const TW* wh, const float* g,
                const float* m, const float* l, const float* beta, DropMask mask, float* dlogits,
                float* alpha_d, int H, int F, int Lh, int K, int Ge, int n_chunks, int64_t n_edge,
                int64_t n_rows, cudaStream_t st) {
@@ -535,11 +548,11 @@ int launch_bwd(const CsrPlan& plan, const float* logits, const float* wh, const 
   const int Hk = Ge / Lh;
   const int smem = kWarpsPerBlock * (64 * Hk + 32) * static_cast<int>(sizeof(float));
   if (smem > 48 * 1024) {  // above 48 KB only by the kernel's attribute
-    cudaError_t rc = cudaFuncSetAttribute(gat_bwd_kernel<V>,
+    cudaError_t rc = cudaFuncSetAttribute(gat_bwd_kernel<V, TW>,
                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  gat_bwd_kernel<V><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+  gat_bwd_kernel<V, TW><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
       plan, logits, wh, g, m, l, beta, mask, dlogits, alpha_d, H, F, Lh, K, Ge, n_chunks, n_edge,
       n_rows);
   return static_cast<int>(cudaGetLastError());
@@ -556,6 +569,78 @@ int launch_dwh(const CsrPlan& plan, const float* s_src, const float* s_dst, cons
   gat_dwh_kernel<G, V><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
       plan, s_src, s_dst, m, l, g, slope, mask, out, partial, H, F, Hp, n_chunks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The checks and the launch of gode_gat_fwd_{f32,bf16}: TW is wh's storage
+// type, and a float4 lane's wh rows are aligned to 4 of it.
+template <class TW>
+int fwd_entry(const CsrPlan* plan, const float* logits, const TW* wh, int mask_mode,
+              const float* dmask, uint32_t seed, uint32_t keep24, float inv_keep, float* out,
+              float* m, float* l, float* p_acc, float* p_stat, int64_t H, int64_t F, int lanes,
+              int vec, int hp, void* stream) {
+  const auto bad = static_cast<int>(cudaErrorInvalidValue);
+  if (H < 1 || F < 1 || H * F > 0x7fffffff || mask_mode < 0 || mask_mode > 2) return bad;
+  if (!power_of_two_to_32(lanes) || !power_of_two_to_32(hp) || (vec != 1 && vec != 4)) return bad;
+  const int h = static_cast<int>(H), f = static_cast<int>(F), width = lanes * vec;
+  const int n_chunks = (h * f + width - 1) / width;
+  for (int c = 0, first; c < n_chunks; ++c) {
+    if (chunk_heads(c, width, h, f, &first) > hp) return bad;
+  }
+  if (plan->n_split > 0 && (p_acc == nullptr || p_stat == nullptr)) return bad;
+  if (plan->n_split * n_chunks > plan->n_arrivals) return bad;
+  if (vec == 4 && (f % 4 != 0 || lanes < 8 || misaligned(wh, 4 * sizeof(TW)) || misaligned(out) ||
+                   (p_acc != nullptr && misaligned(p_acc)))) {
+    return bad;
+  }
+  const DropMask mask = make_mask(mask_mode, dmask, seed, keep24, inv_keep);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GODE_FWD(G_, V_)                                                                     \
+  return launch_fwd<G_, V_, TW>(*plan, logits, wh, mask, out, m, l, p_acc, p_stat, h, f, hp, \
+                                n_chunks, st)
+  if (vec == 4) {
+    switch (lanes) {
+      case 8: GODE_FWD(8, 4);
+      case 16: GODE_FWD(16, 4);
+      case 32: GODE_FWD(32, 4);
+      default: return bad;
+    }
+  }
+  switch (lanes) {
+    case 1: GODE_FWD(1, 1);
+    case 2: GODE_FWD(2, 1);
+    case 4: GODE_FWD(4, 1);
+    case 8: GODE_FWD(8, 1);
+    case 16: GODE_FWD(16, 1);
+    default: GODE_FWD(32, 1);
+  }
+#undef GODE_FWD
+}
+
+// The checks and the launch of gode_gat_bwd_{f32,bf16}.
+template <class TW>
+int bwd_entry(const CsrPlan* plan, int64_t n_edge, int64_t n_rows, const float* logits,
+              const TW* wh, const float* g, const float* m, const float* l, const float* beta,
+              int mask_mode, const float* dmask, uint32_t seed, uint32_t keep24, float inv_keep,
+              float* dlogits, float* alpha_d, int64_t H, int64_t F, int lanes_per_head, int vec,
+              void* stream) {
+  const auto bad = static_cast<int>(cudaErrorInvalidValue);
+  if (H < 1 || F < 1 || H * F > 0x7fffffff || mask_mode < 0 || mask_mode > 2) return bad;
+  if (!power_of_two_to_32(lanes_per_head) || (vec != 1 && vec != 4) || n_rows < n_edge) return bad;
+  if (vec == 4 && (F % 4 != 0 || misaligned(wh, 4 * sizeof(TW)) || misaligned(g))) return bad;
+  const int h = static_cast<int>(H), f = static_cast<int>(F), Lh = lanes_per_head;
+  const int Q = f / vec;
+  const int K = (Q + Lh - 1) / Lh;
+  int Ge = 1;
+  while (Ge < 32 && Ge < h * Lh) Ge *= 2;
+  const int n_chunks = (h + Ge / Lh - 1) / (Ge / Lh);
+  const DropMask mask = make_mask(mask_mode, dmask, seed, keep24, inv_keep);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    return launch_bwd<4, TW>(*plan, logits, wh, g, m, l, beta, mask, dlogits, alpha_d, h, f, Lh,
+                             K, Ge, n_chunks, n_edge, n_rows, st);
+  }
+  return launch_bwd<1, TW>(*plan, logits, wh, g, m, l, beta, mask, dlogits, alpha_d, h, f, Lh, K,
+                           Ge, n_chunks, n_edge, n_rows, st);
 }
 
 }  // namespace
@@ -580,42 +665,19 @@ extern "C" int gode_gat_fwd_f32(const CsrPlan* plan, const float* logits, const 
                                 uint32_t keep24, float inv_keep, float* out, float* m, float* l,
                                 float* p_acc, float* p_stat, int64_t H, int64_t F, int lanes,
                                 int vec, int hp, void* stream) {
-  const auto bad = static_cast<int>(cudaErrorInvalidValue);
-  if (H < 1 || F < 1 || H * F > 0x7fffffff || mask_mode < 0 || mask_mode > 2) return bad;
-  if (!power_of_two_to_32(lanes) || !power_of_two_to_32(hp) || (vec != 1 && vec != 4)) return bad;
-  const int h = static_cast<int>(H), f = static_cast<int>(F), width = lanes * vec;
-  const int n_chunks = (h * f + width - 1) / width;
-  for (int c = 0, first; c < n_chunks; ++c) {
-    if (chunk_heads(c, width, h, f, &first) > hp) return bad;
-  }
-  if (plan->n_split > 0 && (p_acc == nullptr || p_stat == nullptr)) return bad;
-  if (plan->n_split * n_chunks > plan->n_arrivals) return bad;
-  if (vec == 4 && (f % 4 != 0 || lanes < 8 || misaligned(wh) || misaligned(out) ||
-                   (p_acc != nullptr && misaligned(p_acc)))) {
-    return bad;
-  }
-  const DropMask mask = make_mask(mask_mode, dmask, seed, keep24, inv_keep);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GODE_FWD(G_, V_)                                                                 \
-  return launch_fwd<G_, V_>(*plan, logits, wh, mask, out, m, l, p_acc, p_stat, h, f, hp, \
-                            n_chunks, st)
-  if (vec == 4) {
-    switch (lanes) {
-      case 8: GODE_FWD(8, 4);
-      case 16: GODE_FWD(16, 4);
-      case 32: GODE_FWD(32, 4);
-      default: return bad;
-    }
-  }
-  switch (lanes) {
-    case 1: GODE_FWD(1, 1);
-    case 2: GODE_FWD(2, 1);
-    case 4: GODE_FWD(4, 1);
-    case 8: GODE_FWD(8, 1);
-    case 16: GODE_FWD(16, 1);
-    default: GODE_FWD(32, 1);
-  }
-#undef GODE_FWD
+  return fwd_entry<float>(plan, logits, wh, mask_mode, dmask, seed, keep24, inv_keep, out, m, l,
+                          p_acc, p_stat, H, F, lanes, vec, hp, stream);
+}
+
+// gat_fwd on a bf16 wh: the same arguments; V = 4 needs wh 8-byte aligned
+// (out and p_acc stay f32, 16-byte aligned).
+extern "C" int gode_gat_fwd_bf16(const CsrPlan* plan, const float* logits,
+                                 const __nv_bfloat16* wh, int mask_mode, const float* dmask,
+                                 uint32_t seed, uint32_t keep24, float inv_keep, float* out,
+                                 float* m, float* l, float* p_acc, float* p_stat, int64_t H,
+                                 int64_t F, int lanes, int vec, int hp, void* stream) {
+  return fwd_entry<__nv_bfloat16>(plan, logits, wh, mask_mode, dmask, seed, keep24, inv_keep,
+                                  out, m, l, p_acc, p_stat, H, F, lanes, vec, hp, stream);
 }
 
 // gat_bwd, one launch.  `lanes_per_head` (Lh, a power of two <= 32) and `vec`
@@ -630,24 +692,22 @@ extern "C" int gode_gat_bwd_f32(const CsrPlan* plan, int64_t n_edge, int64_t n_r
                                 int mask_mode, const float* dmask, uint32_t seed,
                                 uint32_t keep24, float inv_keep, float* dlogits, float* alpha_d,
                                 int64_t H, int64_t F, int lanes_per_head, int vec, void* stream) {
-  const auto bad = static_cast<int>(cudaErrorInvalidValue);
-  if (H < 1 || F < 1 || H * F > 0x7fffffff || mask_mode < 0 || mask_mode > 2) return bad;
-  if (!power_of_two_to_32(lanes_per_head) || (vec != 1 && vec != 4) || n_rows < n_edge) return bad;
-  if (vec == 4 && (F % 4 != 0 || misaligned(wh) || misaligned(g))) return bad;
-  const int h = static_cast<int>(H), f = static_cast<int>(F), Lh = lanes_per_head;
-  const int Q = f / vec;
-  const int K = (Q + Lh - 1) / Lh;
-  int Ge = 1;
-  while (Ge < 32 && Ge < h * Lh) Ge *= 2;
-  const int n_chunks = (h + Ge / Lh - 1) / (Ge / Lh);
-  const DropMask mask = make_mask(mask_mode, dmask, seed, keep24, inv_keep);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    return launch_bwd<4>(*plan, logits, wh, g, m, l, beta, mask, dlogits, alpha_d, h, f, Lh, K,
-                         Ge, n_chunks, n_edge, n_rows, st);
-  }
-  return launch_bwd<1>(*plan, logits, wh, g, m, l, beta, mask, dlogits, alpha_d, h, f, Lh, K, Ge,
-                       n_chunks, n_edge, n_rows, st);
+  return bwd_entry<float>(plan, n_edge, n_rows, logits, wh, g, m, l, beta, mask_mode, dmask, seed,
+                          keep24, inv_keep, dlogits, alpha_d, H, F, lanes_per_head, vec, stream);
+}
+
+// gat_bwd on a bf16 wh: the same arguments; V = 4 needs wh 8-byte aligned
+// and g 16-byte aligned.
+extern "C" int gode_gat_bwd_bf16(const CsrPlan* plan, int64_t n_edge, int64_t n_rows,
+                                 const float* logits, const __nv_bfloat16* wh, const float* g,
+                                 const float* m, const float* l, const float* beta,
+                                 int mask_mode, const float* dmask, uint32_t seed,
+                                 uint32_t keep24, float inv_keep, float* dlogits,
+                                 float* alpha_d, int64_t H, int64_t F, int lanes_per_head,
+                                 int vec, void* stream) {
+  return bwd_entry<__nv_bfloat16>(plan, n_edge, n_rows, logits, wh, g, m, l, beta, mask_mode,
+                                  dmask, seed, keep24, inv_keep, dlogits, alpha_d, H, F,
+                                  lanes_per_head, vec, stream);
 }
 
 // gat_dwh, one launch, over the CSC view (rows are senders, the plan's

@@ -10,6 +10,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // The launch plan of one view: what never changes between calls, built once
@@ -48,16 +49,38 @@ inline int lanes_for(int64_t F) {
 
 namespace {
 
-// V consecutive floats of one lane: a float or a float4 (16-byte loads).
+// bfloat16 <-> float.  A bf16 value is the high half of its float, so the
+// widening is exact: a shift (the low element of a 32-bit pair) or a mask
+// (the high one).  Narrowing rounds once, to nearest even.
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return bf16_bits(lo) | (bf16_bits(hi) << 16);
+}
+
+// V consecutive features of one lane, held as floats: a float or a float4.
+// The loads and stores take the storage type by pointer: float (a float4 is
+// one 16-byte load) or __nv_bfloat16 (4 bf16 are one 8-byte load, widened
+// to floats; a store rounds each float once).  Every sum stays in floats.
 template <int V> struct Lane;
 
 template <> struct Lane<1> {
   float v;
   __device__ __forceinline__ static Lane zero() { return {0.f}; }
   __device__ __forceinline__ static Lane ldg(const float* p) { return {__ldg(p)}; }
+  __device__ __forceinline__ static Lane ldg(const __nv_bfloat16* p) {
+    return {bf16_lo(__ldg(reinterpret_cast<const unsigned short*>(p)))};
+  }
   __device__ __forceinline__ static Lane ldcg(const float* p) { return {__ldcg(p)}; }
   __device__ __forceinline__ static Lane ld(const float* p) { return {*p}; }
+  __device__ __forceinline__ static Lane ld(const __nv_bfloat16* p) {
+    return {bf16_lo(*reinterpret_cast<const unsigned short*>(p))};
+  }
   __device__ __forceinline__ void st(float* p) const { *p = v; }
+  __device__ __forceinline__ void st(__nv_bfloat16* p) const { *p = __float2bfloat16_rn(v); }
   __device__ __forceinline__ void fma(float a, const Lane& b) { v = fmaf(a, b.v, v); }
   __device__ __forceinline__ void add(const Lane& b) { v += b.v; }
   __device__ __forceinline__ void div(float a) { v /= a; }
@@ -79,7 +102,19 @@ template <> struct Lane<4> {
   __device__ __forceinline__ static Lane ld(const float* p) {
     return {*reinterpret_cast<const float4*>(p)};
   }
+  __device__ __forceinline__ static Lane ldg(const __nv_bfloat16* p) {
+    return widen(__ldg(reinterpret_cast<const uint2*>(p)));
+  }
+  __device__ __forceinline__ static Lane ld(const __nv_bfloat16* p) {
+    return widen(*reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ static Lane widen(uint2 u) {
+    return {make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y))};
+  }
   __device__ __forceinline__ void st(float* p) const { *reinterpret_cast<float4*>(p) = v; }
+  __device__ __forceinline__ void st(__nv_bfloat16* p) const {
+    *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(v.x, v.y), bf16_pair(v.z, v.w));
+  }
   __device__ __forceinline__ void fma(float a, const Lane& b) {
     v.x = fmaf(a, b.v.x, v.x);
     v.y = fmaf(a, b.v.y, v.y);

@@ -12,6 +12,13 @@ Initialisation draws from an explicit CPU ``torch.Generator`` with flax's
 Glorot fans; feature dropout draws from a generator on the features'
 device; attention dropout takes one 32-bit seed per layer call, drawn from
 ``seed_generator``, a CPU generator, so a draw costs no device sync.
+
+``dtype`` and ``param_dtype`` are flax's, as in ``models/gcn.py``: with
+``dtype=torch.bfloat16``, Wh and the node scores are bf16 (the attention
+vectors cast to Wh's dtype), the logits and the score tables become float32
+before the aggregation, and the aggregation returns what its path returns:
+float32 from the GAT kernels (a ``CSRGraph``), bf16 from the segment path
+(a ``Graph``), as JAX's Pallas and segment paths do.
 """
 
 from __future__ import annotations
@@ -22,8 +29,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from graph_odenet_tpu_torch.models.gcn import dropout
+from graph_odenet_tpu_torch.models.gcn import Typed, dense, dropout
 from graph_odenet_tpu_torch.ops import attention_aggregate, edge_scores
+from graph_odenet_tpu_torch.ops.csr_spmm import widen
 from graph_odenet_tpu_torch.ops.dropmask import draw_seed
 
 __all__ = ["GATLayer", "GAT", "ResGAT"]
@@ -35,7 +43,7 @@ def _glorot_(t: torch.Tensor, fan_in: int, fan_out: int, generator) -> None:
         t.uniform_(-limit, limit, generator=generator)
 
 
-class GATLayer(nn.Module):
+class GATLayer(Typed):
     """Multi-head graph attention layer.
 
     Output is ``[N, heads*features]`` when ``concat`` else the head mean
@@ -47,7 +55,8 @@ class GATLayer(nn.Module):
     def __init__(
         self, in_features: int, features: int, heads: int = 8, concat: bool = True,
         negative_slope: float = 0.2, attn_dropout: float = 0.0,
-        *, generator: Optional[torch.Generator] = None,
+        *, dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.heads, self.features = heads, features
@@ -62,13 +71,15 @@ class GATLayer(nn.Module):
         _glorot_(self.linear.weight, in_features, heads * features, generator)
         _glorot_(self.attn_src, heads, features, generator)
         _glorot_(self.attn_dst, heads, features, generator)
+        self.to(param_dtype)
+        self.dtype = dtype
 
     def forward(self, adj, x: torch.Tensor, *, deterministic: bool = True,
                 seed_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         n = x.shape[0]
-        wh = self.linear(x).view(n, self.heads, self.features)
-        s_src = (wh * self.attn_src).sum(-1)
-        s_dst = (wh * self.attn_dst).sum(-1)
+        wh = dense(x, self.linear, self.dtype).view(n, self.heads, self.features)
+        s_src = (wh * self.attn_src.to(wh.dtype)).sum(-1)
+        s_dst = (wh * self.attn_dst.to(wh.dtype)).sum(-1)
         logits = edge_scores(adj, s_src, s_dst, negative_slope=self.negative_slope)
         seed = None
         if not deterministic and self.attn_dropout > 0.0:
@@ -76,9 +87,9 @@ class GATLayer(nn.Module):
                 raise ValueError("attention dropout needs a CPU seed_generator")
             seed = draw_seed(seed_generator)
         out = attention_aggregate(
-            adj, logits, wh, dropout_seed=seed,
+            adj, widen(logits), wh, dropout_seed=seed,
             dropout_rate=0.0 if deterministic else self.attn_dropout,
-            scores=(s_src, s_dst), negative_slope=self.negative_slope,
+            scores=(widen(s_src), widen(s_dst)), negative_slope=self.negative_slope,
         )
         if self.concat:
             return out.reshape(n, self.heads * self.features)
@@ -91,14 +102,16 @@ class GAT(nn.Module):
 
     def __init__(
         self, in_features: int, hidden: int = 8, heads: int = 8, out_heads: int = 1,
-        n_class: int = 7, dropout: float = 0.6, *, generator: Optional[torch.Generator] = None,
+        n_class: int = 7, dropout: float = 0.6, *, dtype: torch.dtype = torch.float32,
+        param_dtype: torch.dtype = torch.float32, generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.dropout = dropout
+        kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
         self.layers = nn.ModuleList([
-            GATLayer(in_features, hidden, heads=heads, attn_dropout=dropout, generator=generator),
+            GATLayer(in_features, hidden, heads=heads, attn_dropout=dropout, **kw),
             GATLayer(hidden * heads, n_class, heads=out_heads, concat=False,
-                     attn_dropout=dropout, generator=generator),
+                     attn_dropout=dropout, **kw),
         ])
 
     def forward(self, adj, x, *, deterministic: bool = True, generator=None, seed_generator=None):
@@ -108,7 +121,7 @@ class GAT(nn.Module):
         h = nn.functional.elu(self.layers[0](adj, x, **att))
         h = dropout(h, self.dropout, **kw)
         h = self.layers[1](adj, h, **att)
-        return torch.log_softmax(h, dim=-1)
+        return torch.log_softmax(widen(h), dim=-1)
 
 
 class ResGAT(nn.Module):
@@ -117,16 +130,18 @@ class ResGAT(nn.Module):
 
     def __init__(
         self, in_features: int, hidden: int = 8, heads: int = 8, n_class: int = 7,
-        n_blocks: int = 2, dropout: float = 0.6, *, generator: Optional[torch.Generator] = None,
+        n_blocks: int = 2, dropout: float = 0.6, *, dtype: torch.dtype = torch.float32,
+        param_dtype: torch.dtype = torch.float32, generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.dropout = dropout
         dim = hidden * heads
+        kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
         self.layers = nn.ModuleList(
-            [GATLayer(in_features, hidden, heads=heads, attn_dropout=dropout, generator=generator)]
-            + [GATLayer(dim, dim, heads=1, concat=False, attn_dropout=dropout, generator=generator)
+            [GATLayer(in_features, hidden, heads=heads, attn_dropout=dropout, **kw)]
+            + [GATLayer(dim, dim, heads=1, concat=False, attn_dropout=dropout, **kw)
                for _ in range(n_blocks)]
-            + [GATLayer(dim, n_class, heads=1, concat=False, generator=generator)]
+            + [GATLayer(dim, n_class, heads=1, concat=False, **kw)]
         )
 
     def forward(self, adj, x, *, deterministic: bool = True, generator=None, seed_generator=None):
@@ -139,4 +154,4 @@ class ResGAT(nn.Module):
             h = h + nn.functional.elu(layer(adj, h, **att))
         h = dropout(h, self.dropout, **kw)
         h = self.layers[-1](adj, h, **att)
-        return torch.log_softmax(h, dim=-1)
+        return torch.log_softmax(widen(h), dim=-1)

@@ -9,6 +9,13 @@ package.  ``adj`` is any representation ``ops.spmm`` takes: a ``Graph``, a
 Initialisation draws from an explicit ``torch.Generator`` on the CPU (move
 the module to its device afterwards); dropout draws from an explicit
 generator on the features' device.
+
+``dtype`` and ``param_dtype`` are flax's: parameters are stored in
+``param_dtype`` (initialised in float32, then rounded), and each layer
+computes ``x W`` with both operands in ``dtype``.  With ``dtype=
+torch.bfloat16`` the features, the aggregation (the CSR kernel in bf16)
+and the layer outputs are bf16; the bias is cast to the output's dtype
+before it is added, and ``log_softmax`` runs in float32.
 """
 
 from __future__ import annotations
@@ -20,8 +27,30 @@ import torch
 from torch import nn
 
 from graph_odenet_tpu_torch.ops import spmm
+from graph_odenet_tpu_torch.ops.csr_spmm import widen
 
-__all__ = ["GCNLayer", "GCN", "ResGCN", "dropout"]
+__all__ = ["GCNLayer", "GCN", "ResGCN", "Typed", "dense", "dropout"]
+
+
+class Typed(nn.Module):
+    """A module that computes in ``self.dtype`` (flax's ``dtype``).
+
+    A conversion of the whole module (``.double()``, ``.to(dtype)``)
+    converts ``dtype`` as it converts the floating parameters, so a module
+    held in float64 computes in float64."""
+
+    dtype = torch.float32
+
+    def _apply(self, fn, *args, **kwargs):
+        module = super()._apply(fn, *args, **kwargs)
+        self.dtype = fn(torch.zeros((), dtype=self.dtype)).dtype
+        return module
+
+
+def dense(x: torch.Tensor, linear: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """flax's ``Dense``: ``x W (+ b)`` with input, kernel and bias in ``dtype``."""
+    bias = None if linear.bias is None else linear.bias.to(dtype)
+    return nn.functional.linear(x.to(dtype), linear.weight.to(dtype), bias)
 
 
 def dropout(
@@ -32,16 +61,19 @@ def dropout(
         return x
     if generator is None:
         raise ValueError("dropout needs an explicit torch.Generator on the features' device")
-    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) >= rate
+    # The draw is at least float32, so a bf16 model drops what an f32 one does.
+    draw = torch.promote_types(x.dtype, torch.float32)
+    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=draw) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-class GCNLayer(nn.Module):
+class GCNLayer(Typed):
     """``h' = Â (h W) + b``, one graph convolution."""
 
     def __init__(
         self, in_features: int, features: int, use_bias: bool = True,
-        *, generator: Optional[torch.Generator] = None,
+        *, dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.linear = nn.Linear(in_features, features, bias=False)
@@ -49,11 +81,13 @@ class GCNLayer(nn.Module):
         with torch.no_grad():
             self.linear.weight.uniform_(-limit, limit, generator=generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.to(param_dtype)
+        self.dtype = dtype
 
     def forward(self, adj, x: torch.Tensor) -> torch.Tensor:
-        out = spmm(adj, self.linear(x))
+        out = spmm(adj, dense(x, self.linear, self.dtype))
         if self.bias is not None:
-            out = out + self.bias
+            out = out + self.bias.to(out.dtype)
         return out
 
 
@@ -62,20 +96,22 @@ class GCN(nn.Module):
 
     def __init__(
         self, in_features: int, hidden: int = 16, n_class: int = 7, dropout: float = 0.5,
-        *, generator: Optional[torch.Generator] = None,
+        *, dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.dropout = dropout
+        kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
         self.layers = nn.ModuleList([
-            GCNLayer(in_features, hidden, generator=generator),
-            GCNLayer(hidden, n_class, generator=generator),
+            GCNLayer(in_features, hidden, **kw),
+            GCNLayer(hidden, n_class, **kw),
         ])
 
     def forward(self, adj, x, *, deterministic: bool = True, generator=None):
         h = torch.relu(self.layers[0](adj, x))
         h = dropout(h, self.dropout, deterministic=deterministic, generator=generator)
         h = self.layers[1](adj, h)
-        return torch.log_softmax(h, dim=-1)
+        return torch.log_softmax(widen(h), dim=-1)
 
 
 class ResGCN(nn.Module):
@@ -84,14 +120,16 @@ class ResGCN(nn.Module):
 
     def __init__(
         self, in_features: int, hidden: int = 16, n_class: int = 7, n_blocks: int = 2,
-        dropout: float = 0.5, *, generator: Optional[torch.Generator] = None,
+        dropout: float = 0.5, *, dtype: torch.dtype = torch.float32,
+        param_dtype: torch.dtype = torch.float32, generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.dropout = dropout
+        kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
         self.layers = nn.ModuleList(
-            [GCNLayer(in_features, hidden, generator=generator)]
-            + [GCNLayer(hidden, hidden, generator=generator) for _ in range(n_blocks)]
-            + [GCNLayer(hidden, n_class, generator=generator)]
+            [GCNLayer(in_features, hidden, **kw)]
+            + [GCNLayer(hidden, hidden, **kw) for _ in range(n_blocks)]
+            + [GCNLayer(hidden, n_class, **kw)]
         )
 
     def forward(self, adj, x, *, deterministic: bool = True, generator=None):
@@ -102,4 +140,4 @@ class ResGCN(nn.Module):
             h = h + torch.relu(layer(adj, h))
         h = dropout(h, self.dropout, **kw)
         h = self.layers[-1](adj, h)
-        return torch.log_softmax(h, dim=-1)
+        return torch.log_softmax(widen(h), dim=-1)

@@ -14,6 +14,10 @@ Defaults are the published IN sizes: relation MLP 4 × 150 → 50-dim effects,
 object MLP 100 hidden.  Initialisation is flax's ``Dense`` default
 (LeCun-normal kernels, truncated at two standard deviations, zero biases),
 drawn from an explicit CPU ``torch.Generator``.
+
+``dtype``/``param_dtype`` are flax's (``models/gcn.py``): each dense layer
+computes in ``dtype``, input, kernel and bias.  The concatenations promote
+as JAX's do, so the IN-ODE's state keeps ``y0``'s dtype.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from graph_odenet_tpu_torch.models.gcn import Typed, dense
 from graph_odenet_tpu_torch.ode import odeint, odeint_adjoint
 
 __all__ = ["MLP", "InteractionNetwork", "INODE"]
@@ -40,12 +45,13 @@ def _lecun_normal_(weight: torch.Tensor, generator) -> None:
         nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
-class MLP(nn.Module):
+class MLP(Typed):
     """Dense layers with an activation between them, none after the last."""
 
     def __init__(
         self, in_features: int, hidden: Sequence[int], out: int, activation: str = "relu",
-        *, generator: Optional[torch.Generator] = None,
+        *, dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         widths = [in_features, *hidden, out]
@@ -54,11 +60,13 @@ class MLP(nn.Module):
             _lecun_normal_(layer.weight, generator)
             nn.init.zeros_(layer.bias)
         self.activation = getattr(torch.nn.functional, activation)
+        self.to(param_dtype)
+        self.dtype = dtype
 
     def forward(self, x):
         for layer in self.layers[:-1]:
-            x = self.activation(layer(x))
-        return self.layers[-1](x)
+            x = self.activation(dense(x, layer, self.dtype))
+        return dense(x, self.layers[-1], self.dtype)
 
 
 class InteractionNetwork(nn.Module):
@@ -72,15 +80,13 @@ class InteractionNetwork(nn.Module):
         self, obj_dim: int, out_dim: int, effect_dim: int = 50,
         relation_hidden: Sequence[int] = (150, 150, 150, 150),
         object_hidden: Sequence[int] = (100,), rel_dim: int = 0, ext_dim: int = 0,
-        *, generator: Optional[torch.Generator] = None,
+        *, dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        self.relation_mlp = MLP(
-            2 * obj_dim + rel_dim, relation_hidden, effect_dim, generator=generator
-        )
-        self.object_mlp = MLP(
-            obj_dim + effect_dim + ext_dim, object_hidden, out_dim, generator=generator
-        )
+        kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
+        self.relation_mlp = MLP(2 * obj_dim + rel_dim, relation_hidden, effect_dim, **kw)
+        self.object_mlp = MLP(obj_dim + effect_dim + ext_dim, object_hidden, out_dim, **kw)
 
     def forward(self, objs, senders, receivers, rel_attr=None, ext=None):
         node_axis = objs.dim() - 2
@@ -123,12 +129,13 @@ class INODE(nn.Module):
         object_hidden: Sequence[int] = (100,), method: str = "dopri5_scan",
         rtol: float = 1e-4, atol: float = 1e-6, steps: int = 16,
         adjoint: Union[bool, str] = False, remat: bool = False, rel_dim: int = 0,
-        *, generator: Optional[torch.Generator] = None,
+        *, dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.core = InteractionNetwork(
             static_dim + 2 * dim, dim, effect_dim, relation_hidden, object_hidden,
-            rel_dim=rel_dim, generator=generator,
+            rel_dim=rel_dim, dtype=dtype, param_dtype=param_dtype, generator=generator,
         )
         self.dim = dim
         self.method, self.rtol, self.atol, self.steps = method, rtol, atol, steps

@@ -8,6 +8,13 @@ steps, or by the continuous or the checkpointed adjoint
 (``ode.odeint_adjoint``).  The solver stats of the last forward are kept in
 ``ODEBlock.stats`` (``{"nfe"}`` for fixed-grid methods; ``{"nfe",
 "n_accept", "n_reject", "success", "t_reached"}`` for adaptive ones).
+
+``dtype``/``param_dtype`` are flax's (``models/gcn.py``).  The ODE state
+is whatever the encoder returns and the times are in its dtype, as JAX's
+``ODEBlock`` builds ``ts`` in ``h.dtype``: with ``dtype=torch.bfloat16``
+the GCN-ODE integrates a bf16 state (the CSR kernel returns bf16), and the
+GAT-ODE a float32 state on the GAT kernels (a ``CSRGraph``) but a bf16 one
+on the segment path (a ``Graph``).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from graph_odenet_tpu_torch.models.gat import GATLayer
 from graph_odenet_tpu_torch.models.gcn import GCNLayer, dropout
 from graph_odenet_tpu_torch.ode import odeint, odeint_adjoint
+from graph_odenet_tpu_torch.ops.csr_spmm import widen
 
 __all__ = ["GCNDynamics", "GATDynamics", "ODEBlock", "GCNODE", "GATODE"]
 
@@ -30,10 +38,12 @@ class GCNDynamics(nn.Module):
 
     def __init__(
         self, hidden: int, activation: str = "tanh",
-        *, generator: Optional[torch.Generator] = None,
+        *, dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        self.layer = GCNLayer(hidden, hidden, generator=generator)
+        self.layer = GCNLayer(hidden, hidden, dtype=dtype, param_dtype=param_dtype,
+                              generator=generator)
         self.activation = getattr(torch.nn.functional, activation)
 
     def forward(self, t, adj, h: torch.Tensor) -> torch.Tensor:
@@ -46,10 +56,12 @@ class GATDynamics(nn.Module):
 
     def __init__(
         self, hidden: int, activation: str = "tanh",
-        *, generator: Optional[torch.Generator] = None,
+        *, dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        self.layer = GATLayer(hidden, hidden, heads=1, concat=False, generator=generator)
+        self.layer = GATLayer(hidden, hidden, heads=1, concat=False, dtype=dtype,
+                              param_dtype=param_dtype, generator=generator)
         self.activation = getattr(torch.nn.functional, activation)
 
     def forward(self, t, adj, h: torch.Tensor) -> torch.Tensor:
@@ -112,18 +124,19 @@ class GCNODE(nn.Module):
         self, in_features: int, hidden: int = 16, n_class: int = 7, dropout: float = 0.5,
         t1: float = 1.0, method: str = "rk4", steps: int = 4, rtol: float = 1e-3,
         atol: float = 1e-4, adjoint: Union[bool, str] = False, remat: bool = False,
-        activation: str = "tanh",
-        *, generator: Optional[torch.Generator] = None,
+        activation: str = "tanh", *, dtype: torch.dtype = torch.float32,
+        param_dtype: torch.dtype = torch.float32, generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.dropout = dropout
-        encoder = GCNLayer(in_features, hidden, generator=generator)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
+        encoder = GCNLayer(in_features, hidden, **kw)
         self.odeblock = ODEBlock(
-            GCNDynamics(hidden, activation, generator=generator),
+            GCNDynamics(hidden, activation, **kw),
             t1=t1, method=method, steps=steps, rtol=rtol, atol=atol,
             adjoint=adjoint, remat=remat,
         )
-        readout = GCNLayer(hidden, n_class, generator=generator)
+        readout = GCNLayer(hidden, n_class, **kw)
         self.layers = nn.ModuleList([encoder, readout])
 
     def forward(self, adj, x, *, deterministic: bool = True, generator=None):
@@ -133,7 +146,7 @@ class GCNODE(nn.Module):
         h = self.odeblock(adj, h)
         h = dropout(h, self.dropout, **kw)
         h = self.layers[1](adj, h)
-        return torch.log_softmax(h, dim=-1)
+        return torch.log_softmax(widen(h), dim=-1)
 
 
 class GATODE(nn.Module):
@@ -143,20 +156,19 @@ class GATODE(nn.Module):
         self, in_features: int, hidden: int = 8, heads: int = 8, n_class: int = 7,
         dropout: float = 0.6, t1: float = 1.0, method: str = "dopri5_scan", steps: int = 32,
         rtol: float = 1e-3, atol: float = 1e-4, adjoint: Union[bool, str] = False,
-        remat: bool = False, activation: str = "tanh",
-        *, generator: Optional[torch.Generator] = None,
+        remat: bool = False, activation: str = "tanh", *, dtype: torch.dtype = torch.float32,
+        param_dtype: torch.dtype = torch.float32, generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.dropout = dropout
-        encoder = GATLayer(
-            in_features, hidden, heads=heads, attn_dropout=dropout, generator=generator
-        )
+        kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
+        encoder = GATLayer(in_features, hidden, heads=heads, attn_dropout=dropout, **kw)
         self.odeblock = ODEBlock(
-            GATDynamics(hidden * heads, activation, generator=generator),
+            GATDynamics(hidden * heads, activation, **kw),
             t1=t1, method=method, steps=steps, rtol=rtol, atol=atol,
             adjoint=adjoint, remat=remat,
         )
-        readout = GATLayer(hidden * heads, n_class, heads=1, concat=False, generator=generator)
+        readout = GATLayer(hidden * heads, n_class, heads=1, concat=False, **kw)
         self.layers = nn.ModuleList([encoder, readout])
 
     def forward(self, adj, x, *, deterministic: bool = True, generator=None, seed_generator=None):
@@ -168,4 +180,4 @@ class GATODE(nn.Module):
         h = self.odeblock(adj, h)
         h = dropout(h, self.dropout, **kw)
         h = self.layers[1](adj, h, deterministic=deterministic)
-        return torch.log_softmax(h, dim=-1)
+        return torch.log_softmax(widen(h), dim=-1)

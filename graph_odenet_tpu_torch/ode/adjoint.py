@@ -34,6 +34,15 @@ step sizes.  The checkpointed adjoint's steps are fixed, and its update of
 ``θ̄`` is linear and feeds back into nothing, so one shared ``θ̄`` is exact
 (in exact arithmetic): each sample's cotangent enters the parameter vjp
 scaled by its own step.
+
+Dtypes, as JAX's ravelled states give them: the continuous adjoint solves
+``[y | a | t̄ | θ̄]`` in the promoted dtype of the state and the parameters
+(float32 for a bf16 state with float32 parameters) and hands the dynamics
+``y`` and ``a`` in the state's dtype; ``a`` and ``t̄`` are rounded to their
+own dtypes at each output time, and each parameter's cotangent to its
+parameter's.  The checkpointed adjoint refuses a state narrower than its
+parameters with ``ValueError``, as JAX's does: its one flat array promotes
+the cotangent above the dynamics' output dtype, which ``jax.vjp`` rejects.
 """
 
 from __future__ import annotations
@@ -60,6 +69,15 @@ BWD_TABLEAUS = {
     "dopri5": _tabs.DOPRI5,
     "dopri8": _tabs.DOPRI8,
 }
+
+
+def _promoted(ys, params):
+    """The dtype of JAX's ravelled ``[y, params]``: the state's dtype promoted
+    with every parameter's."""
+    dtype = ys.dtype
+    for p in params:
+        dtype = torch.promote_types(dtype, p.dtype)
+    return dtype
 
 
 def _vjp(func, t, y, a, params, per_sample=False):
@@ -109,7 +127,7 @@ class _OdeintAdjoint(torch.autograd.Function):
             return x.reshape(lead + (-1,))
 
         def aug(s, w):
-            y, a = w[..., :dim].reshape(shape), w[..., dim:2 * dim].reshape(shape)
+            y, a = (w[..., k * dim:(k + 1) * dim].reshape(shape).to(ys.dtype) for k in (0, 1))
             f, vy, vt, vp = _vjp(func, -s, y, a, params, per_sample=batched)
             return torch.cat([per(-f), per(vy), vt.reshape(lead + (1,)).to(w)]
                              + [per(v) for v in vp], dim=-1)
@@ -117,7 +135,7 @@ class _OdeintAdjoint(torch.autograd.Function):
         n_params = sum(p.numel() for p in params)
         y_bar = g[-1]
         t0_bar = ys.new_zeros(lead)
-        p_bar = ys.new_zeros(lead + (n_params,))
+        p_bar = ys.new_zeros(lead + (n_params,), dtype=_promoted(ys, params))
         ts_bar = [None] * ts.shape[0]
         for i in range(ts.shape[0] - 1, 0, -1):
             # Moving output time i moves the loss by ⟨f(t_i, y_i), g_i⟩.
@@ -125,8 +143,8 @@ class _OdeintAdjoint(torch.autograd.Function):
             t0_bar = t0_bar - ts_bar[i]
             w = torch.cat([per(ys[i]), per(y_bar), t0_bar[..., None], p_bar], dim=-1)
             w = odeint(aug, w, torch.stack([-ts[i], -ts[i - 1]]), **opts)[1]
-            y_bar = w[..., dim:2 * dim].reshape(shape) + g[i - 1]
-            t0_bar, p_bar = w[..., 2 * dim], w[..., 2 * dim + 1:]
+            y_bar = w[..., dim:2 * dim].reshape(shape).to(ys.dtype) + g[i - 1]
+            t0_bar, p_bar = w[..., 2 * dim].to(ys.dtype), w[..., 2 * dim + 1:]
         ts_bar[0] = t0_bar
         ts_bar = torch.stack(ts_bar)
         if batched:
@@ -155,6 +173,13 @@ class _OdeintCkptAdjoint(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         ys, ts, trace_t, trace_y, acc, n_steps, *params = ctx.saved_tensors
+        wide = _promoted(ys, params)
+        if wide != ys.dtype:
+            raise ValueError(
+                f"the checkpointed adjoint of a {ys.dtype} state with {wide} parameters: its "
+                f"reverse sweep would carry the state's cotangent in {wide} into dynamics that "
+                f"return {ys.dtype}, which JAX's checkpointed adjoint refuses (ValueError) too; "
+                "use param_dtype equal to the state's dtype, or the continuous adjoint")
         (tab, n_sub), func = ctx.bwd, ctx.func
         if not ctx.batched:  # one problem: a batch of one
             func1 = func

@@ -32,6 +32,22 @@ NVCC_FLAGS = [
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _u32, _f32 = ctypes.c_uint32, ctypes.c_float
+_GAT_FWD = [
+    _p, _p, _p,                # plan, logits, wh
+    _i, _p, _u32, _u32, _f32,  # mask_mode, dmask, seed, keep24, inv_keep
+    _p, _p, _p, _p, _p,        # out, m, l, p_acc, p_stat
+    _i64, _i64, _i, _i, _i,    # H, F, lanes, vec, hp
+    _p,                        # stream
+]
+_GAT_BWD = [
+    _p, _i64, _i64,            # plan, n_edge, n_rows
+    _p, _p, _p,                # logits, wh, g
+    _p, _p, _p,                # m, l, beta
+    _i, _p, _u32, _u32, _f32,  # mask_mode, dmask, seed, keep24, inv_keep
+    _p, _p,                    # dlogits, alpha_d
+    _i64, _i64, _i, _i,        # H, F, lanes_per_head, vec
+    _p,                        # stream
+]
 # argtypes of every C entry point, by library.
 _SIGNATURES = {
     "csr_spmm": {
@@ -40,24 +56,17 @@ _SIGNATURES = {
             _i64, _i64, _i, _i, _i,    # F, feat, mode, lanes, vec
             _i, _p,                    # accumulate, stream
         ],
+        "gode_csr_reduce_bf16": [
+            _p, _p, _p, _p,            # plan, x, out, partial
+            _i64, _i, _i, _i,          # F, mode, lanes, vec
+            _i, _p,                    # accumulate, stream
+        ],
     },
     "gat_attn": {
-        "gode_gat_fwd_f32": [
-            _p, _p, _p,                # plan, logits, wh
-            _i, _p, _u32, _u32, _f32,  # mask_mode, dmask, seed, keep24, inv_keep
-            _p, _p, _p, _p, _p,        # out, m, l, p_acc, p_stat
-            _i64, _i64, _i, _i, _i,    # H, F, lanes, vec, hp
-            _p,                        # stream
-        ],
-        "gode_gat_bwd_f32": [
-            _p, _i64, _i64,            # plan, n_edge, n_rows
-            _p, _p, _p,                # logits, wh, g
-            _p, _p, _p,                # m, l, beta
-            _i, _p, _u32, _u32, _f32,  # mask_mode, dmask, seed, keep24, inv_keep
-            _p, _p,                    # dlogits, alpha_d
-            _i64, _i64, _i, _i,        # H, F, lanes_per_head, vec
-            _p,                        # stream
-        ],
+        "gode_gat_fwd_f32": _GAT_FWD,
+        "gode_gat_fwd_bf16": _GAT_FWD,  # wh bf16; the rest as the f32 entry's
+        "gode_gat_bwd_f32": _GAT_BWD,
+        "gode_gat_bwd_bf16": _GAT_BWD,
         "gode_gat_dwh_f32": [
             _p, _p, _p, _p, _p, _p,    # plan, s_src, s_dst, m, l, g
             _f32,                      # slope

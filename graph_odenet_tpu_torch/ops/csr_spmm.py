@@ -25,6 +25,16 @@ On a CUDA tensor the reduction is the hand-written kernel in
 ``_reduce_plain`` (gather + ``index_add_``).  There is no other path: a CUDA
 tensor launches the kernel or raises.
 
+Features are float32 or bfloat16 (JAX's bf16-training tier: ``spmm_pallas``
+on bf16 messages adds them in f32 and writes the messages' dtype).  In
+bf16, ``csr_reduce``, ``bucket_reduce`` and ``spmm_csr`` return bf16 (the
+gradient of a bf16 ``x`` too): the kernel widens each feature to f32, takes
+the f32 weights, products and sums, and rounds each output once; the plain
+versions do the same (``widen``, then one ``.to``).  JAX rounds each
+message to bf16 before its f32 sum, so the two differ by bf16 rounding.
+The weighted modes (B1-w, B2-w) take float32 only, as their JAX callers
+give them: a bf16 table there raises ``TypeError``.
+
 ``prepare`` also cuts each view into warp segments of at most
 ``SEG_EDGES`` edges, so that a hub row with many thousands of edges is
 spread over many warps.  A row cut into several segments writes partial
@@ -59,7 +69,7 @@ from graph_odenet_tpu_torch.utils.sanitize import validate_tiling
 
 __all__ = [
     "CSRGraph", "CSRView", "Partition", "LaunchPlan", "prepare", "csr_view", "csr_reduce",
-    "bucket_reduce", "spmm_csr", "spmm_csr_reference", "SEG_EDGES",
+    "bucket_reduce", "spmm_csr", "spmm_csr_reference", "SEG_EDGES", "widen",
 ]
 
 #: Most edges one warp reduces; longer rows are cut into several segments.
@@ -71,6 +81,8 @@ launches = 0
 weighted_launches = 0
 bucket_launches = 0
 bucket_weighted_launches = 0
+#: Of those, the launches on bf16 features (the unweighted modes' bf16 entry).
+bf16_launches = {"csr": 0, "bucket": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,21 +373,42 @@ def _reduce_plain(row_ptr, col, weight, x, alpha=None, feat=None):
     ``alpha[p, f // feat]`` instead of ``w[p]``.
     """
     rows = row_ids(row_ptr, col.shape[0])
-    gathered = x.index_select(0, col)
+    xs = widen(x)
+    gathered = xs.index_select(0, col)
     if alpha is None:
         msgs = gathered * weight[:, None]
     else:
-        msgs = gathered * alpha.to(x.dtype).repeat_interleave(feat, dim=1)
-    return x.new_zeros((row_ptr.shape[0] - 1, x.shape[1])).index_add_(0, rows, msgs)
+        msgs = gathered * alpha.to(xs.dtype).repeat_interleave(feat, dim=1)
+    out = xs.new_zeros((row_ptr.shape[0] - 1, x.shape[1])).index_add_(0, rows, msgs)
+    return out.to(x.dtype)
 
 
 _SCALED, _ALPHA, _POSITIONAL = 0, 1, 2  # the C entry's modes
+#: Feature dtypes the kernel takes (the weighted modes: float32 only).
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the type the kernel sums in: bf16 to f32; f32 (and the f64 of
+    a reference) as it is."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _check_dtype(who, name, t, weighted):
+    if t.dtype not in DTYPES:
+        raise TypeError(f"{who} takes float32 or bfloat16 {name}, got {t.dtype}")
+    if weighted and t.dtype != torch.float32:
+        raise TypeError(
+            f"the weighted {who} takes float32 {name}, got {t.dtype}: its callers (the GAT "
+            "backward's dWh, as JAX casts g to f32 before it) reduce f32 tables only"
+        )
 
 
 def _lanes(f: int, vector: bool) -> tuple:
-    """(G, V) of a call at F = ``f``: G feature lanes per edge slot, V floats
-    per lane.  ``vector`` (F a multiple of 4, 16-byte aligned rows, heads of
-    a multiple of 4 lanes): at F >= 32 a lane loads a float4, and G is the
+    """(G, V) of a call at F = ``f``: G feature lanes per edge slot, V features
+    per lane.  ``vector`` (F a multiple of 4, rows aligned to 4 elements: 16
+    bytes in f32, 8 in bf16; heads of a multiple of 4 lanes): at F >= 32 a
+    lane loads 4 features (a float4, or 4 bf16), and G is the
     smallest power of two that covers F / 4, at most 32 (a chunk of 128
     features).  Otherwise V = 1 and G is the smallest power of two >= F, at
     most 32."""
@@ -388,17 +421,23 @@ def _run(plan: LaunchPlan, x, out, alpha, feat, mode, accumulate):
     """One launch of the kernel over ``plan``'s view into ``out``."""
     f = x.shape[1]
     x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
-    lanes, vec = _lanes(f, f % 4 == 0 and (x_ptr | out_ptr) % 16 == 0
+    lanes, vec = _lanes(f, f % 4 == 0 and (x_ptr | out_ptr) % (4 * x.element_size()) == 0
                         and (alpha is None or feat % 4 == 0))
     partial = None
     if plan.n_split:
         plan.reserve(-(-f // (lanes * vec)))
         partial = torch.empty((plan.n_slots, f), dtype=torch.float32, device=x.device)
-    rc = _build.load_library("csr_spmm").gode_csr_reduce_f32(
-        plan.address, x_ptr, None if alpha is None else alpha.data_ptr(), out_ptr,
-        None if partial is None else partial.data_ptr(), f, feat or 1, mode, lanes, vec,
-        accumulate, torch.cuda.current_stream(plan.index).cuda_stream,
-    )
+    lib = _build.load_library("csr_spmm")
+    partial_ptr = None if partial is None else partial.data_ptr()
+    stream = torch.cuda.current_stream(plan.index).cuda_stream
+    if x.dtype == torch.bfloat16:  # the wrappers pass no alpha with bf16
+        rc = lib.gode_csr_reduce_bf16(plan.address, x_ptr, out_ptr, partial_ptr, f, mode, lanes,
+                                      vec, accumulate, stream)
+    else:
+        rc = lib.gode_csr_reduce_f32(
+            plan.address, x_ptr, None if alpha is None else alpha.data_ptr(), out_ptr,
+            partial_ptr, f, feat or 1, mode, lanes, vec, accumulate, stream,
+        )
     if rc != 0:
         raise RuntimeError(f"csr_spmm kernel launch failed: CUDA error {rc}")
 
@@ -425,14 +464,14 @@ def csr_reduce(
 ) -> torch.Tensor:
     """The kernel's wrapper: one SpMM over the fwd (or, transposed, bwd) view.
 
-    Takes f32, contiguous ``x [n_node_pad, F]`` on the adjacency's device.
-    With ``alpha`` (f32, contiguous ``[E, H]`` in the view's edge order) and
-    ``feat`` (``F = H * feat``), the weighted mode.  A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel, one launch.
+    Takes f32 or bf16, contiguous ``x [n_node_pad, F]`` on the adjacency's
+    device, and returns ``x``'s dtype.  With ``alpha`` (f32, contiguous
+    ``[E, H]`` in the view's edge order) and ``feat`` (``F = H * feat``),
+    the weighted mode, f32 ``x`` only.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel, one launch.
     """
     global launches, weighted_launches
-    if x.dtype != torch.float32:
-        raise TypeError(f"csr_spmm takes float32 features, got {x.dtype}")
+    _check_dtype("csr_spmm", "features", x, alpha is not None)
     if x.dim() != 2 or x.shape[0] != csr.n_node_pad or x.shape[1] < 1:
         raise ValueError(
             f"csr_spmm takes x of shape [{csr.n_node_pad}, F>=1], got {tuple(x.shape)}"
@@ -450,6 +489,8 @@ def csr_reduce(
             launches += 1
         else:
             weighted_launches += 1
+        if x.dtype == torch.bfloat16:
+            bf16_launches["csr"] += 1
         return out
     if x.device.type != "cpu":
         raise ValueError(f"csr_spmm runs on CPU or CUDA tensors, not {x.device}")
@@ -463,16 +504,17 @@ def _bucket_reduce_plain(view: CSRView, x, out, positional=False, accumulate=Tru
     ``out`` (zeroed first when not ``accumulate``).  With ``alpha [L, H]``
     lane ``f`` of edge ``p`` is scaled by ``alpha[p, f // feat]`` instead of
     the edge weight."""
-    if not accumulate:
-        out.zero_()
+    xs = widen(x)
+    acc = widen(out) if accumulate else torch.zeros_like(out, dtype=xs.dtype)
     rows = row_ids(view.row_ptr, view.n_edge)
     if positional:
-        msgs = x[: view.n_edge]
+        msgs = xs[: view.n_edge]
     elif alpha is not None:
-        msgs = x.index_select(0, view.col) * alpha.to(x.dtype).repeat_interleave(feat, dim=1)
+        msgs = xs.index_select(0, view.col) * alpha.to(xs.dtype).repeat_interleave(feat, dim=1)
     else:
-        msgs = x.index_select(0, view.col) * view.weight.to(x.dtype)[:, None]
-    return out.index_add_(0, rows, msgs)
+        msgs = xs.index_select(0, view.col) * view.weight.to(xs.dtype)[:, None]
+    acc = acc.index_add_(0, rows, msgs)
+    return acc if acc is out else out.copy_(acc)
 
 
 def bucket_reduce(
@@ -482,11 +524,12 @@ def bucket_reduce(
     """The bucket mode's wrapper: ``out += A x`` over ``view``, in place; or,
     with ``accumulate=False``, ``out = A x`` (every row written, none read).
 
-    ``x`` is the gathered table, f32 contiguous ``[view.n_cols, F]``; or,
-    ``positional``, the block's message array ``[E >= view.n_edge, F]`` in
-    the view's edge order (column = position, weight 1; rows past
-    ``view.n_edge`` are padding and never read).  ``out`` is f32 contiguous
-    ``[view.n_rows, F]`` on the same device.  With ``alpha`` (f32,
+    ``x`` is the gathered table, f32 or bf16 contiguous ``[view.n_cols,
+    F]``; or, ``positional``, the block's message array ``[E >=
+    view.n_edge, F]`` in the view's edge order (column = position, weight
+    1; rows past ``view.n_edge`` are padding and never read).  ``out`` is
+    contiguous ``[view.n_rows, F]`` of ``x``'s dtype on the same device (in
+    bf16 the sum is f32 and each element of out is rounded once).  With ``alpha`` (f32,
     contiguous ``[view.n_edge, H]`` in the view's edge order) and ``feat``
     (``F = H * feat``), the weighted mode: ``out[r, h·feat + f] (+)= Σ_p
     alpha[p, h] · x[col[p], h·feat + f]``; it has no positional form.  A CPU
@@ -496,8 +539,10 @@ def bucket_reduce(
     global bucket_launches, bucket_weighted_launches
     device = view.device
     for name, t in (("x", x), ("out", out)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"bucket_reduce takes float32 {name}, got {t.dtype}")
+        _check_dtype("bucket_reduce", name, t, alpha is not None)
+        if t.dtype != x.dtype:
+            raise TypeError(f"bucket_reduce takes x and out of one dtype, got {x.dtype} "
+                            f"and {out.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"bucket_reduce takes a contiguous {name}")
         if t.device != device:
@@ -530,6 +575,8 @@ def bucket_reduce(
         bucket_launches += 1
     else:
         bucket_weighted_launches += 1
+    if x.dtype == torch.bfloat16:
+        bf16_launches["bucket"] += 1
     return out
 
 

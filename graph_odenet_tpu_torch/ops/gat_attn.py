@@ -28,8 +28,13 @@ and ``gat_bwd`` take the receiver-sorted view's ``LaunchPlan``
 each shared with the CSR kernel on that view, counters included.  Each call
 is one launch, split rows included, so it can be captured in a CUDA graph
 after an eager call at the same width; the lanes come from ``_fwd_lanes``
-(``gat_fwd``, ``gat_dwh``) and ``_bwd_lanes``.  The plain
-versions take any float dtype; the wrappers take float32.  D is one of: no
+(``gat_fwd``, ``gat_dwh``) and ``_bwd_lanes``.  The wrappers take
+float32, and ``gat_fwd`` and ``gat_bwd`` also a bfloat16 ``wh`` (JAX's
+kernels accept a bf16 Wh, compute in f32 and return f32): the kernels
+widen the gathered rows, and ``out``, ``m``, ``l`` and ``dlogits`` stay
+f32.  ``gat_dwh`` reads only f32 tables; ``_GATAggregate`` rounds its dWh
+to ``wh``'s dtype, as JAX does.  The plain versions widen ``wh`` the same
+way (``widen``) and otherwise take any float dtype.  D is one of: no
 dropout, an explicit ``dmask [E, H]`` in CSR order, or ``drop=(seed,
 rate)``, the counter hash of ``ops/dropmask.py`` regenerated in every pass.
 """
@@ -41,18 +46,21 @@ import functools
 import torch
 
 from graph_odenet_tpu_torch.ops import _build, dropmask
-from graph_odenet_tpu_torch.ops.csr_spmm import CSRGraph, LaunchPlan, _lanes, csr_reduce, row_ids
+from graph_odenet_tpu_torch.ops.csr_spmm import (
+    CSRGraph, LaunchPlan, _lanes, csr_reduce, row_ids, widen,
+)
 
 __all__ = [
     "gat_fwd", "gat_bwd", "gat_dwh",
     "gat_fwd_plain", "gat_bwd_plain", "gat_dwh_plain",
     "gat_aggregate_kernel", "gat_aggregate_kernel_dropout",
     "gat_aggregate_kernel_scores", "gat_aggregate_kernel_scores_dropout",
-    "gat_aggregate_reference", "launches",
+    "gat_aggregate_reference", "launches", "bf16_launches",
 ]
 
-#: Kernel launches made by each wrapper in this process.
+#: Kernel launches made by each wrapper in this process; of those, on a bf16 ``wh``.
 launches = {"gat_fwd": 0, "gat_bwd": 0, "gat_dwh": 0}
+bf16_launches = {"gat_fwd": 0, "gat_bwd": 0}
 
 _NONE, _EXPLICIT, _HASH = 0, 1, 2
 
@@ -77,6 +85,7 @@ def gat_fwd_plain(csr: CSRGraph, logits, wh, *, dmask=None, drop=None):
     four Functions (``gat_aggregate_reference``).  The max only shifts the
     exponent, so it is taken without gradient, as ``segment_softmax`` does.
     """
+    wh = widen(wh)
     n, heads = wh.shape[0], wh.shape[1]
     e = csr.n_edge
     rcv = csr.receivers.long()
@@ -99,6 +108,7 @@ def gat_fwd_plain(csr: CSRGraph, logits, wh, *, dmask=None, drop=None):
 def gat_bwd_plain(csr: CSRGraph, logits, wh, g, m, l, beta, *, dmask=None, drop=None,
                   emit_alpha=False):
     """Plain version of ``gat_bwd``: ``(dlogits like logits, α·D [E, H] or None)``."""
+    wh = widen(wh)
     heads = wh.shape[1]
     e = csr.n_edge
     rcv = csr.receivers.long()
@@ -133,11 +143,14 @@ def gat_dwh_plain(csr: CSRGraph, s_src, s_dst, m, l, g, slope, *, drop=None):
 
 
 def _check(name, csr: CSRGraph, **tensors):
+    """Each tensor f32 and contiguous on the adjacency's device; ``wh`` may
+    also be bf16."""
     for key, t in tensors.items():
         if t is None:
             continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} takes float32 {key}, got {t.dtype}")
+        if t.dtype != torch.float32 and not (key == "wh" and t.dtype == torch.bfloat16):
+            kinds = "float32 or bfloat16" if key == "wh" else "float32"
+            raise TypeError(f"{name} takes {kinds} {key}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous {key}")
         if t.device != csr.device:
@@ -168,18 +181,20 @@ def _mask_args(dmask, drop):
     return _NONE, None, 0, 0, 1.0
 
 
-def _rc(name, rc):
+def _rc(name, rc, wh=None):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches[name] += 1
+    if wh is not None and wh.dtype == torch.bfloat16:
+        bf16_launches[name] += 1
 
 
 @functools.cache
 def _fwd_lanes(heads: int, feat: int, vector: bool) -> tuple:
     """(G, V, n_chunks, Hp) of a ``gat_fwd`` call: 32/G edge slots of G lanes,
-    V floats a lane, chunks of G·V features of the H·F row (``_lanes``: float4
-    lanes at H·F >= 32 when ``vector``, F % 4 == 0 and rows 16-byte aligned,
-    so a float4 lies in one head), and Hp, the power of two >= the heads that
+    V features a lane, chunks of G·V features of the H·F row (``_lanes``:
+    4-feature lanes at H·F >= 32 when ``vector``, F % 4 == 0 and rows aligned
+    to 4 elements, so a lane's 4 lie in one head), and Hp, the power of two >= the heads that
     any chunk touches (the width of the kernel's per-warp weight tile)."""
     hf = heads * feat
     g, v = _lanes(hf, vector and feat % 4 == 0)
@@ -205,16 +220,28 @@ def _bwd_lanes(heads: int, feat: int, vector: bool) -> tuple:
     return v, lh, -(-q // lh), ge, -(-heads // (ge // lh))
 
 
+def _entry(name, wh):
+    """The C entry of kernel ``name`` for ``wh``'s dtype."""
+    suffix = "bf16" if wh.dtype == torch.bfloat16 else "f32"
+    return getattr(_build.load_library("gat_attn"), f"gode_{name}_{suffix}")
+
+
+def _aligned4(t):
+    """Rows of ``t`` aligned to 4 elements (a 4-feature lane's one load)."""
+    return t.data_ptr() % (4 * t.element_size()) == 0
+
+
 def _launch_fwd(plan: LaunchPlan, logits, wh, dmask, drop):
-    """One ``gat_fwd`` launch over ``plan`` (the fwd view's): out, m and l.
+    """One ``gat_fwd`` launch over ``plan`` (the fwd view's): out, m and l,
+    all f32 whatever ``wh``'s dtype.
 
     m and l are two rows of one allocation.  Scratch for the split rows'
     partial states, ``(acc [n_slots, H·F], stats [n_slots, chunks, 2, Hp])``,
     is allocated only when the view has split rows."""
     n, heads, feat = wh.shape
-    out = torch.empty_like(wh)
+    out = torch.empty(wh.shape, dtype=torch.float32, device=wh.device)
     m, l = torch.empty((2, n, heads), dtype=torch.float32, device=wh.device)
-    lanes, vec, n_chunks, hp = _fwd_lanes(heads, feat, wh.data_ptr() % 16 == 0)
+    lanes, vec, n_chunks, hp = _fwd_lanes(heads, feat, _aligned4(wh))
     p_acc = p_stat = None
     if plan.n_split:
         plan.reserve(n_chunks)
@@ -222,12 +249,12 @@ def _launch_fwd(plan: LaunchPlan, logits, wh, dmask, drop):
         scratch = torch.empty(n_acc + plan.n_slots * n_chunks * 2 * hp, dtype=torch.float32,
                               device=wh.device)
         p_acc, p_stat = scratch.data_ptr(), scratch[n_acc:].data_ptr()
-    rc = _build.load_library("gat_attn").gode_gat_fwd_f32(
+    rc = _entry("gat_fwd", wh)(
         plan.address, logits.data_ptr(), wh.data_ptr(), *_mask_args(dmask, drop),
         out.data_ptr(), m.data_ptr(), l.data_ptr(), p_acc, p_stat, heads, feat, lanes,
         vec, hp, torch.cuda.current_stream(plan.index).cuda_stream,
     )
-    _rc("gat_fwd", rc)
+    _rc("gat_fwd", rc, wh)
     return out, m, l
 
 
@@ -238,14 +265,14 @@ def _launch_bwd(plan: LaunchPlan, n_edge, logits, wh, g, m, l, beta, dmask, drop
     dlogits = torch.empty_like(logits)
     alpha_d = (torch.empty((n_edge, heads), dtype=torch.float32, device=wh.device)
                if emit_alpha else None)
-    vec, lanes_per_head = _bwd_lanes(heads, feat, (wh.data_ptr() | g.data_ptr()) % 16 == 0)[:2]
-    rc = _build.load_library("gat_attn").gode_gat_bwd_f32(
+    vec, lanes_per_head = _bwd_lanes(heads, feat, _aligned4(wh) and _aligned4(g))[:2]
+    rc = _entry("gat_bwd", wh)(
         plan.address, n_edge, logits.shape[0], logits.data_ptr(), wh.data_ptr(), g.data_ptr(),
         m.data_ptr(), l.data_ptr(), beta.data_ptr(), *_mask_args(dmask, drop),
         dlogits.data_ptr(), None if alpha_d is None else alpha_d.data_ptr(), heads, feat,
         lanes_per_head, vec, torch.cuda.current_stream(plan.index).cuda_stream,
     )
-    _rc("gat_bwd", rc)
+    _rc("gat_bwd", rc, wh)
     return dlogits, alpha_d
 
 
@@ -255,7 +282,7 @@ def _launch_dwh(plan: LaunchPlan, s_src, s_dst, m, l, g, slope, drop):
     rows ``[n_slots, H·F]`` is allocated only when the view has split rows."""
     _, heads, feat = g.shape
     out = torch.empty_like(g)
-    lanes, vec, n_chunks, hp = _fwd_lanes(heads, feat, g.data_ptr() % 16 == 0)
+    lanes, vec, n_chunks, hp = _fwd_lanes(heads, feat, _aligned4(g))
     partial = None
     if plan.n_split:
         plan.reserve(n_chunks)
@@ -272,7 +299,8 @@ def _launch_dwh(plan: LaunchPlan, s_src, s_dst, m, l, g, slope, drop):
 
 
 def gat_fwd(csr: CSRGraph, logits, wh, *, dmask=None, drop=None):
-    """B4: ``(out [N, H, F], m [N, H], l [N, H])``; logits ``[>=E, H]`` in CSR order."""
+    """B4: ``(out [N, H, F], m [N, H], l [N, H])``, all f32; logits ``[>=E, H]``
+    in CSR order, ``wh`` f32 or bf16."""
     _check("gat_fwd", csr, logits=logits, wh=wh, dmask=dmask)
     _check_shapes("gat_fwd", csr, wh, logits=logits, dmask=dmask)
     if csr.device.type == "cpu":
@@ -281,7 +309,8 @@ def gat_fwd(csr: CSRGraph, logits, wh, *, dmask=None, drop=None):
 
 
 def gat_bwd(csr: CSRGraph, logits, wh, g, m, l, beta, *, dmask=None, drop=None, emit_alpha=False):
-    """B5: ``(dlogits like logits, α·D [E, H] in CSR order or None)``."""
+    """B5: ``(dlogits like logits, α·D [E, H] in CSR order or None)``, f32;
+    ``wh`` f32 or bf16, everything else f32."""
     _check("gat_bwd", csr, logits=logits, wh=wh, g=g, m=m, l=l, beta=beta, dmask=dmask)
     _check_shapes("gat_bwd", csr, wh, logits=logits, dmask=dmask, m=m, l=l, beta=beta)
     if g.shape != wh.shape:
@@ -307,7 +336,9 @@ def gat_dwh(csr: CSRGraph, s_src, s_dst, m, l, g, slope: float, *, drop=None):
 
 
 class _GATAggregate(torch.autograd.Function):
-    """``out = Σ α·D·Wh[s]`` through the kernels; gradients for logits and wh."""
+    """``out = Σ α·D·Wh[s]`` through the kernels; gradients for logits and wh.
+    ``out`` is f32 for an f32 or a bf16 ``wh``; dWh is rounded to ``wh``'s
+    dtype (JAX's ``dwh.astype(wh.dtype)``)."""
 
     @staticmethod
     def forward(ctx, csr, logits, wh, dmask, s_src, s_dst, slope, drop):
@@ -334,7 +365,7 @@ class _GATAggregate(torch.autograd.Function):
                 csr, g.view(n, heads * feat), transpose=True,
                 alpha=alpha_d.index_select(0, csr.t_perm), feat=feat,
             ).view(n, heads, feat)
-        return None, dlogits, dwh, None, None, None, None, None
+        return None, dlogits, dwh.to(wh.dtype), None, None, None, None, None
 
 
 def gat_aggregate_kernel(csr: CSRGraph, logits, wh):

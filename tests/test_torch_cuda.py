@@ -18,7 +18,11 @@ plain version in float32 adds a hub row's terms one by one in atomic order,
 and its error alone can exceed the tolerance.  Tolerance rtol = atol = 1e-5.
 Each call of the CSR kernel's wrappers and of ``gat_fwd``, ``gat_bwd`` and
 ``gat_dwh`` is also held to one device launch, to bit-equal repeats on split
-rows, and to bit-equal replays of a captured CUDA graph.
+rows, and to bit-equal replays of a captured CUDA graph.  So are the bf16
+entries (bf16 features through the CSR and bucket modes, a bf16 Wh through
+``gat_fwd`` and ``gat_bwd``), each held to its plain version on the card in
+its own dtype: a bf16 output within one bf16 ulp (plus 1e-5 for the order of
+the f32 sums), an f32 output of the GAT kernels at rtol = atol = 1e-4.
 """
 
 import time
@@ -1049,3 +1053,148 @@ def test_validate_tiling_runs_inside_prepare_on_a_card_graph(cuda, monkeypatch):
     bad = dataclasses.replace(csr, senders=csr.senders.clone().fill_(g.n_node_pad))
     with pytest.raises(ValueError, match="senders"):
         validate_tiling(bad)
+
+
+# ---------------------------------------------------------------- bfloat16
+
+BF = torch.bfloat16
+BF16_F32_TOL = dict(rtol=1e-4, atol=1e-4)  # the f32 outputs of gat_fwd and gat_bwd
+
+
+def _assert_within_bf16_ulp(got, want, atol=1e-5):
+    """bf16 ``got`` within one bf16 ulp of bf16 ``want``, plus ``atol``: both
+    round an f32 sum once, the two sums in other orders."""
+    assert got.dtype == want.dtype == BF
+    w = want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - 8)  # |w| in [2^(e-1), 2^e), 8 bits
+    err = (got.float() - w).abs()
+    assert bool((err <= ulp + atol).all()), float((err - ulp).max())
+
+
+@pytest.mark.parametrize("f", [3, 6, 16, 40, 128, 256])
+def test_bf16_csr_and_bucket_calls(cuda, f):
+    """The bf16 entry on views with split rows (and, in the bucket, empty
+    rows): each call one launch of ``csr_reduce_kernel``, 20 calls bit-equal,
+    within one ulp of the plain version on the card, every arrival counter
+    back at 0; F = 6 and 3 take the single lanes (rows of 12 and 6 bytes)."""
+    g = _split_hub_graph(np.random.default_rng(7))
+    csr = prepare(g).to(cuda)
+    view = _bucket_view(np.random.default_rng(8)).to(cuda)
+    rng = np.random.default_rng(9)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda).to(BF)
+
+    x, xt, out0 = randn(g.n_node_pad, f), randn(view.n_cols, f), randn(view.n_rows, f)
+    empty, copy, nothing = (lambda: torch.empty_like(out0)), out0.clone, (lambda: None)
+    calls = {
+        "csr_fwd": (nothing, lambda _: csr_spmm.csr_reduce(csr, x),
+                    lambda: csr_spmm._reduce_plain(csr.row_ptr, csr.senders, csr.weight, x)),
+        "csr_bwd": (nothing, lambda _: csr_spmm.csr_reduce(csr, x, transpose=True),
+                    lambda: csr_spmm._reduce_plain(csr.t_row_ptr, csr.t_receivers,
+                                                   csr.t_weight, x)),
+        "bucket_write": (empty, lambda o: csr_spmm.bucket_reduce(view, xt, o, accumulate=False),
+                         lambda: csr_spmm._bucket_reduce_plain(view, xt, empty(),
+                                                               accumulate=False)),
+        "bucket_add": (copy, lambda o: csr_spmm.bucket_reduce(view, xt, o),
+                       lambda: csr_spmm._bucket_reduce_plain(view, xt, copy())),
+    }
+    before = dict(csr_spmm.bf16_launches)
+    for name, (make, call, plain) in calls.items():
+        first = call(make())
+        _assert_within_bf16_ulp(first, plain())
+        out = make()
+        kernels = _device_kernels(lambda: call(out))
+        assert len(kernels) == 1 and "csr_reduce_kernel" in kernels[0], (name, kernels)
+        for got in [call(o) for o in [make() for _ in range(20)]]:
+            assert torch.equal(got, first), name
+    torch.cuda.synchronize()
+    assert csr_spmm.bf16_launches["csr"] > before["csr"]
+    assert csr_spmm.bf16_launches["bucket"] > before["bucket"]
+    for plan in (*csr.plans, view.plan):
+        assert not plan.arrivals.any()
+
+
+@pytest.mark.parametrize("heads,feat", ATT_SHAPES)
+def test_bf16_gat_calls(cuda, heads, feat):
+    """``gat_fwd`` and ``gat_bwd`` on a bf16 Wh over a split hub: f32 outputs
+    against the plain versions in float64 on the same (widened) Wh at
+    rtol = atol = 1e-4, one launch of their own kernel a call, 20 calls
+    bit-equal; the Function's dWh is bf16."""
+    from graph_odenet_tpu_torch.ops import gat_attn
+
+    g = _split_hub_graph(np.random.default_rng(20))
+    csr, s_src, s_dst, logits, wh, up = _att_inputs(g, heads, feat, cuda, seed=24)
+    wh = wh.to(BF)
+    drop = (9, 0.6)
+    out, m, l = gat_attn.gat_fwd(csr, logits, wh, drop=drop)
+    beta = (up * out).sum(-1)
+    ref = gat_attn.gat_fwd_plain(csr, logits.double(), wh.double(), drop=drop)
+    for got, want in zip((out, m, l), ref):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got.double(), want, **BF16_F32_TOL)
+    dl, ad = gat_attn.gat_bwd(csr, logits, wh, up, m, l, beta, drop=drop, emit_alpha=True)
+    ref = gat_attn.gat_bwd_plain(csr, logits.double(), wh.double(), up.double(), m.double(),
+                                 l.double(), beta.double(), drop=drop, emit_alpha=True)
+    for got, want in zip((dl, ad), ref):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got.double(), want, **BF16_F32_TOL)
+    calls = {
+        "gat_fwd": lambda: gat_attn.gat_fwd(csr, logits, wh, drop=drop),
+        "gat_bwd": lambda: gat_attn.gat_bwd(csr, logits, wh, up, m, l, beta, drop=drop,
+                                            emit_alpha=True),
+    }
+    before = dict(gat_attn.bf16_launches)
+    for name, call in calls.items():
+        first = call()
+        kernels = _device_kernels(call)
+        assert len(kernels) == 1 and f"{name}_kernel" in kernels[0], (name, kernels)
+        for got in [call() for _ in range(20)]:
+            for a, b in zip(got, first):
+                assert torch.equal(a, b), name
+        assert gat_attn.bf16_launches[name] > before[name]
+    _, _, dwh = _gat_fwd_bwd(csr, s_src, s_dst, wh, up)
+    assert dwh.dtype == BF
+
+
+def test_bf16_captured_graph_replays_bit_equal_to_eager_calls(cuda):
+    """``spmm_csr`` forward and backward on bf16 features and
+    ``attention_aggregate`` on a bf16 Wh (score hint, hash dropout 0.6), on a
+    split hub, captured in one CUDA graph: replays equal the eager calls."""
+    g = _split_hub_graph(np.random.default_rng(25))
+    csr, s_src, s_dst, _, wh, up = _att_inputs(g, 8, 8, cuda, seed=26)
+    x = torch.from_numpy(np.random.default_rng(27).standard_normal(
+        (g.n_node_pad, 16)).astype(np.float32)).to(cuda).to(BF)
+
+    def work(x, wh):
+        xr = x.detach().requires_grad_(True)
+        y = spmm_csr(csr, xr)
+        (dx,) = torch.autograd.grad(y, xr, torch.ones_like(y))
+        return (y.detach(), dx, *_gat_fwd_bwd(csr, s_src, s_dst, wh, up))
+
+    graph, eager, captured = _capture(work, x, wh.to(BF))
+    assert [t.dtype for t in eager] == [BF, BF, torch.float32, torch.float32, BF]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+
+
+def test_bf16_weighted_modes_raise_on_cuda(cuda):
+    """B1-w and B2-w take f32 only: a bf16 table raises ``TypeError`` before
+    any launch, and no plain version runs on a CUDA tensor."""
+    g = _random_graph(np.random.default_rng(0))
+    csr = prepare(g).to(cuda)
+    view = _bucket_view(np.random.default_rng(1)).to(cuda)
+    x = torch.zeros((g.n_node_pad, 8), device=cuda, dtype=BF)
+    xt = torch.zeros((view.n_cols, 8), device=cuda, dtype=BF)
+    before = (csr_spmm.weighted_launches, csr_spmm.bucket_weighted_launches)
+    with pytest.raises(TypeError, match="weighted"):
+        csr_spmm.csr_reduce(csr, x, transpose=True,
+                            alpha=torch.ones(csr.n_edge, 2, device=cuda), feat=4)
+    with pytest.raises(TypeError, match="weighted"):
+        csr_spmm.bucket_reduce(view, xt, torch.zeros((view.n_rows, 8), device=cuda, dtype=BF),
+                               alpha=torch.ones(view.n_edge, 2, device=cuda), feat=4)
+    assert (csr_spmm.weighted_launches, csr_spmm.bucket_weighted_launches) == before
