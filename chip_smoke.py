@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--physics-epochs N] [--adjoint-epochs N]
+    python3 chip_smoke.py [--physics-epochs N] [--adjoint-epochs N] [--adams-epochs N]
 
 Imports nothing of JAX.  Phases, one JSON line each; any failure raises,
 so the exit code is non-zero:
@@ -167,6 +167,32 @@ so the exit code is non-zero:
              (``SCIPY_RTOL``).  (5) ``odeint_checked`` raises on a NaN made on
              the card.  (6) ``validate_tiling``'s host ms on the full arxiv
              twin's views.
+  batched_adams
+             config 3's IN-ODE on the batched VCABM (``adams_scan``, each
+             window its own order and steps; no kernel on its path).  (a) In
+             float64, 8 windows through a fresh full-width INODE: one batched
+             solve against each window alone (a batch of copies of it, so
+             that every kernel rounds its row as in the batch), per-sample
+             ``nfe``, accepts, rejects and final order equal and trajectories
+             within ``PHYS_REL``, the batch of one reported beside, not gated
+             (VCABM's order rule turns its 1e-15 of other rounding into other
+             steps), with two witnesses to that, not gated: the unbatched form
+             beside it, and its counts under states scaled by 1 + k·2^-52
+             where the batch of one differs; the same windows batched against
+             one by one in float64 on the CPU; the batched continuous adjoint's gradient against the
+             sum of the windows' alone (``PHYS_REL``); ``scipy_solver`` with
+             ``batch_dims=1`` on a card tensor against each sample alone
+             (``SCIPY_RTOL``).  (c) A ``torch.profiler`` breakdown of one
+             training step at batch 512, and one forward's host reads, at
+             most one an attempt round plus ``VCABM_FIXED_READS``.  (b)
+             ``physics_rollout_curves`` on ``adams_scan`` at full width
+             (config 3's data, batch, widths, window and 16 attempts an
+             interval) for ``ADAMS_EPOCHS`` epochs (``--adams-epochs``, the
+             cut printed): s/epoch, the window loss per epoch (must fall and
+             stay finite), attempts per interval, final-order spread and
+             success share, peak device memory, window MSE and the rollout
+             MSE at horizons 1, 5, 10, 20 and 50 (finite); the physics
+             phase's dopri5_scan figures beside.
   surfaces   (last) the bench functions, the CLI, ``entry()`` and A20 on the
              card.  (1) ``bench.spmm_bench()`` (the bench shape, F=128),
              ``gat_bench`` at H=8/F=8 with dropout 0.6, at H=1/F=128 and at
@@ -195,7 +221,8 @@ so the exit code is non-zero:
              add and CSC write forms); B4 and B5 on a bf16 Wh on the Citeseer
              twin (H=8/F=8 with hash dropout 0.6, H=1/F=64, H=1/F=6) and the
              bench graph (H=8/F=8 hash, H=1/F=128).  bf16 outputs within one
-             bf16 ulp plus ``BF16_ATOL``, the f32 outputs of B4/B5 at
+             bf16 ulp plus ``BF16_ATOL`` plus ``BF16_SUM_RTOL`` of the sum of
+             their terms' magnitudes, the f32 outputs of B4/B5 at
              ``BF16_F32_TOL``; each call one launch of its own kernel, 20
              repeats bit-equal; ms of the bf16 call, the f32 call at the same
              shape and the plain version, the bound with 2-byte features, and
@@ -319,6 +346,15 @@ VCABM_STEPS = 32  # the GAT-ODE recipe's attempt budget
 SOLVER_ADJ_GAP = 1e-3
 SOLVER_GAT_EPOCHS = 40
 SCIPY_DIM, SCIPY_RTOL = 256, 1e-8
+# The batched_adams phase: config 3's IN-ODE on adams_scan.  Its epochs in the
+# default run, cut from the config's 20 to keep the phase near 90 s (on an H100
+# 80GB HBM3 at 700 W an epoch took 8.8-9.8 s and the phase 107 s at 6 epochs,
+# PERF.md); the reads of a forward besides one an attempt round (the copies of
+# ts and of the γ* constants to the card); the samples of its scipy_solver
+# check.
+ADAMS_EPOCHS = 4
+VCABM_FIXED_READS = 2
+ADAMS_SCIPY_BATCH = 4
 VALIDATE_REPEATS = 3
 # The resume phase: epochs before the stop and in all.  Config 4 must resume bit
 # for bit (B2 merges split rows in a fixed order); the sharded GAT-ODE's plain
@@ -331,10 +367,16 @@ RESUME_GAT_RTOL = 1e-6
 SURFACE_EPOCHS, A20_BATCH, A20_F = 30, 4, 64
 GAT_KERNELS = ("gat_fwd", "gat_bwd", "gat_dwh")
 # The bf16 phase.  A bf16 output (B1, B2) is held within one bf16 ulp of the
-# plain version's on the card plus BF16_ATOL (both round an f32 sum once, the
-# sums in other orders); the f32 outputs of B4/B5 on a bf16 Wh at
-# BF16_F32_TOL.  Every checked call is repeated BF16_REPEATS times, bit-equal.
+# plain version's on the card plus BF16_ATOL plus BF16_SUM_RTOL times the sum
+# of its terms' magnitudes (both round an f32 sum once, the sums in other
+# orders, and where the terms cancel the two f32 sums differ by more than an
+# ulp of the result: on an H100 the plain version's atomic order put B2's CSC
+# write at the arxiv twin's hub senders at 1.73 of the tolerance without the
+# sum term; tests/test_torch_bf16.py::test_smoke_bf16_check_allows_the_order_of_a_cancelling_sum);
+# the f32 outputs of B4/B5 on a bf16 Wh at BF16_F32_TOL.  Every checked call
+# is repeated BF16_REPEATS times, bit-equal.
 BF16_ATOL = 1e-5
+BF16_SUM_RTOL = 2.0 ** -20  # 16 f32 unit roundoffs
 BF16_F32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_REPEATS = 20
 BF16_GAT_LIBRARY = ("none: no single PyTorch call computes a per-receiver softmax over the "
@@ -1670,6 +1712,13 @@ def phase_physics(dev, epochs=PHYS_EPOCHS):
         rollout_mse={h: dict(discrete=disc[h], inode=ode[h]) for h in PHYS_HORIZONS},
         total_seconds=res["total_seconds"], wall_seconds=wall, kernel_launches=launched,
     )
+    return dict(method=cfg.ode_method, epochs=epochs,
+                seconds_per_epoch_inode=res["train_seconds_inode"] / epochs,
+                window_mse=res["window_mse"], window_mse_history=res["window_mse_history"],
+                train_solver=res["train_solver"], rollout_solver=res["rollout_solver"],
+                peak_memory_bytes=peak, rollout_mse_inode={h: ode[h] for h in PHYS_HORIZONS},
+                inode_host_reads_per_forward=profile["inode_host_reads_per_forward"],
+                profile=profile["inode"])
 
 
 class adjoint_probe:
@@ -1734,7 +1783,8 @@ class adjoint_probe:
 
 def host_syncs(fn):
     """The synchronising calls (host reads of device values) of ``fn()``, by the
-    warnings of ``torch.cuda.set_sync_debug_mode``."""
+    warnings of ``torch.cuda.set_sync_debug_mode`` (its own notice, once a
+    process, that the mode is a prototype is not one)."""
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1743,7 +1793,7 @@ def host_syncs(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("called a synchronizing" in str(w.message) for w in caught)
 
 
 class plain_calls:
@@ -2153,6 +2203,219 @@ def phase_solvers(dev, data, arxiv_graph):
     return launches
 
 
+def _scipy_batched(dev):
+    """``scipy_solver`` with ``batch_dims=1`` on a card tensor against each
+    sample solved alone (``ADAMS_SCIPY_BATCH`` samples of the solvers phase's
+    ``SCIPY_DIM``-wide field, each with its own rate)."""
+    from graph_odenet_tpu_torch.ode import odeint
+
+    gen = torch.Generator().manual_seed(1)
+    a = (torch.randn(SCIPY_DIM, SCIPY_DIM, generator=gen, dtype=torch.float64)
+         / SCIPY_DIM ** 0.5).to(dev)
+    y0 = torch.randn(ADAMS_SCIPY_BATCH, SCIPY_DIM, generator=gen, dtype=torch.float64).to(dev)
+    rate = torch.linspace(0.25, 2.0, ADAMS_SCIPY_BATCH, dtype=torch.float64, device=dev)
+    ts = torch.linspace(0.0, 1.0, 5, dtype=torch.float64)
+    kw = dict(method="scipy_solver", rtol=1e-10, atol=1e-12)
+
+    def field(t, y):
+        return torch.tanh(y @ a.T) - rate[:, None] * y + 0.1 * torch.sin(t)[:, None]
+
+    t0 = time.perf_counter()
+    together = odeint(field, y0, ts, batch_dims=1, **kw)
+    batched_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    alone = torch.stack([odeint(lambda t, y, b=b: torch.tanh(a @ y) - rate[b] * y
+                                + 0.1 * torch.sin(t), y0[b], ts, **kw)
+                         for b in range(ADAMS_SCIPY_BATCH)], dim=1)
+    alone_ms = (time.perf_counter() - t0) * 1e3
+    if together.device != y0.device or together.shape != alone.shape:
+        raise AssertionError(f"scipy_solver batched: {tuple(together.shape)} on "
+                             f"{together.device}")
+    torch.testing.assert_close(together, alone, rtol=SCIPY_RTOL, atol=SCIPY_RTOL)
+    return dict(batch=ADAMS_SCIPY_BATCH, dim=SCIPY_DIM, rtol=SCIPY_RTOL, batched_ms=batched_ms,
+                one_by_one_ms=alone_ms, max_abs_diff=float((together - alone).abs().max()))
+
+
+def phase_batched_adams(dev, physics, epochs=ADAMS_EPOCHS):
+    """Config 3's IN-ODE on the batched VCABM (see the module doc); ``physics``:
+    the physics phase's dopri5_scan figures, printed beside."""
+    from types import SimpleNamespace
+
+    from graph_odenet_tpu_torch.configs import get_config
+    from graph_odenet_tpu_torch.data import SpringSystem, generate_trajectories
+    from graph_odenet_tpu_torch.models import INODE
+    from graph_odenet_tpu_torch.train.physics import physics_rollout_curves, trajectory_windows
+
+    _, cfg = get_config(3)
+    cfg = dataclasses.replace(cfg, ode_method="adams_scan")
+    t0 = time.perf_counter()
+    system = SpringSystem(n_bodies=cfg.n_bodies, dim=cfg.dim)
+    trajs = generate_trajectories(system, cfg.n_sims, cfg.n_steps,
+                                  generator=torch.Generator().manual_seed(cfg.seed), device=dev)
+    wins = trajectory_windows(trajs, cfg.ode_window)
+    del trajs
+    ts = torch.arange(cfg.ode_window + 1, dtype=torch.float64) * system.dt
+    senders, receivers = system.edges(dev)
+
+    def make(dtype, adjoint=False):
+        return INODE(
+            dim=cfg.dim, effect_dim=cfg.effect_dim, relation_hidden=cfg.relation_hidden,
+            object_hidden=cfg.object_hidden, method=cfg.ode_method, steps=cfg.ode_steps,
+            remat=cfg.ode_remat, rtol=cfg.rtol, atol=cfg.atol, adjoint=adjoint,
+            generator=torch.Generator().manual_seed(cfg.seed),
+        ).to(dtype=dtype, device=dev)
+
+    def solve(m, batch):
+        w0 = batch[:, 0]
+        return m(w0[..., 1:], ts.to(batch.dtype), w0[..., :1], senders, receivers)
+
+    # (a) In float64: one batched solve against each window solved alone.  Alone
+    # is a batch of copies of the window: the same shapes, so cuBLAS and the
+    # reductions round its row as they round it in the batch.  A batch of one
+    # rounds otherwise (by 1e-15, the physics phase's check), and VCABM's order
+    # rule, which compares error estimates that rounding dominates at this
+    # config's small first steps, turns that into other steps (one window took
+    # 38 accepts alone against 37 batched on an H100, PERF.md), so the batch of
+    # one is reported, not gated.
+    small = wins[:PHYS_WINDOWS].double()
+    model = make(torch.float64)
+    keys = ("nfe", "n_accept", "n_reject", "final_order")
+
+    def copies(i):
+        return small[i:i + 1].expand_as(small).contiguous()
+
+    def solve_rows(batch_of, rows):
+        """The trajectory and counts of row ``rows(i)`` of each window's solve."""
+        outs, counts = [], {k: [] for k in keys}
+        for i in range(PHYS_WINDOWS):
+            out, r = solve(model, batch_of(i)), rows(i)
+            outs.append(out[r])
+            for k in keys:
+                counts[k].append(int(model.stats[k][r]))
+        return torch.stack(outs), counts
+
+    with fixed_order_sums(warn_only=True), torch.no_grad():
+        together = solve(model, small)
+        batched = {k: model.stats[k].tolist() for k in keys}
+        alone, one_by_one = solve_rows(copies, lambda i: 0)
+        single, singly = solve_rows(lambda i: small[i:i + 1], lambda i: 0)
+    for k in keys:
+        if batched[k] != one_by_one[k]:
+            raise AssertionError(f"batched_adams: {k} batched {batched[k]} against alone "
+                                 f"{one_by_one[k]}")
+    traj_err = _rel_err(together, alone)
+    if not traj_err <= PHYS_REL:
+        raise AssertionError(f"batched_adams: batched against alone {traj_err} > {PHYS_REL}")
+    # Two more witnesses that the batch of one differs by rounding alone, not
+    # gated.  On the card, the unbatched form (batch_dims=0, the solve the
+    # batched one was held to) beside each window's batch of one; where the
+    # batch of one takes other steps, the unbatched form's counts with the
+    # window's state scaled by 1 + k·2^-52, |k| <= 3: two outcomes there mean
+    # the order rule turns one unit of rounding into other steps.  On the
+    # CPU, the same windows and weights in float64, batched against each
+    # window as a batch of one.
+    def unbatched_counts(window, scale=1.0):
+        w0 = window[0]
+        model(w0[..., 1:] * scale, ts.to(window.dtype), w0[..., :1], senders, receivers)
+        return [int(model.stats[k]) for k in keys]
+
+    def cpu_counts(batch, graph):
+        w0 = batch[:, 0]
+        model(w0[..., 1:], ts, w0[..., :1], *graph)
+        return [[int(model.stats[k][r]) for k in keys] for r in range(batch.shape[0])]
+
+    differs = [i for i in range(PHYS_WINDOWS) if any(batched[k][i] != singly[k][i] for k in keys)]
+    with fixed_order_sums(warn_only=True), torch.no_grad():
+        unbatched = [unbatched_counts(small[i]) for i in range(PHYS_WINDOWS)]
+        perturbed = {i: sorted({tuple(unbatched_counts(small[i], 1 + k * 2.0 ** -52))
+                                for k in range(-3, 4)}) for i in differs}
+        model.cpu()
+        graph, on_cpu = (senders.cpu(), receivers.cpu()), small.cpu()
+        cpu_batched = cpu_counts(on_cpu, graph)
+        cpu_one = [cpu_counts(on_cpu[i:i + 1], graph)[0] for i in range(PHYS_WINDOWS)]
+    batch_of_one = dict(
+        traj_rel_err=_rel_err(together, single),
+        counts_differ={k: [batched[k], singly[k]] for k in keys if batched[k] != singly[k]},
+        counts=keys, batched=[[batched[k][i] for k in keys] for i in range(PHYS_WINDOWS)],
+        alone=[[singly[k][i] for k in keys] for i in range(PHYS_WINDOWS)],
+        unbatched=unbatched, unbatched_perturbed=perturbed,
+        cpu_float64=dict(batched=cpu_batched, alone=cpu_one, equal=cpu_batched == cpu_one),
+    )
+
+    # The batched continuous adjoint's gradient against the sum of the windows'
+    # alone (each window's loss on its first copy).
+    adj = make(torch.float64, adjoint=True)
+
+    def window_grads(batch, first=None):
+        adj.zero_grad(set_to_none=True)
+        err = (solve(adj, batch) - batch[..., 1:]) ** 2
+        err.flatten(1).mean(1)[:first].sum().backward()
+        return {k: p.grad.detach().clone() for k, p in adj.named_parameters()}
+
+    with fixed_order_sums(warn_only=True):
+        grads = window_grads(small)
+        per_window = [window_grads(copies(i), first=1) for i in range(PHYS_WINDOWS)]
+    adj_err = {k: _rel_err(g, sum(w[k] for w in per_window)) for k, g in grads.items()}
+    if not max(adj_err.values()) <= PHYS_REL:
+        raise AssertionError(f"batched_adams: adjoint batched against alone {adj_err}")
+    scipy = _scipy_batched(dev)
+    del model, adj, small, together, alone, single
+    check_seconds = time.perf_counter() - t0
+
+    # (c) Where a training step's time goes, and one forward's host reads, at
+    # the config's batch in float32.
+    batch = wins[:cfg.batch_size]
+    inode = make(torch.float32)
+
+    def inode_step():
+        inode.zero_grad(set_to_none=True)
+        torch.mean((solve(inode, batch) - batch[..., 1:]) ** 2).backward()
+
+    profile = profile_steps(inode, inode_step, SimpleNamespace(lr=cfg.lr, weight_decay=0.0),
+                            steps=1, top=8)
+    with torch.no_grad():
+        syncs = host_syncs(lambda: solve(inode, batch))
+    rounds = inode.stats["host_reads"]
+    if not syncs <= rounds + VCABM_FIXED_READS:
+        raise AssertionError(f"batched_adams: {syncs} host reads in a forward of {rounds} "
+                             f"attempt rounds (+{VCABM_FIXED_READS} fixed)")
+    reads = dict(syncs=syncs, attempt_rounds=rounds, fixed=VCABM_FIXED_READS,
+                 attempts=int((inode.stats["n_accept"] + inode.stats["n_reject"]).sum()))
+    del inode, batch, wins
+
+    # (b) Config 3 trained and rolled out on adams_scan at full width.
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    res = physics_rollout_curves(dataclasses.replace(cfg, epochs=epochs), horizon=PHYS_HORIZON,
+                                 device=dev)
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = res["window_mse_history"]
+    if not (len(hist) == epochs and np.all(np.isfinite(hist)) and hist[-1] < hist[0]):
+        raise AssertionError(f"batched_adams: window MSE did not fall or is not finite: {hist}")
+    ode = res["rollout_mse_inode"]
+    if not (np.all(np.isfinite(ode)) and ode[0] < 1e-9):
+        raise AssertionError(f"batched_adams: rollout curve {ode}")
+    emit(
+        "batched_adams", config=res["config"], device=res["device"], method=cfg.ode_method,
+        check=dict(windows=PHYS_WINDOWS, dtype="float64", **batched, traj_rel_err=traj_err,
+                   adjoint_grad_rel_err=adj_err, rel_tol=PHYS_REL, batch_of_one=batch_of_one,
+                   scipy=scipy, seconds=check_seconds),
+        profile=profile, host_reads_per_forward=reads,
+        epochs=epochs, epochs_cut_from=cfg.epochs,
+        seconds_per_epoch_inode=res["train_seconds_inode"] / epochs,
+        seconds_per_epoch_in=res["train_seconds_in"] / epochs,
+        window_mse=res["window_mse"], window_mse_history=hist,
+        train_solver=res["train_solver"], rollout_solver=res["rollout_solver"],
+        peak_memory_bytes=peak,
+        rollout_mse={h: dict(discrete=res["rollout_mse_discrete"][h], inode=ode[h])
+                     for h in PHYS_HORIZONS},
+        total_seconds=res["total_seconds"], wall_seconds=wall,
+        dopri5_scan=physics,
+    )
+
+
 def _resume_run(cfg, data, dev, first, total):
     """``total`` epochs straight; then ``first`` epochs saving every epoch, the
     live state dropped, and a fresh call resuming to ``total``.  The losses of
@@ -2399,16 +2662,25 @@ def phase_library(dev, graphs, iters=20):
     return out
 
 
-def _bf16_err(got, want, atol=BF16_ATOL):
+def _bf16_err(got, want, scale, atol=BF16_ATOL):
     """(max abs err, max err over tolerance) of bf16 ``got`` against bf16
-    ``want``, the tolerance one bf16 ulp of ``want`` plus ``atol`` (both
-    round an f32 sum once, the two sums in other orders); a NaN in ``got``
-    counts as an infinite error."""
+    ``want``, the tolerance one bf16 ulp of ``want`` plus ``atol`` plus
+    ``BF16_SUM_RTOL`` times ``scale``, each output's sum of its terms'
+    magnitudes (both round an f32 sum once, the two sums in other orders);
+    a NaN in ``got`` counts as an infinite error."""
     w = want.float()
     _, e = torch.frexp(w)
     ulp = torch.ldexp(torch.ones_like(w), e - 8)  # |w| in [2^(e-1), 2^e), 8 bits
     d = (got.float() - w).abs().nan_to_num(nan=float("inf"))
-    return float(d.max()), float((d / (ulp + atol)).max())
+    return float(d.max()), float((d / (ulp + atol + BF16_SUM_RTOL * scale.float())).max())
+
+
+def _term_sums(row_ptr, col, weight, x):
+    """Each output's ``Σ |w·x[col]|``: the scale of the rounding of an f32 sum
+    of its terms."""
+    from graph_odenet_tpu_torch.ops.csr_spmm import _reduce_plain
+
+    return _reduce_plain(row_ptr, col, weight.abs(), x.float().abs())
 
 
 def _bit_equal_repeats(fn, first, n=BF16_REPEATS):
@@ -2471,7 +2743,9 @@ def bf16_spmm(name, g, f, dev, iters, seed):
 
     out, dx = kernel()
     ref, dref = plain()
-    errs = {"fwd": _bf16_err(out, ref), "bwd": _bf16_err(dx, dref)}
+    errs = {"fwd": _bf16_err(out, ref, _term_sums(csr.row_ptr, csr.senders, csr.weight, x)),
+            "bwd": _bf16_err(dx, dref, _term_sums(csr.t_row_ptr, csr.t_receivers, csr.t_weight,
+                                                  up))}
     repeats = _bit_equal_repeats(kernel, (out, dx))
     costs = {"csr_fwd": (call_costs(lambda: csr_reduce(csr, x), calls=200), "csr_reduce_kernel"),
              "csr_bwd": (call_costs(lambda: csr_reduce(csr, up, transpose=True), calls=200),
@@ -2520,7 +2794,10 @@ def bf16_buckets(dev, graph, f, iters):
                         ("csc_write", bk.bwd, False, nan)):
                     got = bucket_reduce(view, chunk, start(), accumulate=accumulate)
                     want = _bucket_reduce_plain(view, chunk, start(), accumulate=accumulate)
-                    errs[form] = max(errs.get(form, (0.0, 0.0)), _bf16_err(got, want),
+                    scale = _term_sums(view.row_ptr, view.col, view.weight, chunk)
+                    if accumulate:
+                        scale = scale + base.float().abs()
+                    errs[form] = max(errs.get(form, (0.0, 0.0)), _bf16_err(got, want, scale),
                                      key=lambda e: e[1])
         rows[n_parts] = errs
     bk = pg.bucket(0, 0)  # P = 1: config 4 on one card
@@ -2738,6 +3015,9 @@ def main():
     parser.add_argument("--adjoint-epochs", type=int, default=ADJ_EPOCHS,
                         help="pubmed-gatode's epochs with each adjoint (its own are 300; "
                              "default %(default)s)")
+    parser.add_argument("--adams-epochs", type=int, default=ADAMS_EPOCHS,
+                        help="config 3's epochs on adams_scan (its own are 20; default "
+                             "%(default)s)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
@@ -2788,9 +3068,10 @@ def main():
     gat_bucket_launches = timed("config4_gat", phase_config4_gat, dev, arxiv_cal)
     resume_launches = timed("resume", phase_resume, dev, arxiv, arxiv_cal)
     del arxiv_cal
-    timed("physics", phase_physics, dev, args.physics_epochs)
+    physics = timed("physics", phase_physics, dev, args.physics_epochs)
     adj = timed("adjoint", phase_adjoint, dev, data, args.adjoint_epochs)
     solver_launches = timed("solvers", phase_solvers, dev, data, arxiv.graph)
+    timed("batched_adams", phase_batched_adams, dev, physics, args.adams_epochs)
     surface_launches = timed("surfaces", phase_surfaces, dev, arxiv)
     bf16 = timed("bf16", phase_bf16, dev, data, bench_row, bench, arxiv)
     del arxiv
@@ -2862,7 +3143,8 @@ def main():
             repeats_bit_equal=BF16_REPEATS,
             other_shapes={r["shape"]: {k: r[k] for k in pick if k in r} for r in rows_of[1:]})
 
-    ulp_tol = f"one bf16 ulp + {BF16_ATOL} against the plain version on the card"
+    ulp_tol = (f"one bf16 ulp + {BF16_ATOL} + {BF16_SUM_RTOL:g}·Σ|terms| against the plain "
+               "version on the card")
     f32_tol = "rtol=atol=1e-4 (f32 outputs) against the plain version on the card"
     bf16_gcn = bf16["models"]["pubmed-gcnode"]["bfloat16"]["bf16_launches"]
     bf16_gat = bf16["models"]["2"]["bfloat16"]["bf16_launches"]

@@ -113,14 +113,20 @@ class INODE(nn.Module):
     integrates over ``ts`` and returns the trajectory ``[T, N, 2D]`` for
     ``y0 [N, 2D]``, or ``[B, T, N, 2D]`` for a batch ``y0 [B, N, 2D]`` (with
     ``static_attr [B, N, Ds]``), each window solved as its own problem
-    (``odeint(batch_dims=1)``: its own steps, as under ``jax.vmap``).  The
-    solver stats of the last forward are kept in ``stats``.
+    (``odeint(batch_dims=1)``: its own steps, and on ``adams``/``adams_scan``
+    its own order, as under ``jax.vmap``; on ``scipy_solver`` one host solve
+    a window, forward only, each of whose evaluations runs the whole batch:
+    B windows cost B times the evaluations of B solves alone, and a copy to
+    the host and back each).  The solver stats of the last forward are kept
+    in ``stats``.
 
     ``remat=True`` recomputes each dynamics call in the backward
     (``torch.utils.checkpoint``) instead of storing its activations.
     ``adjoint=True`` trains with the continuous adjoint, ``"checkpoint"``
     with the checkpointed-forward adjoint (``ode.odeint_adjoint``), each
-    window of a batch its own problem there too.
+    window of a batch its own problem there too.  The continuous adjoint
+    takes every method, the checkpointed one the fixed-grid and explicit
+    adaptive ones, as JAX's do.
     """
 
     def __init__(

@@ -30,8 +30,10 @@ With ``batch_dims=1`` each sample of ``y0`` is its own problem, as under
 ``jax.vmap``.  The continuous adjoint then carries one ``θ̄`` per sample
 (``[B, P]``, summed at the end): each sample's controller takes its RMS over
 its own augmented state, so a ``θ̄`` shared by the batch would give other
-step sizes.  The checkpointed adjoint's steps are fixed, and its update of
-``θ̄`` is linear and feeds back into nothing, so one shared ``θ̄`` is exact
+step sizes.  Its reverse solve runs on the forward's method, VCABM (its own
+order per sample) and ``scipy_solver`` (one host solve per sample) included.
+The checkpointed adjoint's steps are fixed, and its update of ``θ̄`` is
+linear and feeds back into nothing, so one shared ``θ̄`` is exact
 (in exact arithmetic): each sample's cotangent enters the parameter vjp
 scaled by its own step.
 

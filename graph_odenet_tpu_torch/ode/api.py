@@ -14,6 +14,8 @@ their ``_scan`` forms; the variable-order Adams ``adams`` and ``adams_scan``
 (``ode/vcabm.py``).  All are differentiable by autograd through the steps.
 ``scipy_solver`` is ``scipy.integrate.solve_ivp`` on the host in float64,
 forward only, as JAX's ``pure_callback`` is: a backward through it raises.
+Every method takes ``batch_dims=1``, as every JAX method composes with
+``jax.vmap``.
 
 ``odeint_adjoint`` takes its gradient with the continuous adjoint or the
 checkpointed-forward adjoint instead (``ode/adjoint.py``).
@@ -53,32 +55,56 @@ _ADAMS = {"explicit_adams": False, "implicit_adams": True, "fixed_adams": True}
 SOLVERS = tuple(_FIXED) + tuple(_ADAMS) + tuple(_ADAPTIVE) + tuple(
     f"{m}_scan" for m in _ADAPTIVE
 ) + ("adams", "adams_scan", "scipy_solver")
-# No JAX configuration vmaps these: each keeps one controller for the state.
-_UNBATCHED = ("adams", "adams_scan", "scipy_solver")
 
 
 class _ScipySolve(torch.autograd.Function):
     """``solve_ivp`` on the host: forward only, as JAX's ``pure_callback``,
     which has no JVP.  ``y0`` and ``args`` are inputs so that a backward that
-    reaches the solve raises instead of silently returning nothing."""
+    reaches the solve raises instead of silently returning nothing.
+
+    ``batched``: one ``solve_ivp`` per sample of ``y0``, in order (JAX's
+    ``vmap_method="sequential"``).  ``func`` takes the batch, and may hold
+    per-sample data of its own, so each evaluation passes it the whole batch,
+    the sample's state in its row and every other row at its own ``y0``, with
+    ``t`` of shape ``[B]``, and reads that row: a batch of B costs B whole-batch
+    evaluations per evaluation of one sample."""
 
     @staticmethod
-    def forward(ctx, func, ts, opts, y0, *args):
+    def forward(ctx, func, ts, opts, batched, y0, *args):
         import numpy as np
         from scipy.integrate import solve_ivp
 
-        def rhs(t, y):
-            y_dev = torch.as_tensor(y, dtype=y0.dtype, device=y0.device).view(y0.shape)
-            t_dev = torch.as_tensor(t, dtype=y0.dtype, device=y0.device)
-            return func(t_dev, y_dev, *args).detach().reshape(-1).cpu().numpy().astype(np.float64)
+        def host(v):
+            return v.detach().reshape(-1).cpu().numpy().astype(np.float64)
 
         ts64 = ts.detach().cpu().numpy().astype(np.float64)
-        sol = solve_ivp(rhs, (ts64[0], ts64[-1]), y0.detach().reshape(-1).cpu().numpy()
-                        .astype(np.float64), t_eval=ts64, **opts)
-        if not sol.success:
-            raise RuntimeError(f"scipy solve_ivp failed: {sol.message}")
-        ys = torch.from_numpy(np.ascontiguousarray(sol.y.T))
-        return ys.to(dtype=y0.dtype, device=y0.device).view((ts64.shape[0],) + y0.shape)
+
+        def solve(rhs, start, shape):
+            sol = solve_ivp(rhs, (ts64[0], ts64[-1]), host(start), t_eval=ts64, **opts)
+            if not sol.success:
+                raise RuntimeError(f"scipy solve_ivp failed: {sol.message}")
+            ys = torch.from_numpy(np.ascontiguousarray(sol.y.T))
+            return ys.to(dtype=y0.dtype, device=y0.device).view((ts64.shape[0],) + shape)
+
+        if not batched:
+            def rhs(t, y):
+                y_dev = torch.as_tensor(y, dtype=y0.dtype, device=y0.device).view(y0.shape)
+                t_dev = torch.as_tensor(t, dtype=y0.dtype, device=y0.device)
+                return host(func(t_dev, y_dev, *args))
+
+            return solve(rhs, y0, y0.shape)
+
+        def rhs_of(b):
+            def rhs(t, y):
+                batch = y0.detach().clone()
+                batch[b] = torch.as_tensor(y, dtype=y0.dtype, device=y0.device).view(y0.shape[1:])
+                t_dev = torch.full(y0.shape[:1], t, dtype=y0.dtype, device=y0.device)
+                return host(func(t_dev, batch, *args)[b])
+
+            return rhs
+
+        return torch.stack([solve(rhs_of(b), y0[b], y0.shape[1:]) for b in range(y0.shape[0])],
+                           dim=1)
 
     @staticmethod
     def backward(ctx, g):
@@ -115,23 +141,26 @@ def odeint(
     ``solve_ivp``'s ``method``.
 
     ``batch_dims=1`` integrates each ``y0[b]`` as its own problem, as
-    ``jax.vmap`` over ``odeint`` does: the adaptive methods keep a step size,
-    error ratio, accept mask and stats per sample (stats are ``[B]`` tensors,
-    plus ``host_reads``) and call ``func`` with ``t`` of shape ``[B]``; the
+    ``jax.vmap`` over ``odeint`` does: the adaptive methods, RK and VCABM,
+    keep a step size, error ratio, accept mask (and for VCABM an order and a
+    history) and stats per sample (stats are ``[B]`` tensors, plus
+    ``host_reads``) and call ``func`` with ``t`` of shape ``[B]``; the
     fixed-grid methods, fixed Adams included, are elementwise and take
-    ``y0`` as it is.  ``adams``, ``adams_scan`` and ``scipy_solver`` take no
-    batch (``ValueError``).
+    ``y0`` as it is; ``scipy_solver`` runs one host solve per sample, in
+    order, its ``nfe`` a ``[B]`` tensor of -1.  Other ``batch_dims`` raise
+    ``ValueError``.
     """
     if method not in SOLVERS:
         raise ValueError(f"unknown method {method!r}; choose from {SOLVERS}")
-    if batch_dims and method in _UNBATCHED:
-        raise ValueError(f"method {method!r} takes no batch_dims (one controller for the "
-                         f"whole state); batched methods: the fixed-grid and adaptive RK ones")
+    if batch_dims not in (0, 1):
+        raise ValueError(f"batch_dims must be 0 or 1, got {batch_dims!r}")
     ts = torch.as_tensor(ts, dtype=y0.dtype)
     if method == "scipy_solver":  # solve_ivp integrates decreasing times itself
         ys = _ScipySolve.apply(func, ts, dict(method=scipy_method, rtol=rtol, atol=atol),
-                               y0, *args)
-        return (ys, dict(nfe=-1)) if return_stats else ys
+                               bool(batch_dims), y0, *args)
+        nfe = (torch.full(y0.shape[:1], -1, dtype=torch.int64, device=y0.device) if batch_dims
+               else -1)
+        return (ys, dict(nfe=nfe)) if return_stats else ys
 
     def f(t, y):
         return func(t, y, *args)
@@ -159,12 +188,13 @@ def odeint(
     elif method == "adams":
         ys, stats = vcabm.odeint_vcabm(
             f, y0, ts, rtol=rtol, atol=atol, max_order=max_order, max_steps=max_steps,
-            first_step=first_step,
+            first_step=first_step, batch_dims=batch_dims,
         )
     elif method == "adams_scan":
         ys, stats = vcabm.odeint_vcabm_scan(
             f, y0, ts, rtol=rtol, atol=atol, max_order=max_order,
             max_steps_per_interval=max_steps_per_interval, first_step=first_step,
+            batch_dims=batch_dims,
         )
     elif method in _ADAPTIVE:
         ys, stats = adaptive.odeint_adaptive(

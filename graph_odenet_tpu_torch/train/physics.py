@@ -175,8 +175,9 @@ def trajectory_windows(trajs, window: int):
 def solver_summary(stats: dict, n_intervals: int) -> dict:
     """JSON-able digest of one forward's solver stats: the attempts each
     sample made per output interval (min, median, max over the samples), the
-    NFE per sample, the host reads, and whether every sample reached every
-    output time.  Fixed-grid methods report their NFE only."""
+    NFE per sample, the host reads, whether every sample reached every output
+    time and the share that did, and for VCABM the spread of the final order.
+    Fixed-grid methods report their NFE only."""
     if "n_accept" not in stats:
         return dict(nfe=stats["nfe"])
 
@@ -185,11 +186,15 @@ def solver_summary(stats: dict, n_intervals: int) -> dict:
         return dict(min=float(x.min()), median=float(x.quantile(0.5)), max=float(x.max()))
 
     attempts = (stats["n_accept"] + stats["n_reject"]).double()
-    return dict(
+    out = dict(
         attempts_per_interval=spread(attempts / n_intervals),
         nfe=spread(stats["nfe"]), host_reads=stats["host_reads"],
         success=bool(stats["success"].all()),
+        success_share=float(stats["success"].double().mean()),
     )
+    if "final_order" in stats:
+        out["final_order"] = spread(stats["final_order"])
+    return out
 
 
 def fit_inode(
@@ -198,11 +203,15 @@ def fit_inode(
 ):
     """Train the IN-ODE by fitting trajectory windows with the solver in the loop.
 
-    Arguments as ``fit_interaction_network``.  Returns the trained ``model``
-    and its ``params``, ``forward(windows [B, W+1, N, 1+2D]) -> [B, W+1, N,
-    2D]``, the data, the last step's ``window_mse``, its value after every
-    epoch (``history``), the training ``seconds`` and ``solver``, the
-    ``solver_summary`` of the last training forward.
+    ``cfg.ode_method`` is any method with a backward: the fixed-grid ones,
+    the adaptive RK ones and VCABM (``adams``, ``adams_scan``), each window
+    its own problem; ``scipy_solver``, forward only, raises in the first
+    backward, as JAX's does.  Arguments as ``fit_interaction_network``.
+    Returns the trained ``model`` and its ``params``, ``forward(windows [B,
+    W+1, N, 1+2D]) -> [B, W+1, N, 2D]``, the data, the last step's
+    ``window_mse``, its value after every epoch (``history``), the training
+    ``seconds`` and ``solver``, the ``solver_summary`` of the last training
+    forward.
     """
     device = resolve_device(device)
     data_gen, init_gen, perm_gen = _generators(cfg.seed)

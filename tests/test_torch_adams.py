@@ -10,11 +10,12 @@ through both packages on the same inputs.  The fixed-grid methods agree to
 target carries the rounding of the step sizes (1e-7 relative).  Gradients
 agree with ``jax.grad`` to 1e-10, and through the continuous adjoint with
 JAX's ``odeint_adjoint`` to 1e-9.  ``scipy_solver`` is forward only in both
-packages.  With ``batch_dims=1`` the fixed Adams methods equal one solve per
-sample, and the other three refuse.  The models: GCN-ODE on
-``implicit_adams`` and GAT-ODE on ``adams_scan`` against flax through the
-kernels' plain wrappers, in float32 (1e-5 and 1e-4, as the direct paths'
-tests hold them).
+packages.  With ``batch_dims=1`` every method here equals one solve per
+sample (``tests/test_torch_batched_adams.py`` holds the batched VCABM and
+``scipy_solver`` to ``jax.vmap``), and ``batch_dims=2`` raises.  The
+models: GCN-ODE on ``implicit_adams`` and GAT-ODE on ``adams_scan`` against
+flax through the kernels' plain wrappers, in float32 (1e-5 and 1e-4, as the
+direct paths' tests hold them).
 """
 
 import jax
@@ -381,9 +382,30 @@ def test_fixed_adams_batched_equals_per_sample_solves(method):
 
 
 @pytest.mark.parametrize("method", ["adams", "adams_scan", "scipy_solver"])
+def test_vcabm_and_scipy_batched_equal_per_sample_solves(method):
+    rng = np.random.default_rng(1)
+    y0 = torch.from_numpy(rng.standard_normal((3, 4)))
+    a = torch.from_numpy(rng.standard_normal((3, 4)))
+
+    def f(t, y):
+        return torch.tanh(a * y) * torch.cos(t)[:, None]
+
+    kw = dict(method=method, rtol=1e-7, atol=1e-9, return_stats=True)
+    ys, stats = todeint(f, y0, TS, batch_dims=1, **kw)
+    for b in range(3):
+        one, one_stats = todeint(lambda t, y, b=b: torch.tanh(a[b] * y) * torch.cos(t), y0[b],
+                                 TS, **kw)
+        torch.testing.assert_close(ys[:, b], one, **TRAJ)
+        for k, v in one_stats.items():
+            assert stats[k][b].item() == pytest.approx(v, rel=1e-12), k
+
+
+@pytest.mark.parametrize("method", ["adams", "adams_scan", "scipy_solver"])
 def test_unbatched_methods_refuse_batch_dims(method):
+    """These methods batch (the test above); ``batch_dims`` other than 0 and 1
+    still raises, as for every method."""
     with pytest.raises(ValueError, match="batch_dims"):
-        todeint(lambda t, y: -y, torch.ones(2, 3), [0.0, 1.0], method=method, batch_dims=1)
+        todeint(lambda t, y: -y, torch.ones(2, 2, 3), [0.0, 1.0], method=method, batch_dims=2)
 
 
 # --- the models ---------------------------------------------------------------

@@ -17,7 +17,8 @@ rounds the sum once, so the two differ by a few bf16 roundings.  The port's
 single rounding is held on its own: every bf16 output lies within half a
 bf16 ulp (bf16's unit roundoff, 2^-8 relative) of the float64 sum of the
 same bf16 inputs, plus 1e-6 for the f32 sum's order.  Every dtype is JAX's: bf16 ``spmm`` outputs
-and gradients, an f32 GAT ``out`` and ``dlogits``, a bf16 ``dWh``.
+and gradients, an f32 GAT ``out`` and ``dlogits``, a bf16 ``dWh``.  The last
+test holds ``chip_smoke.py``'s bf16 check to the order of a cancelling sum.
 """
 
 import jax
@@ -320,3 +321,28 @@ def test_bf16_refusals(case):
     }
     with pytest.raises(TypeError):
         calls[case]()
+
+
+def test_smoke_bf16_check_allows_the_order_of_a_cancelling_sum():
+    """``chip_smoke.py``'s bf16 check holds the kernel's bf16 output to the
+    plain version's, two f32 sums of the same terms in other orders.  Where
+    the terms cancel (16,001 terms of magnitude up to 4 summing to 1e-3), the
+    two orders differ by many ulps of the result: one bf16 ulp plus 1e-5 fails
+    correct sums, and the check's term ``BF16_SUM_RTOL · Σ|terms|`` admits
+    them while a missing term still fails by two orders of magnitude."""
+    import chip_smoke
+    from graph_odenet_tpu_torch.ops.csr_spmm import _reduce_plain
+
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy(rng.standard_normal((8000, 8)).astype(np.float32)).to(torch.bfloat16)
+    x = torch.cat([v, -v, torch.full((1, 8), 1e-3).to(torch.bfloat16)])
+    n = x.shape[0]
+    row_ptr, ones = torch.tensor([0, n]), torch.ones(n)
+    perm = torch.from_numpy(rng.permutation(n))
+    in_order = _reduce_plain(row_ptr, torch.arange(n), ones, x)
+    shuffled = _reduce_plain(row_ptr, perm, ones, x)
+    scale = chip_smoke._term_sums(row_ptr, torch.arange(n), ones, x)
+    assert chip_smoke._bf16_err(shuffled, in_order, torch.zeros_like(scale))[1] > 1.5
+    assert chip_smoke._bf16_err(shuffled, in_order, scale)[1] < 0.01
+    missing = _reduce_plain(torch.tensor([0, n - 1]), perm[perm != 0], ones[1:], x)
+    assert chip_smoke._bf16_err(missing, in_order, scale)[1] > 100

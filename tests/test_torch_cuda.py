@@ -2,7 +2,8 @@
 form, GAT forward, α/dlogit backward, recompute-α dWh) against their plain
 PyTorch versions, on the card; config 3's batched adaptive solver on the
 card (no kernel of its own: one batched solve against one solve per window
-and against the CPU, and no host read inside an attempt); and the adjoints'
+and against the CPU, and no host read inside an attempt), and the same of
+the batched VCABM on adams_scan (one host read an attempt round); and the adjoints'
 one-step check through the kernels (``chip_smoke.adjoint_step_check``), the
 same check of the Adams family, config 4's bit-equal resume and
 ``validate_tiling`` inside ``prepare`` of a card graph.
@@ -868,6 +869,79 @@ def test_batched_attempt_reads_nothing_on_the_host(cuda):
     assert int(s.n_accept.sum() + s.n_reject.sum()) == wins.shape[0]
     s.y.sum().backward()
     assert torch.isfinite(y0.grad).all()
+
+
+def test_batched_adams_inode_equals_each_window_alone(cuda):
+    """Config 3's IN-ODE on the batched VCABM (adams_scan) on the card in
+    float64: one batched solve of 8 windows equals each window solved alone
+    (every count and the final order equal, trajectories to 1e-10 of the
+    largest value), and its training step's gradient is finite.  Alone is a
+    batch of copies of the window, so that every kernel rounds its row as in
+    the batch: VCABM's order rule at this config turns the 1e-15 by which a
+    batch of one rounds otherwise into other steps."""
+    model, wins, solve, _ = _inode_and_windows(cuda)
+    model.method = "adams_scan"
+    keys = ("nfe", "n_accept", "n_reject", "final_order", "success")
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            together = solve(model, wins)
+            counts = {k: model.stats[k].tolist() for k in keys}
+            alone, alone_counts = [], {k: [] for k in keys}
+            for i in range(wins.shape[0]):
+                alone.append(solve(model, wins[i:i + 1].expand_as(wins).contiguous())[0])
+                for k in keys:
+                    alone_counts[k].append(model.stats[k][0].item())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert counts == alone_counts
+    assert rel(together, torch.stack(alone)) <= 1e-10
+    torch.mean((solve(model, wins) - wins[..., 1:]) ** 2).backward()
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+def test_batched_adams_reads_once_an_attempt_round(cuda):
+    """A batched VCABM attempt reads nothing on the host; a forward reads once
+    an attempt round, plus the copies of ``ts`` and the γ* constants."""
+    import warnings
+
+    from graph_odenet_tpu_torch.data import SpringSystem
+    from graph_odenet_tpu_torch.ode import vcabm
+
+    model, wins, solve, _ = _inode_and_windows(cuda)
+    model.method = "adams_scan"
+    f = model.field(wins[:, 0, :, :1], *SpringSystem(n_bodies=wins.shape[2]).edges(cuda))
+    y0 = wins[:, 0, :, 1:]
+    t0 = torch.zeros(y0.shape[0], dtype=y0.dtype, device=cuda)
+    f0 = f(t0, y0)
+    phi = torch.cat([f0[None], f0.new_zeros((13,) + f0.shape)])
+    s = vcabm._BatchState(y0, t0.expand(14, -1), t0 + 1e-3, phi, 1)
+    gstar = torch.as_tensor(vcabm.gamma_star(14), dtype=y0.dtype, device=cuda)
+    target = torch.tensor(0.01, dtype=y0.dtype, device=cuda)
+    done = s.prev_t[0] >= target
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vcabm._attempt_batched(f, model.rtol, model.atol, 12, gstar, target, s, done, 1)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            bool(done.all())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(s.n_accept.sum() + s.n_reject.sum()) == wins.shape[0]
+
+    ts = torch.arange(11, dtype=y0.dtype) * 0.01
+    edges = SpringSystem(n_bodies=wins.shape[2]).edges(cuda)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught, torch.no_grad():
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model(y0, ts, wins[:, 0, :, :1], *edges)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    assert syncs == model.stats["host_reads"] + 2
 
 
 @pytest.mark.parametrize("adjoint", [True, "checkpoint"])

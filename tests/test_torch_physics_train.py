@@ -79,7 +79,7 @@ def test_fit_interaction_network_three_adam_steps_match_optax():
     _check_params(res["params"], jres["params"])
 
 
-@pytest.mark.parametrize("method", ["dopri5_scan", "rk4"])
+@pytest.mark.parametrize("method", ["dopri5_scan", "rk4", "adams_scan"])
 def test_fit_inode_three_adam_steps_match_optax(method):
     cfg = dict(TRAIN, ode_method=method, ode_steps=4, ode_window=4)
     jcfg = JPhysicsConfig(**cfg)
@@ -101,6 +101,8 @@ def test_fit_inode_three_adam_steps_match_optax(method):
     _check_params(res["params"], jres["params"])
     if method == "dopri5_scan":
         assert res["solver"]["success"] and res["solver"]["host_reads"] >= 4
+    if method == "adams_scan":
+        assert res["solver"]["final_order"]["max"] >= 1
 
 
 def test_gradients_finite_at_the_configs_solver_settings():
@@ -129,15 +131,17 @@ def _check_curves(out, horizon):
     assert out["device"] == "cpu" and out["horizon"] == horizon
 
 
-@pytest.mark.parametrize("method", ["rk4", "dopri5_scan"])
+@pytest.mark.parametrize("method", ["rk4", "dopri5_scan", "adams_scan"])
 def test_physics_rollout_curves(method):
     out = physics_rollout_curves(PhysicsConfig(**CURVES, ode_method=method), horizon=6,
                                  n_test=4, device="cpu")
     _check_curves(out, 6)
     assert len(out["one_step_mse_history"]) == len(out["window_mse_history"]) == 1
-    if method == "dopri5_scan":
+    if method != "rk4":
         assert out["rollout_solver"]["success"]
         assert out["rollout_solver"]["attempts_per_interval"]["max"] <= 64
+    if method == "adams_scan":
+        assert out["rollout_solver"]["final_order"]["max"] >= 1
 
 
 def test_run_config_3_with_rollout_on_cpu():
