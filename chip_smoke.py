@@ -234,7 +234,27 @@ so the exit code is non-zero:
              the smoke's own loop: step-0 loss, s/epoch, test accuracy (the
              bf16 runs >= 0.65 and >= 0.60), peak memory, the kernel and bf16
              launches (none of a plain version), and the ODE state's dtype
-             (bf16 for GCN-ODE, f32 for the GAT-ODE on the kernels).
+             (bf16 for GCN-ODE, f32 for the GAT-ODE on the kernels).  (c)
+             The sharded models at full width, one part: config 4's GCN-ODE
+             (the arxiv twin, hidden 256, rk4 × 4) and the sharded GAT-ODE
+             (the calibrated twin, 64 × 4 heads, ``ring_pallas``, ``remat``),
+             each built with ``dtype=torch.bfloat16`` and bf16 features.
+             One step (dropout 0) through the kernels against the plain
+             versions on the card with their sums in a fixed order:
+             log-probs and loss at ``BF16_STEP_TOL``, each gradient at its
+             rtol with atol relative to its largest entry; then each model
+             in bf16 and in f32 from the same seed trained in the smoke's
+             own loop by the sharded trainer's recipe (Adam with weight
+             decay, dropout, 30 and 6 epochs), the bf16 step profiled
+             (``profile_steps``; the f32 steps' in phases config4 and
+             config4_gat): step-0 and last loss, test
+             accuracy, ``step_ms``, peak memory, the ODE state's and Adam's
+             moments' dtypes, B2/B2-w launches by entry, plain calls.  The
+             bf16 runs must lower their loss, pass PERF.md §2's accuracy
+             limits (> 1/40, > 2/40), call no plain version, and launch B2's
+             bf16 entry on every GCN-ODE layer (36 a step, 18 an
+             evaluation) and B2-w's f32 entry on the widened chunk under the
+             GAT-ODE (52 a step, 18 an evaluation).
 
 Then the kernel table (each kernel's launches on its main path, error,
 ms, plain ms, the bound of its work on an H100 and the library call's ms;
@@ -245,7 +265,9 @@ adams_scan training of pubmed-gatode; ``resume_launches``: B2's and B2-w's in
 the resume phase's three runs of each model; ``surfaces_launches``: each
 kernel's in the surfaces phase, CLI subprocesses included; ``bf16``: the
 bf16 entry's figures from the bf16 phase for B1, B2, B4 and B5, its
-``launches`` those of the bf16 model runs, for B2 of ``spmm_sharded``),
+``launches`` those of the bf16 model runs, for B2 config 4's in bf16 and
+``spmm_sharded``'s beside; ``bf16_model_launches``: B2-w's under the bf16
+sharded GAT-ODE),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -379,6 +401,12 @@ BF16_ATOL = 1e-5
 BF16_SUM_RTOL = 2.0 ** -20  # 16 f32 unit roundoffs
 BF16_F32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_REPEATS = 20
+# The one-step check of a bf16 sharded model against the plain versions on the
+# card (tests/test_torch_bf16.py's tolerance): log-probs and loss; each
+# gradient at the rtol with atol the rtol of its largest entry (a_dst's: of
+# a_src's and a_dst's, as a_dst's gradient cancels to a residue that neither
+# bf16 path resolves).
+BF16_STEP_TOL = dict(rtol=2e-2, atol=2e-2)
 BF16_GAT_LIBRARY = ("none: no single PyTorch call computes a per-receiver softmax over the "
                     "edge logits and the weighted gather")
 # The CLI's own main, run as a subprocess with every plain version refused; the
@@ -1188,12 +1216,12 @@ class fixed_order_sums:
         self.caught.__exit__(*exc)
 
 
-def _grads_close(got, want, rtol, what):
+def _grads_close(got, want, rtol, what, scale=None):
     """``got`` against ``want`` at ``rtol``, atol relative to each gradient's
-    largest entry; the worst error over tolerance of each."""
+    largest entry (or to ``scale[k]``); the worst error over tolerance of each."""
     errs = {}
     for k, g in want.items():
-        atol = rtol * float(g.abs().max())
+        atol = rtol * (float(g.abs().max()) if scale is None else scale[k])
         errs[k] = float(((got[k] - g).abs() / (atol + rtol * g.abs())).max())
         torch.testing.assert_close(
             got[k], g, rtol=rtol, atol=atol,
@@ -1463,16 +1491,24 @@ class plain_bucket_mode:
         self.halo.bucket_reduce = self.kernel
 
 
+def sharded_gat_config():
+    """The sharded GAT-ODE's recipe on the calibrated arxiv twin (phases
+    config4_gat and bf16)."""
+    from graph_odenet_tpu_torch.parallel import ShardedTrainConfig
+
+    return ShardedTrainConfig(
+        model="gatode", hidden=GAT_HIDDEN, heads=GAT_HEADS, steps=GAT_STEPS, dropout=0.6, lr=0.01,
+        weight_decay=5e-4, mode="ring_pallas", remat=True, epochs=GAT_EPOCHS)
+
+
 def phase_config4_gat(dev, data):
     """The sharded GAT-ODE at full width through the trainer (see the module doc)."""
     from graph_odenet_tpu_torch.ops import csr_spmm
     from graph_odenet_tpu_torch.parallel import (
-        ShardedTrainConfig, fit_sharded_node_classifier, partition_by_receiver, sharded_gat,
+        fit_sharded_node_classifier, partition_by_receiver, sharded_gat,
     )
 
-    cfg = ShardedTrainConfig(
-        model="gatode", hidden=GAT_HIDDEN, heads=GAT_HEADS, steps=GAT_STEPS, dropout=0.6, lr=0.01,
-        weight_decay=5e-4, mode="ring_pallas", remat=True, epochs=GAT_EPOCHS)
+    cfg = sharded_gat_config()
     pg = partition_by_receiver(data.graph, 1).to(dev)
     model = sharded_gat.init_gatode_params(
         data.features.shape[1], cfg.hidden, cfg.heads, data.n_class,
@@ -2963,7 +2999,278 @@ def bf16_sharded_launches(dev, graph, f, calls=3):
     return csr_spmm.bf16_launches["bucket"]
 
 
-def phase_bf16(dev, data, bench_row, bench, arxiv, iters=20, bench_iters=10):
+def _sharded_init(cfg, data, dtype, seed=0):
+    """``cfg``'s sharded model, every leaf in ``dtype``, on the CPU."""
+    from graph_odenet_tpu_torch.parallel import sharded_gat, sharded_gcn
+
+    gen, f_in = torch.Generator().manual_seed(seed), data.features.shape[1]
+    if cfg.model == "gatode":
+        return sharded_gat.init_gatode_params(f_in, cfg.hidden, cfg.heads, data.n_class,
+                                              generator=gen, dtype=dtype)
+    return sharded_gcn.init_params(f_in, cfg.hidden, data.n_class, generator=gen, dtype=dtype)
+
+
+def _sharded_forward(cfg, model, pg, x, **kw):
+    """The entry point of ``cfg``'s model (``gatode_forward`` or ``forward``)."""
+    from graph_odenet_tpu_torch.parallel import sharded_gat, sharded_gcn
+
+    common = dict(steps=cfg.steps, t1=cfg.t1, mode=cfg.mode, **kw)
+    if cfg.model == "gatode":
+        return sharded_gat.gatode_forward(model, pg, x, remat=cfg.remat, **common)
+    return sharded_gcn.forward(model, pg, x, **common)
+
+
+def _sharded_labels(data, dev):
+    """One-hot f32 labels (zero rows for unlabelled padding) and the f32
+    masks of the training, validation and test nodes, on ``dev``."""
+    labels = data.labels.to(dev)
+    y1h = torch.nn.functional.one_hot(labels.clamp(min=0), data.n_class).float()
+    y1h *= (labels >= 0)[:, None]
+    masks = []
+    for idx in (data.idx_train, data.idx_val, data.idx_test):
+        m = torch.zeros(data.graph.n_node_pad, device=dev)
+        m[idx.to(dev)] = 1.0
+        masks.append(m)
+    return labels, y1h, masks
+
+
+def _b2_counts():
+    """B2's and B2-w's launches so far: every bucket launch, those of the
+    bf16 entry, the weighted ones (f32 entry)."""
+    from graph_odenet_tpu_torch.ops import csr_spmm
+
+    return dict(bucket=csr_spmm.bucket_launches, bucket_bf16=csr_spmm.bf16_launches["bucket"],
+                bucket_weighted=csr_spmm.bucket_weighted_launches)
+
+
+def _zero_b2_counts():
+    from graph_odenet_tpu_torch.ops import csr_spmm
+
+    csr_spmm.bucket_launches = csr_spmm.bucket_weighted_launches = 0
+    csr_spmm.bf16_launches["bucket"] = 0
+
+
+class recorded_dtypes:
+    """Within the block, the dtypes of what the sharded GAT's B2-w Function
+    takes (``chunk``) and of the gradient it hands back for it (``dchunk``),
+    and of what the sharded models' aggregations take (``state``: ``h @ w``,
+    so the ODE state's dtype)."""
+
+    def __enter__(self):
+        from graph_odenet_tpu_torch.parallel import sharded_gat, sharded_gcn
+
+        self.seen = {"chunk": set(), "dchunk": set(), "state": set()}
+        self.saved = [(sharded_gat, "_bucket_spmm_weighted"), (sharded_gat, "gat_sharded"),
+                      (sharded_gcn, "spmm_sharded")]
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in self.saved]
+        bucket, gat, spmm = (fn for _, _, fn in self.saved)
+
+        def bucket_rec(chunk, *args, **kw):
+            self.seen["chunk"].add(str(chunk.dtype).removeprefix("torch."))
+            if chunk.requires_grad:
+                chunk.register_hook(
+                    lambda g: self.seen["dchunk"].add(str(g.dtype).removeprefix("torch.")))
+            return bucket(chunk, *args, **kw)
+
+        def gat_rec(pg, s_src, s_dst, wh, *args, **kw):
+            self.seen["state"].add(str(wh.dtype).removeprefix("torch."))
+            return gat(pg, s_src, s_dst, wh, *args, **kw)
+
+        def spmm_rec(pg, h, *args, **kw):
+            self.seen["state"].add(str(h.dtype).removeprefix("torch."))
+            return spmm(pg, h, *args, **kw)
+
+        for (mod, name, _), fn in zip(self.saved, (bucket_rec, gat_rec, spmm_rec)):
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def dtypes(self):
+        return {k: sorted(v) for k, v in self.seen.items()}
+
+
+def sharded_step_check(cfg, data, dev, dtype=torch.bfloat16, profile=False):
+    """One training step of ``cfg``'s sharded model built in ``dtype`` (dropout
+    0) through the kernels, then through the bucket mode's plain version with
+    every sum of the step in a fixed order (``plain_bucket_mode`` inside
+    ``fixed_order_sums``).  The log-probs and the loss at ``BF16_STEP_TOL``,
+    each gradient at its rtol with atol that rtol of its largest entry
+    (``_grads_close``; of a_src's and a_dst's together for a_dst, whose
+    gradient cancels).  Returns the errors over tolerance, the kernel step's
+    B2/B2-w launches and plain calls, the dtypes of the log-probs, the
+    gradients, B2-w's ``chunk`` and ``dchunk`` and the ODE state, and with
+    ``profile`` a ``profile_steps`` breakdown of the kernel step; raises if a
+    check fails or the kernel step called a plain version."""
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver
+
+    pg = partition_by_receiver(data.graph, 1).to(dev)
+    model = _sharded_init(cfg, data, dtype).to(dev)
+    x = data.features.to(dev).to(dtype)
+    _, y1h, (w, _, _) = _sharded_labels(data, dev)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        lp = _sharded_forward(cfg, model, pg, x)
+        loss = -(lp * y1h).sum(-1).mul(w).sum() / w.sum()
+        loss.backward()
+        return lp.detach(), loss.detach(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    _zero_b2_counts()
+    with plain_calls() as plain, recorded_dtypes() as rec:
+        lp_k, loss_k, grads_k = step()
+        torch.cuda.synchronize()
+    launches = _b2_counts()
+    with plain_bucket_mode(), fixed_order_sums(warn_only=True):
+        lp_p, loss_p, grads_p = step()
+    torch.cuda.synchronize()
+    if _b2_counts() != launches:
+        raise AssertionError(f"{cfg.model}: the plain step launched a kernel")
+    if plain.count:
+        raise AssertionError(f"{cfg.model} in {dtype}: {plain.count} plain calls in the kernel step")
+    rtol, atol = BF16_STEP_TOL["rtol"], BF16_STEP_TOL["atol"]
+    err = {}
+    for name, got, want in (("log_probs", lp_k, lp_p), ("loss", loss_k, loss_p)):
+        err[name] = float(((got.float() - want.float()).abs()
+                           / (atol + rtol * want.float().abs())).max())
+        torch.testing.assert_close(got.float(), want.float(), **BF16_STEP_TOL,
+                                   msg=lambda m, n=name: f"{cfg.model} {n}\n{m}")
+    # A receiver's shift of every logit leaves its softmax as it is but for the
+    # LeakyReLU's kink, so the gradient of a_dst is a residue of terms of the
+    # size of a_src's: its atol takes the scale of both.
+    scale = {k: float(g.abs().max()) for k, g in grads_p.items()}
+    for k in scale:
+        if k.startswith("a_dst_"):
+            scale[k] = max(scale[k], scale["a_src_" + k.removeprefix("a_dst_")])
+    err.update(_grads_close({k: g.float() for k, g in grads_k.items()},
+                            {k: g.float() for k, g in grads_p.items()}, rtol,
+                            f"{cfg.model} in {dtype}", scale))
+    out = dict(err_over_tol=err, launches=launches, plain_calls=plain.count,
+               lp_dtype=str(lp_k.dtype).removeprefix("torch."),
+               grad_dtypes=sorted({str(g.dtype).removeprefix("torch.") for g in grads_k.values()}),
+               **rec.dtypes())
+    if profile:
+        out["profile"] = profile_steps(model, step, cfg, top=12)
+    return out
+
+
+def bf16_sharded_train(cfg, data, dtype, dev):
+    """``cfg``'s sharded model built with ``dtype`` (features too) and trained in
+    the smoke's own loop by the sharded trainer's recipe at one part: Adam
+    with the config's lr and weight decay (L2 in the gradient), its dropout
+    (the feature masks drawn in f32, so both dtypes drop the same features;
+    the GAT-ODE's attention-dropout seeds from a CPU generator), its epochs,
+    evaluation every 5 epochs and at the last (over 200,000 edges), test
+    accuracy at the best validation loss.  The step-0 and last losses,
+    ``step_ms`` (the fastest step after the first), s/epoch, peak device
+    memory, the dtypes of the ODE state and of Adam's moments, the B2/B2-w
+    launches, the plain calls."""
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver
+
+    pg = partition_by_receiver(data.graph, 1).to(dev)
+    model = _sharded_init(cfg, data, dtype, seed=cfg.seed).to(dev)
+    x = data.features.to(dev).to(dtype)
+    labels, y1h, (w_tr, w_va, w_te) = _sharded_labels(data, dev)
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, weight_decay=cfg.weight_decay)
+    gens = dict(generator=torch.Generator(device=dev).manual_seed(cfg.seed + 1))
+    if cfg.model == "gatode":
+        gens["seed_generator"] = torch.Generator().manual_seed(cfg.seed + 1)
+
+    def nll(lp, w):
+        return -(lp * y1h).sum(-1).mul(w).sum() / w.sum()
+
+    best, losses, step_ms, evals = dict(val_loss=float("inf"), test_acc=0.0, epoch=-1), [], None, 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_b2_counts()
+    t0 = time.perf_counter()
+    with plain_calls() as plain, recorded_dtypes() as rec:
+        for epoch in range(cfg.epochs):
+            t_step = time.perf_counter()
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            loss = nll(_sharded_forward(cfg, model, pg, x, dropout=cfg.dropout, **gens), w_tr)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))  # waits for the step
+            if epoch > 0:
+                dt = (time.perf_counter() - t_step) * 1e3
+                step_ms = dt if step_ms is None else min(step_ms, dt)
+            if epoch % 5 == 0 or epoch == cfg.epochs - 1:
+                evals += 1
+                model.eval()
+                with torch.no_grad():
+                    lp = _sharded_forward(cfg, model, pg, x)
+                    val_loss = float(nll(lp, w_va))
+                if val_loss < best["val_loss"]:
+                    hit = (lp.argmax(-1) == labels).float()
+                    best = dict(val_loss=val_loss, epoch=epoch,
+                                test_acc=float((hit * w_te).sum() / w_te.sum()))
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    moments = {str(t.dtype).removeprefix("torch.") for st in opt.state.values()
+               for k, t in st.items() if k in ("exp_avg", "exp_avg_sq")}
+    return dict(dtype=str(dtype).removeprefix("torch."), epochs_run=cfg.epochs, evals=evals,
+                step0_loss=losses[0], last_loss=losses[-1], best=best, step_ms=step_ms,
+                seconds_per_epoch=seconds / cfg.epochs,
+                peak_bytes=torch.cuda.max_memory_allocated(dev), plain_calls=plain.count,
+                launches=_b2_counts(), adam_moments=sorted(moments), **rec.dtypes())
+
+
+def phase_bf16_sharded(dev, arxiv, arxiv_cal):
+    """Both sharded models built in bf16 beside f32 at full width (config 4's
+    GCN-ODE on the arxiv twin, the GAT-ODE's recipe on the calibrated twin):
+    the one-step check against the plain versions, then training; see the
+    module doc."""
+    from graph_odenet_tpu_torch.configs import get_config, sharded_train_config
+
+    out = {}
+    gcn_cfg = sharded_train_config(get_config(4)[1])
+    for name, cfg, data, floor in (("config4", gcn_cfg, arxiv, 1.0 / arxiv.n_class),
+                                   ("sharded_gatode", sharded_gat_config(), arxiv_cal,
+                                    GAT_MIN_TEST_ACC_SHARDED)):
+        gat = cfg.model == "gatode"
+        check = sharded_step_check(cfg, data, dev, profile=True)
+        runs = {str(d).removeprefix("torch."): bf16_sharded_train(cfg, data, d, dev)
+                for d in (torch.float32, torch.bfloat16)}
+        r = runs["bfloat16"]
+        # Each model aggregates 2 + 4·steps times a forward, once more each in the
+        # backward, and the GAT-ODE's remat recomputes the 4 a substep.
+        per_eval = 2 + 4 * cfg.steps
+        per_step = 2 * per_eval + (4 * cfg.steps if gat else 0)
+        want = r["epochs_run"] * per_step + r["evals"] * per_eval
+        want_launches = (dict(bucket=0, bucket_bf16=0, bucket_weighted=want) if gat
+                         else dict(bucket=want, bucket_bf16=want, bucket_weighted=0))
+        step_launches = dict(want_launches, **{k: per_step for k, v in want_launches.items() if v})
+        failed = []
+        if not r["last_loss"] < r["step0_loss"]:
+            failed.append("the loss did not fall")
+        if not r["best"]["test_acc"] > floor:
+            failed.append(f"test accuracy {r['best']['test_acc']} <= {floor}")
+        if r["plain_calls"] or check["plain_calls"]:
+            failed.append("a plain version was called")
+        if r["launches"] != want_launches or check["launches"] != step_launches:
+            failed.append(f"launches {r['launches']} (expected {want_launches}), in the checked "
+                          f"step {check['launches']} (expected {step_launches})")
+        if r["state"] != ["bfloat16"] or check["lp_dtype"] != "bfloat16" \
+                or check["grad_dtypes"] != ["bfloat16"]:
+            failed.append(f"dtypes: state {r['state']}, log-probs {check['lp_dtype']}, "
+                          f"gradients {check['grad_dtypes']}")
+        if gat and (check["chunk"], check["dchunk"]) != (["bfloat16"], ["bfloat16"]):
+            failed.append(f"B2-w chunk {check['chunk']}, dchunk {check['dchunk']}")
+        if failed:
+            raise AssertionError(f"bf16 {name}: {'; '.join(failed)}: {r}, {check}")
+        out[name] = dict(runs, check=check, launches_per_step=per_step)
+        emit("bf16_sharded", model=name, n_node_pad=data.graph.n_node_pad,
+             n_edge=data.graph.n_edge, hidden=cfg.hidden, heads=getattr(cfg, "heads", None),
+             steps=cfg.steps, mode=cfg.mode, remat=cfg.remat if gat else None,
+             one_step_check=dict(tolerance=BF16_STEP_TOL, **check), **runs)
+    return out
+
+
+def phase_bf16(dev, data, bench_row, bench, arxiv, arxiv_cal, iters=20, bench_iters=10):
     """The bf16 tier on the card (see the module doc)."""
     from graph_odenet_tpu_torch.configs import get_config
     from graph_odenet_tpu_torch.data import synthetic_planetoid
@@ -3003,7 +3310,8 @@ def phase_bf16(dev, data, bench_row, bench, arxiv, iters=20, bench_iters=10):
                                   "last_loss", "peak_bytes", "plain_calls", "bf16_launches",
                                   "launches", "state_dtypes", "ode_stats")}
             for k, v in runs.items()})
-    return dict(spmm=spmm, bucket=bucket, att=att, models=models)
+    sharded = phase_bf16_sharded(dev, arxiv, arxiv_cal)
+    return dict(spmm=spmm, bucket=bucket, att=att, models=models, sharded=sharded)
 
 
 def main():
@@ -3067,14 +3375,13 @@ def main():
     weighted_buckets = timed("bucket_weighted", phase_bucket_weighted, dev, arxiv_cal.graph)
     gat_bucket_launches = timed("config4_gat", phase_config4_gat, dev, arxiv_cal)
     resume_launches = timed("resume", phase_resume, dev, arxiv, arxiv_cal)
-    del arxiv_cal
     physics = timed("physics", phase_physics, dev, args.physics_epochs)
     adj = timed("adjoint", phase_adjoint, dev, data, args.adjoint_epochs)
     solver_launches = timed("solvers", phase_solvers, dev, data, arxiv.graph)
     timed("batched_adams", phase_batched_adams, dev, physics, args.adams_epochs)
     surface_launches = timed("surfaces", phase_surfaces, dev, arxiv)
-    bf16 = timed("bf16", phase_bf16, dev, data, bench_row, bench, arxiv)
-    del arxiv
+    bf16 = timed("bf16", phase_bf16, dev, data, bench_row, bench, arxiv, arxiv_cal)
+    del arxiv, arxiv_cal
     # Launches on the adjoint's paths: B1 in pubmed-gcnode's adjoint backward
     # steps, B3-B5 in pubmed-gatode's training runs with either adjoint.
     adjoint_launches = {k: sum(r["kernel_launches"].get(k, 0) for r in adj["runs"].values()
@@ -3148,9 +3455,14 @@ def main():
     f32_tol = "rtol=atol=1e-4 (f32 outputs) against the plain version on the card"
     bf16_gcn = bf16["models"]["pubmed-gcnode"]["bfloat16"]["bf16_launches"]
     bf16_gat = bf16["models"]["2"]["bfloat16"]["bf16_launches"]
+    # B2's bf16 entry on config 4 in bf16; B2-w's f32 entry under the bf16 GAT-ODE.
+    bf16_b2 = bf16["sharded"]["config4"]["bfloat16"]["launches"]
+    bf16_b2w = bf16["sharded"]["sharded_gatode"]["bfloat16"]["launches"]["bucket_weighted"]
     bf16_objects = {
         "csr_spmm": bf16_entry(bf16["spmm"], bf16_gcn["csr"], ulp_tol),
-        "csr_spmm_bucket": bf16_entry([bf16["bucket"]], bf16["bucket"]["launches"], ulp_tol),
+        "csr_spmm_bucket": dict(
+            bf16_entry([bf16["bucket"]], bf16_b2["bucket_bf16"], ulp_tol),
+            spmm_sharded_launches=bf16["bucket"]["launches"]),
         **{k: bf16_entry([r[k] for r in bf16["att"]], bf16_gat[k], f32_tol)
            for k in ("gat_fwd", "gat_bwd")},
     }
@@ -3230,6 +3542,7 @@ def main():
                      "18 of a forward), fwd+bwd",
             "resume_launches": resume_launches["bucket_weighted"],
             "surfaces_launches": surface_launches.get("bucket_weighted", 0),
+            "bf16_model_launches": bf16_b2w,
             "other_shapes": {f"H={h},F={f}": {k: weighted_buckets[h, f][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dpv_plain_ms")}
                 for h, f in GAT_SHAPES},

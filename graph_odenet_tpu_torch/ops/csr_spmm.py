@@ -399,8 +399,9 @@ def _check_dtype(who, name, t, weighted):
         raise TypeError(f"{who} takes float32 or bfloat16 {name}, got {t.dtype}")
     if weighted and t.dtype != torch.float32:
         raise TypeError(
-            f"the weighted {who} takes float32 {name}, got {t.dtype}: its callers (the GAT "
-            "backward's dWh, as JAX casts g to f32 before it) reduce f32 tables only"
+            f"the weighted {who} takes float32 {name}, got {t.dtype}: its callers reduce f32 "
+            "tables (the GAT backward's dWh, as JAX casts g to f32 before it) or widen bf16 "
+            "ones first (gat_sharded's ring_pallas)"
         )
 
 

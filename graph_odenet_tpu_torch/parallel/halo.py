@@ -41,7 +41,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from graph_odenet_tpu_torch.ops.csr_spmm import bucket_reduce, row_ids
+from graph_odenet_tpu_torch.ops.csr_spmm import bucket_reduce, row_ids, widen
 from graph_odenet_tpu_torch.parallel.mesh import check_backend, global_rank, world
 from graph_odenet_tpu_torch.parallel.partition import Bucket, PartitionedGraph
 
@@ -103,11 +103,12 @@ class _BucketSpMMWeighted(torch.autograd.Function):
     def forward(ctx, chunk, pv_h, acc, bucket, rows, feat):
         ctx.bucket, ctx.rows, ctx.feat, ctx.added = bucket, rows, feat, acc is not None
         ctx.save_for_backward(chunk, pv_h)  # pv_h at [L, H], never the H·F-lane broadcast
+        x, alpha = widen(chunk), widen(pv_h)  # B2-w sums f32 tables (its f32 entry)
         if acc is None:
-            out = chunk.new_empty((bucket.fwd.n_rows, chunk.shape[1]))
-            return bucket_reduce(bucket.fwd, chunk, out, accumulate=False, alpha=pv_h, feat=feat)
+            out = x.new_empty((bucket.fwd.n_rows, x.shape[1]))
+            return bucket_reduce(bucket.fwd, x, out, accumulate=False, alpha=alpha, feat=feat)
         ctx.mark_dirty(acc)
-        return bucket_reduce(bucket.fwd, chunk, acc, alpha=pv_h, feat=feat)
+        return bucket_reduce(bucket.fwd, x, acc, alpha=alpha, feat=feat)
 
     @staticmethod
     def backward(ctx, g):
@@ -120,11 +121,12 @@ class _BucketSpMMWeighted(torch.autograd.Function):
             # into CSC order, the same kernel over the sender-sorted view.
             dchunk = g.new_empty((bucket.bwd.n_rows, g.shape[1]))
             bucket_reduce(bucket.bwd, g, dchunk, accumulate=False,
-                          alpha=pv_h.index_select(0, bucket.t_perm), feat=feat)
+                          alpha=widen(pv_h.index_select(0, bucket.t_perm)), feat=feat)
+            dchunk = dchunk.to(chunk.dtype)
         if ctx.needs_input_grad[1]:
             # dpv[e, h] = Σ_f chunk[s_e, hF+f] · g[r_e, hF+f]: gathers only.
-            prod = chunk.index_select(0, bucket.fwd.col) * g.index_select(0, ctx.rows)
-            dpv = prod.view(prod.shape[0], pv_h.shape[1], feat).sum(-1)
+            prod = widen(chunk.index_select(0, bucket.fwd.col)) * g.index_select(0, ctx.rows)
+            dpv = prod.view(prod.shape[0], pv_h.shape[1], feat).sum(-1).to(pv_h.dtype)
         return dchunk, dpv, g if ctx.added else None, None, None, None
 
 
@@ -142,6 +144,11 @@ def _bucket_spmm_weighted(
     written.  ``rows`` is the receiver of each edge (int64 ``[L]``; worked
     out from the view when not given).  The backward reduces ``dchunk``
     through the bucket's CSC view with the same kernel.
+
+    bf16 ``chunk`` and ``pv_h`` are widened to f32 for the kernel's f32
+    entry (the wrapper takes no bf16 in its weighted mode), so ``out`` (and
+    ``acc``) is f32: the caller rounds the sum over hops once.  Each
+    gradient comes back in its input's dtype, ``dpv`` summed in f32.
     """
     if rows is None:
         rows = row_ids(bucket.fwd.row_ptr, bucket.fwd.n_edge)

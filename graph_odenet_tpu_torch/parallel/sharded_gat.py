@@ -34,10 +34,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from graph_odenet_tpu_torch.ops.csr_spmm import widen
 from graph_odenet_tpu_torch.ops.dropmask import attention_dropout_scale, draw_seed
+from graph_odenet_tpu_torch.ops.segment import segment_sum
 from graph_odenet_tpu_torch.parallel.halo import _bucket_spmm_weighted, all_gather_rows, ring_hop
 from graph_odenet_tpu_torch.parallel.mesh import check_backend, world
 from graph_odenet_tpu_torch.parallel.partition import PartitionedGraph
@@ -56,10 +59,6 @@ def _segment_max(e: torch.Tensor, rows: torch.Tensor, n_rows: int) -> torch.Tens
     return m.scatter_reduce(0, rows[:, None].expand_as(e), e, "amax", include_self=True)
 
 
-def _segment_sum(v: torch.Tensor, rows: torch.Tensor, n_rows: int) -> torch.Tensor:
-    return v.new_zeros((n_rows, *v.shape[1:])).index_add(0, rows, v)
-
-
 def gat_sharded(
     pg: PartitionedGraph,
     s_src: torch.Tensor,
@@ -70,20 +69,36 @@ def gat_sharded(
     attn_rate: float = 0.0,
     attn_seed: Optional[int] = None,
     mode: str = "ring",
+    group=None,
 ) -> torch.Tensor:
     """Masked-softmax attention aggregation on this rank's node block.
 
     ``s_src``, ``s_dst``: the block's ``[B, H]`` source- and destination-side
-    scores; ``wh``: its ``[B, H, F]`` per-head values.  Returns ``[B, H, F]``.
-    ``attn_rate``/``attn_seed`` (an int in ``[0, 2**32)``, the same on every
-    rank): post-softmax attention dropout.  ``pg.n_parts`` must equal the
-    size of the default process group (one part without one).
+    scores; ``wh``: its ``[B, H, F]`` per-head values.  Returns ``[B, H, F]``
+    in ``wh``'s dtype.  ``attn_rate``/``attn_seed`` (an int in ``[0,
+    2**32)``, the same on every rank): post-softmax attention dropout.
+    ``group``: the process group the blocks are spread over, JAX's mesh
+    ``axis`` (the default group when None); ``pg.n_parts`` must equal its
+    size (one part without a process group).
+
+    In bfloat16 every sum is taken in float32 and rounded once (JAX adds bf16
+    messages): ``ring_pallas`` widens each hop's chunk and numerators for
+    B2-w (its f32 entry) and rounds the output after the division by the
+    denominators, ``ring`` forms its messages from widened values, and the
+    gradients of the gathered scores add in f32.  The scores, numerators and
+    denominators are held in the inputs' dtype, as JAX's are (each
+    denominator an f32 sum rounded once, ``ops.segment.segment_sum``).
+    Attention dropout's scale is f32, so the scaled numerators are f32 in
+    both modes; the output is rounded to ``wh``'s dtype all the same (JAX's
+    bf16 function raises there: the f32 scale promotes its loop carry).
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
-    n_parts, me = world()
+    n_parts, me = world(group)
     if pg.n_parts != n_parts:
-        raise ValueError(f"partitioning has {pg.n_parts} parts, the process group {n_parts}")
+        where = ("the default process group" if group is None else
+                 f"the process group of ranks {dist.get_process_group_ranks(group)}")
+        raise ValueError(f"partitioning has {pg.n_parts} parts, but {where} has {n_parts}")
     B = pg.block_size
     if wh.dim() != 3 or wh.shape[0] != B or s_src.shape != wh.shape[:2] or s_dst.shape != s_src.shape:
         raise ValueError(
@@ -91,7 +106,7 @@ def gat_sharded(
             f"{tuple(s_src.shape)}, {tuple(s_dst.shape)}, {tuple(wh.shape)}"
         )
     if n_parts > 1:
-        check_backend(wh)
+        check_backend(wh, group)
     heads, feat = wh.shape[1], wh.shape[2]
     blk = pg.blocks[me]
     seed = attn_seed if attn_rate > 0.0 and attn_seed is not None else None
@@ -101,16 +116,18 @@ def gat_sharded(
         return attention_dropout_scale(seed, senders, me * B + receivers, heads, attn_rate)
 
     def logits(ssrc, senders, receivers):
-        return torch.nn.functional.leaky_relu(
-            ssrc.index_select(0, senders) + s_dst.index_select(0, receivers), negative_slope)
+        """The edges' logits in the scores' dtype, gathered from widened scores
+        so that the backward sums each node's edges in f32 (bf16 scores)."""
+        pair = widen(ssrc).index_select(0, senders) + widen(s_dst).index_select(0, receivers)
+        return torch.nn.functional.leaky_relu(pair.to(s_dst.dtype), negative_slope)
 
     if mode == "ring_pallas":
         # 1. The score table is H lanes wide, not H·F: gather all of it.
-        e = logits(all_gather_rows(s_src), blk.senders, blk.receivers)  # [E_p, H]
+        e = logits(all_gather_rows(s_src, group), blk.senders, blk.receivers)  # [E_p, H]
         # 2. Exact softmax over all the rank's edges at once.
         m = _segment_max(e.detach(), blk.receivers, B)
         p = torch.exp(e - m.index_select(0, blk.receivers))
-        l = _segment_sum(p, blk.receivers, B)
+        l = segment_sum(p, blk.receivers, B)
         p_v = p * scale(blk.senders, blk.receivers) if seed is not None else p
         # 3. Ring over value chunks: one weighted bucket reduction per hop,
         # the next chunk's exchange in flight behind it.
@@ -119,7 +136,7 @@ def gat_sharded(
             b = (me + k) % n_parts
             pending = []
             if k < n_parts - 1:
-                nxt = ring_hop(chunk, pending)
+                nxt = ring_hop(chunk, pending, group)
             span = blk.bucket(b)
             out = _bucket_spmm_weighted(chunk, p_v[span], pg.bucket(me, b), feat,
                                         rows=blk.receivers[span], acc=out)
@@ -127,18 +144,21 @@ def gat_sharded(
                 req.wait()
             if pending:
                 chunk = nxt
-        return out.view(B, heads, feat) / torch.clamp(l, min=1e-30)[..., None]
+        out = out.view(B, heads, feat) / torch.clamp(l, min=1e-30)[..., None]
+        return out.to(wh.dtype)
 
-    # mode == "ring": fold each arriving bucket into an online softmax.
+    # mode == "ring": fold each arriving bucket into an online softmax.  The
+    # messages are formed from widened values, so they and their gradients
+    # sum in f32 (bf16 values; f32 ones as they are).
     m = wh.new_full((B, heads), _NEG)
     l = wh.new_zeros((B, heads))
-    acc = wh.new_zeros((B, heads, feat))
+    acc = widen(wh).new_zeros((B, heads, feat))
     packed = torch.cat([s_src, wh.reshape(B, heads * feat)], dim=1)
     for k in range(n_parts):
         b = (me + k) % n_parts
         pending = []
         if k < n_parts - 1:
-            nxt = ring_hop(packed, pending)
+            nxt = ring_hop(packed, pending, group)
         span = blk.bucket(b)
         s_b, r_b = pg.bucket(me, b).fwd.col, blk.receivers[span]
         e = logits(packed[:, :heads], s_b, r_b)
@@ -146,15 +166,16 @@ def gat_sharded(
         p = torch.exp(e - m_new.index_select(0, r_b))
         p_v = p * scale(blk.senders[span], r_b) if seed is not None else p
         rescale = torch.exp(m - m_new)
-        msgs = packed[:, heads:].reshape(B, heads, feat).index_select(0, s_b) * p_v[..., None]
-        acc = acc * rescale[..., None] + _segment_sum(msgs, r_b, B)
-        l = l * rescale + _segment_sum(p, r_b, B)
+        vals = widen(packed[:, heads:]).reshape(B, heads, feat)
+        msgs = vals.index_select(0, s_b) * p_v[..., None]
+        acc = acc * rescale[..., None] + segment_sum(msgs, r_b, B)
+        l = l * rescale + segment_sum(p, r_b, B)
         m = m_new
         for req in pending:
             req.wait()
         if pending:
             packed = nxt
-    return acc / torch.clamp(l, min=1e-30)[..., None]
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(wh.dtype)
 
 
 class ShardedGATODE(nn.Module):
@@ -162,35 +183,42 @@ class ShardedGATODE(nn.Module):
     and the per-head attention vectors ``a_src``, ``a_dst`` ``[H, F]``: the
     encoder with ``heads`` heads of ``hidden``, the single-head dynamics and
     readout at width ``heads·hidden``.  Glorot uniform from ``generator`` on
-    the CPU, drawn in the JAX package's order."""
+    the CPU, drawn in the JAX package's order in float32 and rounded once to
+    ``dtype``, the dtype of every leaf.  With bfloat16 parameters and
+    features the whole forward runs in bf16 (``gat_sharded``'s rule for B2-w)
+    and returns bf16 log-probs."""
 
-    def __init__(self, f_in: int, hidden: int, heads: int, n_class: int, *, generator=None):
+    def __init__(self, f_in: int, hidden: int, heads: int, n_class: int, *, generator=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         d = heads * hidden
-        self.w_enc = _glorot(f_in, d, generator)
-        self.a_src_enc = _glorot(heads, hidden, generator)
-        self.a_dst_enc = _glorot(heads, hidden, generator)
-        self.w_dyn = _glorot(d, d, generator)
-        self.a_src_dyn = _glorot(1, d, generator)
-        self.a_dst_dyn = _glorot(1, d, generator)
-        self.w_out = _glorot(d, n_class, generator)
-        self.a_src_out = _glorot(1, n_class, generator)
-        self.a_dst_out = _glorot(1, n_class, generator)
+        self.w_enc = _glorot(f_in, d, generator, dtype)
+        self.a_src_enc = _glorot(heads, hidden, generator, dtype)
+        self.a_dst_enc = _glorot(heads, hidden, generator, dtype)
+        self.w_dyn = _glorot(d, d, generator, dtype)
+        self.a_src_dyn = _glorot(1, d, generator, dtype)
+        self.a_dst_dyn = _glorot(1, d, generator, dtype)
+        self.w_out = _glorot(d, n_class, generator, dtype)
+        self.a_src_out = _glorot(1, n_class, generator, dtype)
+        self.a_dst_out = _glorot(1, n_class, generator, dtype)
 
 
 def init_gatode_params(
-    f_in: int, hidden: int, heads: int, n_class: int, *, generator=None
+    f_in: int, hidden: int, heads: int, n_class: int, *, generator=None,
+    dtype: torch.dtype = torch.float32,
 ) -> ShardedGATODE:
-    return ShardedGATODE(f_in, hidden, heads, n_class, generator=generator)
+    return ShardedGATODE(f_in, hidden, heads, n_class, generator=generator, dtype=dtype)
 
 
-def _att_layer(pg, h, w, a_src, a_dst, *, attn_rate=0.0, attn_seed=None, mode="ring"):
+def _att_layer(pg, h, w, a_src, a_dst, *, attn_rate=0.0, attn_seed=None, mode="ring",
+               group=None):
     """One sharded GAT layer: scores per head, then masked-softmax attention."""
     heads, feat = a_src.shape
     wh = (h @ w).view(h.shape[0], heads, feat)
     s_src = (wh * a_src).sum(-1)
     s_dst = (wh * a_dst).sum(-1)
-    out = gat_sharded(pg, s_src, s_dst, wh, attn_rate=attn_rate, attn_seed=attn_seed, mode=mode)
+    out = gat_sharded(pg, s_src, s_dst, wh, attn_rate=attn_rate, attn_seed=attn_seed, mode=mode,
+                      group=group)
     return out.reshape(h.shape[0], heads * feat)
 
 
@@ -198,6 +226,7 @@ def gatode_forward(
     params: ShardedGATODE, pg: PartitionedGraph, x: torch.Tensor, *, steps: int = 4,
     t1: float = 1.0, dropout: float = 0.0, generator: Optional[torch.Generator] = None,
     seed_generator: Optional[torch.Generator] = None, mode: str = "ring", remat: bool = False,
+    group=None,
 ) -> torch.Tensor:
     """Log-probs of the rank's node block ``[B, C]``; ``x`` is its rows.
 
@@ -208,10 +237,12 @@ def gatode_forward(
     dropout in the encoder, its seed drawn from ``seed_generator`` (a CPU
     generator, seeded alike on every rank).  Without ``generator`` nothing
     drops (evaluation).  ``remat`` recomputes each dynamics evaluation in the
-    backward instead of keeping its per-edge activations.
+    backward instead of keeping its per-edge activations.  ``group``: the
+    process group the blocks are spread over (the default group when None),
+    as in ``gat_sharded``.
     """
     p = params
-    _, me = world()
+    _, me = world(group)
     drop = dropout > 0.0 and generator is not None
     attn_seed = None
     if drop:
@@ -222,11 +253,12 @@ def gatode_forward(
         attn_seed = draw_seed(seed_generator)
     h = torch.nn.functional.elu(_att_layer(
         pg, x, p.w_enc, p.a_src_enc, p.a_dst_enc,
-        attn_rate=dropout if drop else 0.0, attn_seed=attn_seed, mode=mode,
+        attn_rate=dropout if drop else 0.0, attn_seed=attn_seed, mode=mode, group=group,
     ))
 
     def dyn(h):
-        return torch.tanh(_att_layer(pg, h, p.w_dyn, p.a_src_dyn, p.a_dst_dyn, mode=mode))
+        return torch.tanh(_att_layer(pg, h, p.w_dyn, p.a_src_dyn, p.a_dst_dyn, mode=mode,
+                                     group=group))
 
     if remat and torch.is_grad_enabled():
         plain_dyn = dyn
@@ -243,5 +275,5 @@ def gatode_forward(
         h = h + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
     if drop:
         h = _feature_dropout(h, dropout, generator, rows, pg.n_node_pad)
-    logits = _att_layer(pg, h, p.w_out, p.a_src_out, p.a_dst_out, mode=mode)
+    logits = _att_layer(pg, h, p.w_out, p.a_src_out, p.a_dst_out, mode=mode, group=group)
     return torch.log_softmax(logits, dim=-1)

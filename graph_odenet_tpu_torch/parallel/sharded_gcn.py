@@ -26,29 +26,37 @@ __all__ = [
 ]
 
 
-def _glorot(fan_in: int, fan_out: int, generator) -> nn.Parameter:
+def _glorot(fan_in: int, fan_out: int, generator, dtype=torch.float32) -> nn.Parameter:
+    """Glorot uniform, drawn in float32 and rounded once to ``dtype``."""
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     w = torch.empty(fan_in, fan_out).uniform_(-limit, limit, generator=generator)
-    return nn.Parameter(w)
+    return nn.Parameter(w.to(dtype))
 
 
 class ShardedGCNODE(nn.Module):
     """The parameters ``w_in [f_in, hidden]``, ``b_in``, ``w_dyn [hidden,
     hidden]``, ``b_dyn``, ``w_out [hidden, n_class]``, ``b_out``: Glorot
-    uniform weights drawn from ``generator`` on the CPU, zero biases."""
+    uniform weights drawn from ``generator`` on the CPU, zero biases, every
+    leaf in ``dtype`` (the weights drawn in float32 and rounded once: a
+    bfloat16 model holds the float32 model's weights of the same seed,
+    rounded).  With bfloat16 parameters and features every aggregation takes
+    B2's bf16 entry; the log-probs are bf16 and ``loss_fn`` sums the NLL in
+    float32 (the labels are float32)."""
 
-    def __init__(self, f_in: int, hidden: int, n_class: int, *, generator=None):
+    def __init__(self, f_in: int, hidden: int, n_class: int, *, generator=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.w_in = _glorot(f_in, hidden, generator)
-        self.b_in = nn.Parameter(torch.zeros(hidden))
-        self.w_dyn = _glorot(hidden, hidden, generator)
-        self.b_dyn = nn.Parameter(torch.zeros(hidden))
-        self.w_out = _glorot(hidden, n_class, generator)
-        self.b_out = nn.Parameter(torch.zeros(n_class))
+        self.w_in = _glorot(f_in, hidden, generator, dtype)
+        self.b_in = nn.Parameter(torch.zeros(hidden, dtype=dtype))
+        self.w_dyn = _glorot(hidden, hidden, generator, dtype)
+        self.b_dyn = nn.Parameter(torch.zeros(hidden, dtype=dtype))
+        self.w_out = _glorot(hidden, n_class, generator, dtype)
+        self.b_out = nn.Parameter(torch.zeros(n_class, dtype=dtype))
 
 
-def init_params(f_in: int, hidden: int, n_class: int, *, generator=None) -> ShardedGCNODE:
-    return ShardedGCNODE(f_in, hidden, n_class, generator=generator)
+def init_params(f_in: int, hidden: int, n_class: int, *, generator=None,
+                dtype: torch.dtype = torch.float32) -> ShardedGCNODE:
+    return ShardedGCNODE(f_in, hidden, n_class, generator=generator, dtype=dtype)
 
 
 def _feature_dropout(h, rate, generator, rows: slice, n_global: int):

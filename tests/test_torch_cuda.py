@@ -5,8 +5,9 @@ card (no kernel of its own: one batched solve against one solve per window
 and against the CPU, and no host read inside an attempt), and the same of
 the batched VCABM on adams_scan (one host read an attempt round); and the adjoints'
 one-step check through the kernels (``chip_smoke.adjoint_step_check``), the
-same check of the Adams family, config 4's bit-equal resume and
-``validate_tiling`` inside ``prepare`` of a card graph.
+same check of the Adams family, config 4's bit-equal resume,
+``validate_tiling`` inside ``prepare`` of a card graph, and one step of each
+sharded model built in bf16 (``chip_smoke.sharded_step_check``).
 
 Every test here needs a CUDA card and skips without one.  On the card
 (which has no JAX, so the repo's conftest cannot load):
@@ -1272,3 +1273,58 @@ def test_bf16_weighted_modes_raise_on_cuda(cuda):
         csr_spmm.bucket_reduce(view, xt, torch.zeros((view.n_rows, 8), device=cuda, dtype=BF),
                                alpha=torch.ones(view.n_edge, 2, device=cuda), feat=4)
     assert (csr_spmm.weighted_launches, csr_spmm.bucket_weighted_launches) == before
+
+
+@pytest.mark.parametrize("model", ["gcnode", "gatode"])
+def test_bf16_sharded_step_through_the_kernels_matches_plain(cuda, model):
+    """``chip_smoke.py``'s one-step check of a sharded model built with
+    ``dtype=torch.bfloat16`` (bf16 features, dropout 0), at one part on the
+    full arxiv twins: config 4's GCN-ODE launches B2's bf16 entry, one launch
+    a layer each way (36); the GAT-ODE (16 × 2 heads, rk4 × 2, ``ring_pallas``
+    with ``remat``) launches B2-w's f32 entry on the widened chunk, two a
+    layer and remat's 4 a substep (28), takes bf16 chunks and hands back a
+    bf16 ``dchunk``.  No plain version is called; bf16 log-probs and
+    gradients agree with the plain versions' (sums in a fixed order) at
+    ``BF16_STEP_TOL`` (each gradient's atol relative to its largest entry)."""
+    import dataclasses
+
+    import chip_smoke
+
+    from graph_odenet_tpu_torch.configs import get_config, sharded_train_config
+    from graph_odenet_tpu_torch.data import synthetic_ogbn_arxiv
+
+    if model == "gcnode":
+        cfg, data = sharded_train_config(get_config(4)[1]), synthetic_ogbn_arxiv(seed=0)
+        want = dict(bucket=36, bucket_bf16=36, bucket_weighted=0)
+    else:
+        cfg = dataclasses.replace(chip_smoke.sharded_gat_config(), hidden=16, heads=2, steps=2)
+        data = synthetic_ogbn_arxiv(seed=0, calibrated=True)
+        want = dict(bucket=0, bucket_bf16=0, bucket_weighted=2 * (2 + 4 * 2) + 4 * 2)
+    check = chip_smoke.sharded_step_check(cfg, data, cuda)
+    assert check["launches"] == want and check["plain_calls"] == 0
+    assert max(check["err_over_tol"].values()) <= 1.0, check
+    assert (check["lp_dtype"], check["grad_dtypes"], check["state"]) == (
+        "bfloat16", ["bfloat16"], ["bfloat16"])
+    if model == "gatode":
+        assert (check["chunk"], check["dchunk"]) == (["bfloat16"], ["bfloat16"])
+
+
+def test_bf16_segment_sum_adds_in_f32_on_the_card(cuda):
+    """On the card ``index_add_`` adds bf16 terms with bf16 atomics, so a
+    hub's sum stops growing once its ulp exceeds the terms (5,000 ones stop
+    far below 5,000).  ``segment_sum`` (the sharded GAT's softmax
+    denominators among its callers) adds bf16 rows in f32 and rounds once:
+    5,000 to bf16's 4,992, and within one bf16 ulp of the CPU's sums (the
+    f32 sums in another order)."""
+    from graph_odenet_tpu_torch.ops.segment import segment_sum
+
+    rng = np.random.default_rng(42)
+    ids = torch.from_numpy(np.concatenate([np.zeros(5000), rng.integers(0, 9, 500)]).astype(np.int64))
+    rows = torch.from_numpy(rng.standard_normal((5500, 2)).astype(np.float32)).to(BF)
+    ones = torch.ones((5000, 2), dtype=BF, device=cuda)
+    bf16_adds = torch.zeros((1, 2), dtype=BF, device=cuda).index_add_(0, ids[:5000].to(cuda), ones)
+    assert float(bf16_adds.max()) < 1000.0
+    assert float(segment_sum(ones, ids[:5000].to(cuda), 1).min()) == 4992.0
+    got = segment_sum(rows.to(cuda), ids.to(cuda), 9)
+    assert got.dtype == BF
+    _assert_within_bf16_ulp(got.cpu(), segment_sum(rows, ids, 9))

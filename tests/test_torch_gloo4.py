@@ -13,7 +13,9 @@ feature-axis tensor parallelism on a (edge, feat) = (2, 2) mesh and a
 leading batch axis on a (data, edge) = (2, 2) mesh against JAX's
 single-device ``spmm`` (the JAX tests' tolerances), slices of unequal width
 refused, and two rings on subgroups of 2 ranks at once, each with its own
-result; and ``bench.scaling_bench`` over the 4 ranks."""
+result; the GAT tier along the edge axis of a (data, edge) = (2, 2) mesh
+(``group=``) against JAX's on a 2 × 2 mesh with ``axis="edge"`` and against
+one part; and ``bench.scaling_bench`` over the 4 ranks."""
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,7 @@ from graph_odenet_tpu.ops import spmm as jspmm_one
 from graph_odenet_tpu.parallel import gat_sharded as jgat_sharded
 from graph_odenet_tpu.parallel import make_mesh
 from graph_odenet_tpu.parallel import partition_by_receiver as jpartition
+from graph_odenet_tpu.parallel import sharded_gat as jsgat
 from graph_odenet_tpu.parallel import sharded_gcn as jsg
 from graph_odenet_tpu.parallel import spmm_sharded as jspmm
 from graph_odenet_tpu_torch.convert import params_from_sharded
@@ -106,6 +109,9 @@ def all_ranks(tmp_path_factory, params, gat_params, gat_inputs, mesh_inputs):
                                steps=STEPS, modes=GAT_MODES, remat=True, drop_seed=DROP_SEED),
         "feature_tp": dict(s=s, r=r, n=n, x=xf, modes=SPMM_2D_MODES),
         "data_edge": dict(s=s2, r=r2, n=n2, xb=xb, modes=SPMM_2D_MODES),
+        "gat_data_edge": dict(scale=SCALE, inputs=gat_inputs, rate=GAT_RATE, seed=GAT_SEED,
+                              params=gat_params, hidden=HIDDEN, heads=HEADS, steps=STEPS,
+                              modes=GAT_MODES, drop_seed=DROP_SEED),
         "two_rings": dict(scale=SCALE, x=x, params=params, steps=STEPS),
         "scaling": dict(n_nodes=256, deg=8, feat=32, iters=2),
     })
@@ -279,6 +285,97 @@ def test_spmm_sharded_batch_axis_on_data_edge_mesh_matches_jax_vmap(all_ranks, m
         got[part], got_dx[part] = res[mode]
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got_dx, want_dx, rtol=1e-5, atol=1e-5)
+
+
+def _data_edge_rows(all_ranks, mode, pick):
+    """``{d: [rows of edge blocks 0, 1 joined]}`` of ``pick(result)`` from
+    each rank of data row d."""
+    rows = {}
+    for rank in all_ranks[1]:
+        res = rank["gat_data_edge"]
+        d, e = res["coords"]
+        rows.setdefault(d, {})[e] = pick(res[mode])
+    return {d: [np.concatenate([by_e[0][i], by_e[1][i]]) for i in range(len(by_e[0]))]
+            for d, by_e in rows.items()}
+
+
+def _mesh_2x2():
+    return make_mesh(shape=(2, 2), axis_names=("data", "edge"), devices=jax.devices()[:4])
+
+
+@pytest.mark.parametrize("mode", GAT_MODES)
+def test_gat_sharded_on_data_edge_mesh_matches_jax(all_ranks, jd, gat_inputs, mode):
+    """``gat_sharded(group=edge)`` with attention dropout on a (data, edge) = (2,
+    2) mesh, data row d on d + 1 times the inputs: each row's blocks against
+    JAX's ``gat_sharded`` on a 2 × 2 mesh with ``axis="edge"`` and against the
+    port at one part (values 1e-5, gradients 2e-5)."""
+    from graph_odenet_tpu_torch.parallel import gat_sharded
+
+    got = _data_edge_rows(all_ranks, mode, lambda r: r["gat"])
+    jpg, mesh = jpartition(jd.graph, 2), _mesh_2x2()
+    f = jax.jit(lambda ss, sd, w: jgat_sharded(jpg, ss, sd, w, mesh, axis="edge", mode=mode,
+                                               attn_rate=GAT_RATE, attn_seed=jnp.uint32(GAT_SEED)))
+    pg1 = partition_by_receiver(synthetic_ogbn_arxiv(seed=0, scale=SCALE).graph, 1)
+    for d in (0, 1):
+        inputs = [a * (d + 1) for a in gat_inputs]
+        jout, vjp = jax.vjp(f, *(jnp.asarray(a) for a in inputs))
+        want = [np.asarray(v) for v in (jout, *vjp(jnp.cos(jout)))]
+        ts = [torch.from_numpy(a).requires_grad_(True) for a in inputs]
+        y = gat_sharded(pg1, *ts, attn_rate=GAT_RATE, attn_seed=GAT_SEED, mode=mode)
+        one = [y.detach().numpy()] + [g.numpy() for g in torch.autograd.grad(torch.sin(y).sum(), ts)]
+        for name, a, b, c, tol in zip(("out", "ds_src", "ds_dst", "dwh"), got[d], want, one,
+                                      (TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL)):
+            np.testing.assert_allclose(a, b, err_msg=f"data {d} {name} vs JAX", **tol)
+            np.testing.assert_allclose(a, c, err_msg=f"data {d} {name} vs one part", **tol)
+
+
+@pytest.mark.parametrize("mode", GAT_MODES)
+def test_sharded_gatode_on_data_edge_mesh_matches_jax(all_ranks, jd, gat_params, mode):
+    """``gatode_forward(group=edge)`` under ``remat`` on the same mesh: each
+    data row's log-probs, and its loss and gradients (all-reduced over its
+    edge group), against JAX's ``gatode_forward`` with ``axis="edge"`` on a
+    2 × 2 mesh and against the port at one part (rtol 2e-4); the dropout
+    masks of each row equal one part's (``group``'s rank picks the rows)."""
+    from graph_odenet_tpu_torch.convert import params_from_sharded_gat
+    from graph_odenet_tpu_torch.parallel import sharded_gat
+
+    lps = _data_edge_rows(all_ranks, mode, lambda r: [r["lp"], r["lp_drop"]])
+    jpg, mesh = jpartition(jd.graph, 2), _mesh_2x2()
+    td = synthetic_ogbn_arxiv(seed=0, scale=SCALE)
+    y1h, w = _labels_weight(td)
+    jy, jw = jnp.asarray(y1h.numpy()), jnp.asarray(w.numpy())
+
+    @jax.jit
+    def run(p, x):
+        def loss(p):
+            lp = jsgat.gatode_forward(p, jpg, x, mesh, steps=STEPS, axis="edge", mode=mode,
+                                      remat=True)
+            return jnp.sum(-jnp.sum(lp * jy, axis=-1) * jw) / jnp.sum(jw), lp
+
+        (val, lp), grads = jax.value_and_grad(loss, has_aux=True)(p)
+        return lp, val, grads
+
+    model = sharded_gat.init_gatode_params(td.features.shape[1], HIDDEN, HEADS, td.n_class)
+    model.load_state_dict(params_from_sharded_gat(gat_params))
+    pg1 = partition_by_receiver(td.graph, 1)
+    for d in (0, 1):
+        x = td.features * (d + 1)
+        jlp, jloss, jgrads = run({k: jnp.asarray(v) for k, v in gat_params.items()},
+                                 jnp.asarray(x.numpy()))
+        with torch.no_grad():
+            one_drop = sharded_gat.gatode_forward(
+                model, pg1, x, steps=STEPS, mode=mode, dropout=0.4,
+                generator=torch.Generator().manual_seed(DROP_SEED),
+                seed_generator=torch.Generator().manual_seed(DROP_SEED))
+        lp, lp_drop = lps[d]
+        np.testing.assert_allclose(lp, np.asarray(jlp), err_msg=f"data {d}", **TOL)
+        np.testing.assert_allclose(lp_drop, one_drop.numpy(), err_msg=f"data {d} dropout", **TOL)
+        members = [r["gat_data_edge"] for r in all_ranks[1] if r["gat_data_edge"]["coords"][0] == d]
+        for res in members:
+            np.testing.assert_allclose(res[mode]["loss"], float(jloss), rtol=1e-5)
+            for k, g in res[mode]["grads"].items():
+                np.testing.assert_allclose(g, np.asarray(jgrads[k]), err_msg=f"data {d} {k}",
+                                           **FWD_TOL)
 
 
 def test_two_rings_on_subgroups_each_give_their_own_result(all_ranks, jd, params):

@@ -242,6 +242,56 @@ def data_edge(rank, n_ranks, *, s, r, n, xb, modes):
     return dict(out, coords=(d, e))
 
 
+def gat_data_edge(rank, n_ranks, *, scale, inputs, rate, seed, params, hidden, heads, steps,
+                  modes, drop_seed):
+    """A (data, edge) = (2, 2) mesh: the GAT tier along the edge axis
+    (``group=mesh.group("edge")``), data row d on d + 1 times the inputs and
+    the features.  Per mode: this rank's rows of ``gat_sharded`` (attention
+    dropout ``rate``) and of the gradients of ``sum(sin(out))`` w.r.t. its
+    rows of ``s_src``, ``s_dst`` and ``wh``; the sharded GAT-ODE's log-prob
+    rows under ``remat``, its loss and parameter gradients all-reduced over
+    the edge group (dropout 0), and its log-prob rows with dropout 0.4 from
+    ``drop_seed``."""
+    from graph_odenet_tpu_torch.convert import params_from_sharded_gat
+    from graph_odenet_tpu_torch.parallel import gat_sharded, make_mesh, partition_by_receiver
+    from graph_odenet_tpu_torch.parallel import sharded_gat as sgat
+    from graph_odenet_tpu_torch.parallel.sharded_gcn import (
+        all_reduce_grads, all_reduce_sum, shard_batch,
+    )
+
+    mesh = make_mesh((2, 2), ("data", "edge"))
+    d, e, group = mesh.coord("data"), mesh.coord("edge"), mesh.group("edge")
+    n_edge = mesh.size("edge")
+    data = _twin(scale)
+    pg = partition_by_receiver(data.graph, n_edge)
+    model = sgat.init_gatode_params(data.features.shape[1], hidden, heads, data.n_class)
+    model.load_state_dict(params_from_sharded_gat(params))
+    y1h, w = _labels_weight(data)
+    total = w.sum()
+    x, y1h, w = shard_batch(n_edge, e, data.features * (d + 1), y1h, w)
+    out = {}
+    for mode in modes:
+        ts = [t.clone().requires_grad_(True) for t in shard_batch(
+            n_edge, e, *(torch.from_numpy(a) * (d + 1) for a in inputs))]
+        y = gat_sharded(pg, *ts, attn_rate=rate, attn_seed=seed, mode=mode, group=group)
+        torch.sin(y).sum().backward()
+        model.zero_grad(set_to_none=True)
+        lp = sgat.gatode_forward(model, pg, x, steps=steps, mode=mode, remat=True, group=group)
+        loss = -(lp * y1h).sum(-1).mul(w).sum() / total
+        loss.backward()
+        all_reduce_grads(model, group)
+        with torch.no_grad():
+            lp_drop = sgat.gatode_forward(
+                model, pg, x, steps=steps, mode=mode, dropout=0.4, group=group,
+                generator=torch.Generator().manual_seed(drop_seed),
+                seed_generator=torch.Generator().manual_seed(drop_seed))
+        out[mode] = dict(gat=[_np(y)] + [_np(t.grad) for t in ts], lp=_np(lp),
+                         loss=float(all_reduce_sum(loss.detach(), group)),
+                         grads={k: _np(p.grad) for k, p in model.named_parameters()},
+                         lp_drop=_np(lp_drop))
+    return dict(out, coords=(d, e))
+
+
 def two_rings(rank, n_ranks, *, scale, x, params, steps):
     """Two rings of 2 ranks at once, on the subgroups {0, 1} and {2, 3}; ring
     p works on ``p + 1`` times ``x`` (and the twin's features): ``spmm_sharded``
@@ -489,4 +539,5 @@ TASKS = {"spmm_modes": spmm_modes, "sharded_gcn": sharded_gcn, "train": train, "
          "resume": resume,
          "config4_world": config4_world, "gat_modes": gat_modes, "sharded_gatode": sharded_gatode,
          "gat_world": gat_world, "feature_tp": feature_tp, "data_edge": data_edge,
+         "gat_data_edge": gat_data_edge,
          "two_rings": two_rings, "scaling": scaling, "feature_tp_world": feature_tp_world}
