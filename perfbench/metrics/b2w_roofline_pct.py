@@ -1,0 +1,7 @@
+"""B2-w (``csrc/csr_spmm.cu``, weighted bucket mode): Σ bound / Σ device time of its launches."""
+
+from perfbench.metrics._roofline import bucket_roofline
+
+
+def read(ctx):
+    return bucket_roofline(ctx, "b2w")

@@ -1,0 +1,89 @@
+"""``BENCHMARK.json`` and the data files it names: shapes, names, units and
+the files each entry needs."""
+
+import json
+import math
+import re
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[2]
+BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+LINE = re.compile(r"^[^\n\t]{1,200}$")
+
+
+def test_keys_and_command():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs", "workloads",
+                          "end_to_end", "per_layer"}
+    assert BENCH["command"] == ["python3", "perfbench/run.py"]
+    assert BENCH["paths"] == ["perfbench"]
+    assert isinstance(BENCH["run_seconds"], int) and 1 <= BENCH["run_seconds"] <= 51
+    assert len((REPO / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+
+
+def test_a_full_check_fits_with_24_cells():
+    runs = 2 + 14 * 24
+    assert runs * (BENCH["run_seconds"] + 60) + 24 * 2 * 90 + 1200 <= 43200
+
+
+@pytest.mark.parametrize("kind", ["configs", "workloads", "end_to_end", "per_layer"])
+def test_names_are_legal_and_unique(kind):
+    names = [e["name"] for e in BENCH[kind]]
+    assert len(names) == len(set(names))
+    for n in names:
+        assert NAME.match(n), n
+
+
+def test_configs():
+    used = {w["config"] for w in BENCH["workloads"]}
+    for c in BENCH["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert c["name"] in used
+        assert c["file"].startswith("perfbench/") and (REPO / c["file"]).is_file()
+        assert json.loads((REPO / c["file"]).read_text())["name"] == c["name"]
+        assert c["source"].startswith("https://") and LINE.match(c["source"])
+        assert LINE.match(c["why"]) and len(c["reduced"]) <= 16
+    assert len({c["file"] for c in BENCH["configs"]}) == len(BENCH["configs"])
+
+
+def test_workloads():
+    configs = {c["name"] for c in BENCH["configs"]}
+    pairs = {(w["config"], w["traffic"]) for w in BENCH["workloads"]}
+    assert len(pairs) == len(BENCH["workloads"])
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, math.floor(0.25 * len(BENCH["workloads"])))
+    for w in BENCH["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert w["config"] in configs and w["chips"] in (1, 4)
+        assert NAME.match(w["traffic"]) and LINE.match(w["why"])
+        traffic = json.loads((REPO / "perfbench" / "traffic" / f"{w['traffic']}.json").read_text())
+        assert traffic["parts"] == w["chips"]
+        own = json.loads((REPO / "perfbench" / "workloads" / f"{w['name']}.json").read_text())
+        assert set(own["limits"]) == {"loss", "grad1", "change"} and own["epochs_per_second"] > 0
+
+
+def test_metrics():
+    cells = {w["name"] for w in BENCH["workloads"]}
+    e2e = {m["name"] for m in BENCH["end_to_end"]}
+    assert "setup_s" in e2e
+    for m in BENCH["end_to_end"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
+        assert m["source"] in ("host_clock", "device_trace") and UNIT.match(m["unit"])
+        assert m["better"] in ("lower", "higher") and 0.01 <= m["bound"] <= 0.25
+    layers = {}
+    for m in BENCH["per_layer"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer", "moves"}
+        assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
+        assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
+        assert m["moves"] in e2e and LINE.match(m["layer"])
+        assert set(m["workloads"]) <= cells
+        assert (REPO / "perfbench" / "metrics" / f"{m['name']}.py").is_file()
+        layers.setdefault(m["layer"].lower(), set()).add(m["layer"])
+    assert all(len(v) == 1 for v in layers.values())
+    for cell in cells:  # every cell reports set-up, one more end-to-end metric and a per-layer one
+        reported = {m["name"] for m in BENCH["end_to_end"] if cell in m.get("workloads", [cell])}
+        assert "setup_s" in reported and len(reported) >= 2
+        assert any(cell in m.get("workloads", [cell]) for m in BENCH["per_layer"])
