@@ -459,7 +459,8 @@ def profiled(fn, calls):
     launches per call, and the names of the kernels launched.  The profiler
     records a second round of the calls, with idle time before and after
     them (it can miss kernels in its first round and near the ends of its
-    window), and its step marks are not kernels."""
+    window); its step marks and the program's spans (``gode.*``, mirrored
+    onto the device's timeline) are not kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -473,8 +474,8 @@ def profiled(fn, calls):
             torch.cuda.synchronize()
             time.sleep(0.02)
             prof.step()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(("ProfilerStep", "gode."))]
     return dict(device_us=sum(e.self_device_time_total for e in kernels) / calls,
                 launches_per_call=sum(e.count for e in kernels) / calls,
                 kernels=sorted({e.key[:60] for e in kernels}))
@@ -1333,8 +1334,10 @@ def profile_steps(model, loss_and_grads, cfg, steps=3, top=8):
             train_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    # Device events only: CPU ops also carry the device time of what they launched.
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # Device events only: CPU ops also carry the device time of what they launched;
+    # the program's spans (gode.*) are mirrored onto the device but are no kernels.
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.key.startswith("gode.")]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     by_kind = {}
     for e in kernels:

@@ -65,6 +65,7 @@ import torch
 
 from graph_odenet_tpu_torch.graph import Graph
 from graph_odenet_tpu_torch.ops import _build
+from graph_odenet_tpu_torch.utils.profiling import annotate
 from graph_odenet_tpu_torch.utils.sanitize import validate_tiling
 
 __all__ = [
@@ -566,12 +567,14 @@ def bucket_reduce(
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"bucket_reduce runs on CPU or CUDA tensors, not {x.device}")
-        return _bucket_reduce_plain(view, x, out, positional, accumulate, alpha, feat)
+        with annotate("gode.bucket_reduce"):
+            return _bucket_reduce_plain(view, x, out, positional, accumulate, alpha, feat)
     plan = view.plan
     if accumulate and plan.n_seg == 0:
         return out  # no edge: nothing to add, nothing launched
     mode = _POSITIONAL if positional else _SCALED if alpha is None else _ALPHA
-    _run(plan, x, out, alpha, feat, mode, int(accumulate))
+    with annotate("gode.bucket_reduce"):
+        _run(plan, x, out, alpha, feat, mode, int(accumulate))
     if alpha is None:
         bucket_launches += 1
     else:

@@ -44,6 +44,7 @@ import torch.distributed as dist
 from graph_odenet_tpu_torch.ops.csr_spmm import bucket_reduce, row_ids, widen
 from graph_odenet_tpu_torch.parallel.mesh import check_backend, global_rank, world
 from graph_odenet_tpu_torch.parallel.partition import Bucket, PartitionedGraph
+from graph_odenet_tpu_torch.utils.profiling import annotate
 
 __all__ = ["spmm_sharded", "bucket_reduce_pallas", "ring_hop", "all_gather_rows", "MODES"]
 
@@ -125,8 +126,9 @@ class _BucketSpMMWeighted(torch.autograd.Function):
             dchunk = dchunk.to(chunk.dtype)
         if ctx.needs_input_grad[1]:
             # dpv[e, h] = Σ_f chunk[s_e, hF+f] · g[r_e, hF+f]: gathers only.
-            prod = widen(chunk.index_select(0, bucket.fwd.col)) * g.index_select(0, ctx.rows)
-            dpv = prod.view(prod.shape[0], pv_h.shape[1], feat).sum(-1).to(pv_h.dtype)
+            with annotate("gode.b2w.dpv"):
+                prod = widen(chunk.index_select(0, bucket.fwd.col)) * g.index_select(0, ctx.rows)
+                dpv = prod.view(prod.shape[0], pv_h.shape[1], feat).sum(-1).to(pv_h.dtype)
         return dchunk, dpv, g if ctx.added else None, None, None, None
 
 

@@ -45,6 +45,7 @@ from graph_odenet_tpu_torch.parallel.halo import _bucket_spmm_weighted, all_gath
 from graph_odenet_tpu_torch.parallel.mesh import check_backend, world
 from graph_odenet_tpu_torch.parallel.partition import PartitionedGraph
 from graph_odenet_tpu_torch.parallel.sharded_gcn import _feature_dropout, _glorot
+from graph_odenet_tpu_torch.utils.profiling import annotate
 
 __all__ = ["gat_sharded", "ShardedGATODE", "init_gatode_params", "gatode_forward", "MODES"]
 
@@ -122,13 +123,14 @@ def gat_sharded(
         return torch.nn.functional.leaky_relu(pair.to(s_dst.dtype), negative_slope)
 
     if mode == "ring_pallas":
-        # 1. The score table is H lanes wide, not H·F: gather all of it.
-        e = logits(all_gather_rows(s_src, group), blk.senders, blk.receivers)  # [E_p, H]
-        # 2. Exact softmax over all the rank's edges at once.
-        m = _segment_max(e.detach(), blk.receivers, B)
-        p = torch.exp(e - m.index_select(0, blk.receivers))
-        l = segment_sum(p, blk.receivers, B)
-        p_v = p * scale(blk.senders, blk.receivers) if seed is not None else p
+        with annotate("gode.gat.softmax"):
+            # 1. The score table is H lanes wide, not H·F: gather all of it.
+            e = logits(all_gather_rows(s_src, group), blk.senders, blk.receivers)  # [E_p, H]
+            # 2. Exact softmax over all the rank's edges at once.
+            m = _segment_max(e.detach(), blk.receivers, B)
+            p = torch.exp(e - m.index_select(0, blk.receivers))
+            l = segment_sum(p, blk.receivers, B)
+            p_v = p * scale(blk.senders, blk.receivers) if seed is not None else p
         # 3. Ring over value chunks: one weighted bucket reduction per hop,
         # the next chunk's exchange in flight behind it.
         out, chunk = None, wh.reshape(B, heads * feat)
@@ -161,15 +163,17 @@ def gat_sharded(
             nxt = ring_hop(packed, pending, group)
         span = blk.bucket(b)
         s_b, r_b = pg.bucket(me, b).fwd.col, blk.receivers[span]
-        e = logits(packed[:, :heads], s_b, r_b)
-        m_new = torch.maximum(m, _segment_max(e.detach(), r_b, B))
-        p = torch.exp(e - m_new.index_select(0, r_b))
-        p_v = p * scale(blk.senders[span], r_b) if seed is not None else p
-        rescale = torch.exp(m - m_new)
+        with annotate("gode.gat.softmax"):
+            e = logits(packed[:, :heads], s_b, r_b)
+            m_new = torch.maximum(m, _segment_max(e.detach(), r_b, B))
+            p = torch.exp(e - m_new.index_select(0, r_b))
+            p_v = p * scale(blk.senders[span], r_b) if seed is not None else p
+            rescale = torch.exp(m - m_new)
         vals = widen(packed[:, heads:]).reshape(B, heads, feat)
         msgs = vals.index_select(0, s_b) * p_v[..., None]
         acc = acc * rescale[..., None] + segment_sum(msgs, r_b, B)
-        l = l * rescale + segment_sum(p, r_b, B)
+        with annotate("gode.gat.softmax"):
+            l = l * rescale + segment_sum(p, r_b, B)
         m = m_new
         for req in pending:
             req.wait()
@@ -262,9 +266,20 @@ def gatode_forward(
 
     if remat and torch.is_grad_enabled():
         plain_dyn = dyn
-        # The dynamics draw no random numbers, so no generator state is kept.
-        dyn = lambda h: checkpoint(plain_dyn, h, use_reentrant=False,  # noqa: E731
-                                   preserve_rng_state=False)
+
+        def dyn(h):
+            calls = 0
+
+            def run(h):  # called once in the forward, again to recompute
+                nonlocal calls
+                calls += 1
+                if calls == 1:
+                    return plain_dyn(h)
+                with annotate("gode.gat.recompute"):
+                    return plain_dyn(h)
+
+            # The dynamics draw no random numbers, so no generator state is kept.
+            return checkpoint(run, h, use_reentrant=False, preserve_rng_state=False)
 
     dt = t1 / steps
     for _ in range(steps):

@@ -35,6 +35,7 @@ from graph_odenet_tpu_torch.data.planetoid import NodeClassificationData
 from graph_odenet_tpu_torch.parallel import sharded_gat, sharded_gcn
 from graph_odenet_tpu_torch.parallel.mesh import device_for, world
 from graph_odenet_tpu_torch.parallel.partition import partition_by_receiver
+from graph_odenet_tpu_torch.utils.profiling import annotate
 
 __all__ = ["ShardedTrainConfig", "fit_sharded_node_classifier"]
 
@@ -138,26 +139,29 @@ def fit_sharded_node_classifier(
         return -(lp * y1h).sum(-1).mul(w).sum()
 
     def train_step():
-        model.train()
-        opt.zero_grad(set_to_none=True)
-        loss = nll_sum(forward(True), w_tr) / n_tr  # the rank's share of the global loss
-        loss.backward()
-        sharded_gcn.all_reduce_grads(model)
-        opt.step()
-        return sharded_gcn.all_reduce_sum(loss.detach())
+        with annotate("gode.train.step"):
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            loss = nll_sum(forward(True), w_tr) / n_tr  # the rank's share of the global loss
+            loss.backward()
+            sharded_gcn.all_reduce_grads(model)
+            opt.step()
+            return sharded_gcn.all_reduce_sum(loss.detach())
 
     @torch.no_grad()
     def evaluate():
-        model.eval()
-        lp = forward(False)
-        hit = (lp.argmax(-1) == labels).to(torch.float32)
-        sums = sharded_gcn.all_reduce_sum(torch.stack([
-            nll_sum(lp, w_va), (hit * w_va).sum(), (hit * w_te).sum(),
-        ]))
-        return dict(
-            val_loss=float(sums[0] / n_va), val_acc=float(sums[1] / n_va),
-            test_acc=float(sums[2] / n_te),
-        )
+        with annotate("gode.train.evaluate"):
+            model.eval()
+            lp = forward(False)
+            hit = (lp.argmax(-1) == labels).to(torch.float32)
+            sums = sharded_gcn.all_reduce_sum(torch.stack([
+                nll_sum(lp, w_va), (hit * w_va).sum(), (hit * w_te).sum(),
+            ]))
+            with annotate("gode.train.eval_read"):
+                return dict(
+                    val_loss=float(sums[0] / n_va), val_acc=float(sums[1] / n_va),
+                    test_acc=float(sums[2] / n_te),
+                )
 
     def snapshot():
         return {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -191,7 +195,9 @@ def fit_sharded_node_classifier(
     epoch = start_epoch - 1
     for epoch in range(start_epoch, cfg.epochs):
         t_step = time.perf_counter()
-        loss = float(train_step())  # waits for the step
+        loss = train_step()
+        with annotate("gode.train.loss_read"):
+            loss = float(loss)  # waits for the step
         if epoch > start_epoch:  # steady state
             dt = (time.perf_counter() - t_step) * 1e3
             step_ms = dt if step_ms is None else min(step_ms, dt)

@@ -410,7 +410,8 @@ def _device_kernels(fn):
     """Names of the device kernels that ``fn()`` launches, by ``torch.profiler``:
     the second of two calls, with idle time around it (the profiler can miss
     a kernel of its first round or near the ends of its window), again up to
-    three times while it shows none; its step marks are not kernels."""
+    three times while it shows none; its step marks and the program's spans
+    (``gode.*``, mirrored onto the device's timeline) are not kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -425,7 +426,8 @@ def _device_kernels(fn):
                 time.sleep(0.02)
                 prof.step()
         names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")]
+                 if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith(("ProfilerStep", "gode."))]
         if names:
             return names
     return names
