@@ -87,14 +87,21 @@ so the exit code is non-zero:
              whose values are the numerators (and the kernel against
              cuSPARSE alone, in turns over ``LONG_ITERS`` iterations); ms of
              the backward's plain ``dpv`` gathers; host µs, device µs and
-             device launches per forward call.
+             device launches per forward call.  B2-w's per-edge dot
+             (``edge_dot``, the backward's ``dpv``) at the three shapes and
+             on every bucket at P = 8 against its plain version in float64
+             (``_dot_err``), two calls bit-equal; its ms beside the plain
+             ``dpv``'s, its bound, and its host µs, device µs and device
+             launches per call (one launch of ``edge_dot_kernel``).
   config4_gat
              the edge-partitioned GAT-ODE (hidden 64 × 4 heads, rk4 × 4,
              dropout 0.6, ``ring_pallas``, ``remat``) on the full calibrated
              arxiv twin through ``fit_sharded_node_classifier``, 6 epochs, one
              part on one card, after one training step (dropout 0) through the
-             kernel held against the same step through the plain version of
-             the bucket mode and against ``mode="ring"`` (``CONFIG4_RTOL``);
+             kernel held against the same step through the plain versions of
+             the bucket mode and the per-edge dot and against ``mode="ring"``
+             (``CONFIG4_RTOL``); B2-w's launches and the per-edge dot's (18 a
+             training step, none in an evaluation);
              peak device memory and ms of a step with ``remat`` on and off,
              and a ``torch.profiler`` breakdown of three training steps.
   physics    config 3 (interaction-network ODE on spring n-body data; no
@@ -420,13 +427,14 @@ def refuse(*args, **kw):
     raise AssertionError("a plain version ran on the card")
 
 for mod, name in ((csr_spmm, "_reduce_plain"), (csr_spmm, "_bucket_reduce_plain"),
-                  (gat_attn, "gat_fwd_plain"), (gat_attn, "gat_bwd_plain"),
-                  (gat_attn, "gat_dwh_plain")):
+                  (csr_spmm, "_edge_dot_plain"), (gat_attn, "gat_fwd_plain"),
+                  (gat_attn, "gat_bwd_plain"), (gat_attn, "gat_dwh_plain")):
     setattr(mod, name, refuse)
 cli.main(sys.argv[1:])
 print(json.dumps(dict(csr=csr_spmm.launches, csr_weighted=csr_spmm.weighted_launches,
                       bucket=csr_spmm.bucket_launches,
-                      bucket_weighted=csr_spmm.bucket_weighted_launches, **gat_attn.launches)))
+                      bucket_weighted=csr_spmm.bucket_weighted_launches,
+                      edge_dot=csr_spmm.edge_dot_launches, **gat_attn.launches)))
 """
 
 
@@ -561,6 +569,32 @@ def weighted_bucket_work(n_rows, n_edge, h, f, accumulate=False):
     n_bytes = ((3 if accumulate else 2) * n_rows * h * f * 4 + (n_rows + 1) * 8 + n_edge * 4
                + n_edge * h * 4)
     return n_bytes, 2 * n_edge * h * f + (n_rows * h * f if accumulate else 0)
+
+
+def edge_dot_work(n_rows, n_cols, n_edge, h, f):
+    """(bytes, flops) of one per-edge dot (B2-w's ``dpv``) at H = ``h``, F =
+    ``f`` over a view of ``n_rows`` rows gathering a table of ``n_cols``: the
+    f32 table x and the f32 gradient g (each read once), int64 row pointers,
+    int32 columns, the f32 ``[L, H]`` result."""
+    return (n_cols * h * f * 4 + n_rows * h * f * 4 + (n_rows + 1) * 8 + n_edge * 4
+            + n_edge * h * 4, 2 * n_edge * h * f)
+
+
+def _dot_err(got, view, x, g, heads, feat):
+    """(max abs err, max err / tolerance) of the per-edge dot ``got`` against
+    its plain version in float64 on the same inputs (the sums in a fixed
+    order, ``fixed_order_sums``), at 1e-5 + 1e-5 of the sum of the terms'
+    magnitudes: the dots of random rows cancel, so a tolerance relative to
+    the dot itself would measure the cancellation, not the kernel."""
+    from graph_odenet_tpu_torch.ops.csr_spmm import _edge_dot_plain
+
+    with fixed_order_sums(), torch.no_grad():
+        want = _edge_dot_plain(view, x.double(), g.double(), heads, feat)
+        scale = _edge_dot_plain(view, x.double().abs(), g.double().abs(), heads, feat)
+    d = (got.double() - want).abs().nan_to_num(nan=float("inf"))
+    if not d.numel():  # an empty bucket
+        return 0.0, 0.0
+    return float(d.max()), float((d / (1e-5 + 1e-5 * scale)).max())
 
 
 def attention_work(kernel, n, e, h, f, es=4):
@@ -1360,9 +1394,12 @@ def _softmax_numerators(rng, rows, n_rows, heads, dev):
 
 
 def phase_bucket_weighted(dev, graph, iters=10):
-    """B2-w on the arxiv twin at P = 1 and P = 8 (see the module doc)."""
+    """B2-w and its per-edge dot on the arxiv twin at P = 1 and P = 8 (see the
+    module doc)."""
     from graph_odenet_tpu_torch.ops import csr_spmm
-    from graph_odenet_tpu_torch.ops.csr_spmm import _bucket_reduce_plain, bucket_reduce
+    from graph_odenet_tpu_torch.ops.csr_spmm import (
+        _bucket_reduce_plain, _edge_dot_plain, bucket_reduce, edge_dot,
+    )
     from graph_odenet_tpu_torch.parallel import partition_by_receiver
 
     rng = np.random.default_rng(50)
@@ -1397,6 +1434,16 @@ def phase_bucket_weighted(dev, graph, iters=10):
         g = torch.cos(y64).float()  # d sum(sin(y)) / dy
         check(bk.bwd, g, pv_t, feat, out0)
         worst = max(errs[before:], key=lambda e: e[1])
+        # The per-edge dot (dpv) on the forward's table and the backward's upstream.
+        dots = csr_spmm.edge_dot_launches
+        dot = edge_dot(bk.fwd, x, g, heads, feat)
+        dot_again = edge_dot(bk.fwd, x, g, heads, feat)
+        torch.cuda.synchronize()
+        dot_err = _dot_err(dot, bk.fwd, x, g, heads, feat)
+        errs.append(dot_err)
+        if not torch.equal(dot, dot_again) or csr_spmm.edge_dot_launches - dots != 2:
+            raise AssertionError(f"bucket_weighted H={heads} F={feat}: the per-edge dot's two "
+                                 "calls differ or did not launch once each")
 
         def fwd_bwd(reduce):
             def run():
@@ -1405,11 +1452,9 @@ def phase_bucket_weighted(dev, graph, iters=10):
                 reduce(bk.bwd, g, dx, accumulate=False, alpha=pv_t, feat=feat)
             return run
 
-        def dpv():  # the backward's plain part: gathers and a per-head dot
-            prod = x.index_select(0, bk.fwd.col) * g.index_select(0, blk.receivers)
-            return prod.view(-1, heads, feat).sum(-1)
-
-        fns = {"plain": fwd_bwd(_bucket_reduce_plain), "kernel": fwd_bwd(bucket_reduce), "dpv": dpv}
+        fns = {"plain": fwd_bwd(_bucket_reduce_plain), "kernel": fwd_bwd(bucket_reduce),
+               "dpv": lambda: _edge_dot_plain(bk.fwd, x, g, heads, feat, blk.receivers),
+               "edge_dot": lambda: edge_dot(bk.fwd, x, g, heads, feat)}
         if heads == 1:  # one library call computes the same function: cuSPARSE with pv as values
             a = torch.sparse_csr_tensor(bk.fwd.row_ptr, bk.fwd.col.long(), pv[:, 0].contiguous(), (n, n))
             at = torch.sparse_csr_tensor(bk.bwd.row_ptr, bk.bwd.col.long(), pv_t[:, 0].contiguous(), (n, n))
@@ -1425,6 +1470,7 @@ def phase_bucket_weighted(dev, graph, iters=10):
         o = torch.empty(n, f, device=dev)
         costs = call_costs(lambda: bucket_reduce(bk.fwd, x, o, accumulate=False, alpha=pv,
                                                  feat=feat), calls=100)
+        dot_costs = call_costs(lambda: edge_dot(bk.fwd, x, g, heads, feat), calls=100)
         work = [weighted_bucket_work(n, bk.fwd.n_edge, heads, feat)] * 2  # fwd and bwd
         rows[heads, feat] = dict(
             n_parts=1, H=heads, F=feat, n_node_pad=n, n_edge=bk.fwd.n_edge,
@@ -1433,6 +1479,9 @@ def phase_bucket_weighted(dev, graph, iters=10):
             split_rows=int(bk.fwd.part.split_row.numel()),
             max_abs_err=worst[0], max_err_over_tol=worst[1],
             ms=times["kernel"], plain_ms=times["plain"], dpv_plain_ms=times["dpv"],
+            edge_dot=dict(ms=times["edge_dot"], plain_ms=times["dpv"], max_abs_err=dot_err[0],
+                          max_err_over_tol=dot_err[1], call_costs=dot_costs,
+                          **bound(*edge_dot_work(n, n, bk.fwd.n_edge, heads, feat))),
             library_ms=times.get("library"),
             long_ms=times.get("kernel_long"), library_long_ms=times.get("library_long"),
             long_iters=LONG_ITERS if heads == 1 else None, call_costs=costs,
@@ -1460,8 +1509,10 @@ def phase_bucket_weighted(dev, graph, iters=10):
             bucket, chunk, pv_b = pg.bucket(p, b), x[b * B:(b + 1) * B], pv[blk.bucket(b)]
             y64 = check(bucket.fwd, chunk, pv_b, feat, up[p * B:(p + 1) * B])
             ref += y64
-            check(bucket.bwd, torch.cos(y64).float(), pv_b.index_select(0, bucket.t_perm), feat,
-                  chunk)
+            up_b = torch.cos(y64).float()
+            check(bucket.bwd, up_b, pv_b.index_select(0, bucket.t_perm), feat, chunk)
+            errs.append(_dot_err(edge_dot(bucket.fwd, chunk, up_b, heads, feat), bucket.fwd,
+                                 chunk, up_b, heads, feat))
             bucket_reduce(bucket.fwd, chunk, out, accumulate=k > 0, alpha=pv_b, feat=feat)
         torch.cuda.synchronize()
         ring_errs.append(_err(out, ref, TOL))
@@ -1481,17 +1532,19 @@ def phase_bucket_weighted(dev, graph, iters=10):
 
 class plain_bucket_mode:
     """Within the block, ``parallel.halo`` reduces every bucket with the bucket
-    mode's plain version instead of the kernel: the yardstick of a whole step."""
+    mode's plain version instead of the kernel, and takes B2-w's ``dpv`` by
+    the per-edge dot's plain version: the yardstick of a whole step."""
 
     def __enter__(self):
-        from graph_odenet_tpu_torch.ops.csr_spmm import _bucket_reduce_plain
+        from graph_odenet_tpu_torch.ops.csr_spmm import _bucket_reduce_plain, _edge_dot_plain
         from graph_odenet_tpu_torch.parallel import halo
 
-        self.halo, self.kernel = halo, halo.bucket_reduce
+        self.halo, self.kernels = halo, (halo.bucket_reduce, halo.edge_dot)
         halo.bucket_reduce = lambda view, x, out, **kw: _bucket_reduce_plain(view, x, out, **kw)
+        halo.edge_dot = _edge_dot_plain
 
     def __exit__(self, *exc):
-        self.halo.bucket_reduce = self.kernel
+        self.halo.bucket_reduce, self.halo.edge_dot = self.kernels
 
 
 def sharded_gat_config():
@@ -1531,15 +1584,17 @@ def phase_config4_gat(dev, data):
 
     # One training step (dropout 0): the kernel against the bucket mode's plain
     # version, and against the ring of online-softmax updates (no kernel).
-    before = csr_spmm.bucket_weighted_launches
+    before = csr_spmm.bucket_weighted_launches, csr_spmm.edge_dot_launches
     loss_k, grads_k = step()
-    check_launches = csr_spmm.bucket_weighted_launches - before
+    check_launches = csr_spmm.bucket_weighted_launches - before[0]
+    check_dots = csr_spmm.edge_dot_launches - before[1]
     with plain_bucket_mode():
         loss_p, grads_p = step()
     loss_r, grads_r = step(mode="ring")
     torch.cuda.synchronize()
-    if csr_spmm.bucket_weighted_launches - before != check_launches:
-        raise AssertionError("the plain step or the ring step launched the kernel")
+    if (csr_spmm.bucket_weighted_launches - before[0],
+            csr_spmm.edge_dot_launches - before[1]) != (check_launches, check_dots):
+        raise AssertionError("the plain step or the ring step launched a kernel")
     step_err = {}
     for name, loss, grads in (("plain", loss_p, grads_p), ("ring", loss_r, grads_r)):
         torch.testing.assert_close(loss_k, loss, rtol=CONFIG4_RTOL, atol=0.0, msg=name)
@@ -1566,10 +1621,10 @@ def phase_config4_gat(dev, data):
     profile = profile_steps(model, step, cfg, top=12)
     del model, pg, x, y1h, w
 
-    csr_spmm.bucket_weighted_launches = 0
+    csr_spmm.bucket_weighted_launches = csr_spmm.edge_dot_launches = 0
     torch.cuda.reset_peak_memory_stats()
     res = fit_sharded_node_classifier(cfg, data)
-    launches = csr_spmm.bucket_weighted_launches
+    launches, dots = csr_spmm.bucket_weighted_launches, csr_spmm.edge_dot_launches
     train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     epochs = res["epochs_run"]
@@ -1582,10 +1637,15 @@ def phase_config4_gat(dev, data):
         raise AssertionError(f"config4_gat: the loss did not fall: {res}")
     if not res["test_acc"] > GAT_MIN_TEST_ACC_SHARDED:
         raise AssertionError(f"config4_gat: test accuracy {res['test_acc']} <= {GAT_MIN_TEST_ACC_SHARDED}")
-    if launches != want or check_launches != per_step:
+    # B2-w's per-edge dot: once a layer in each training step's backward, never
+    # in an evaluation.
+    if launches != want or check_launches != per_step or dots != epochs * GAT_LAYERS_PER_FORWARD \
+            or check_dots != GAT_LAYERS_PER_FORWARD:
         raise AssertionError(
             f"config4_gat: {launches} B2-w launches for {epochs} epochs and {evals} evaluations "
-            f"(expected {want}); {check_launches} in the checked step (expected {per_step})")
+            f"(expected {want}); {check_launches} in the checked step (expected {per_step}); "
+            f"{dots} per-edge dots (expected {epochs * GAT_LAYERS_PER_FORWARD}), "
+            f"{check_dots} in the checked step (expected {GAT_LAYERS_PER_FORWARD})")
     emit(
         "config4_gat", model=cfg.model, hidden=cfg.hidden, heads=cfg.heads, steps=cfg.steps,
         mode=cfg.mode, remat=cfg.remat, dropout=cfg.dropout, n_parts=res["n_parts"],
@@ -1593,11 +1653,13 @@ def phase_config4_gat(dev, data):
         best_epoch=res["best_epoch"], test_acc=res["test_acc"], val_acc=res["val_acc"],
         val_loss=res["val_loss"], loss_first=res["loss_first"], loss_final=res["loss_final"],
         step_ms=res["step_ms"], seconds=res["seconds"], seconds_per_epoch=res["seconds"] / epochs,
-        launches=launches, launches_per_step=per_step, train_peak_gb=train_peak_gb,
-        one_step_check=dict(rtol=CONFIG4_RTOL, launches=check_launches, err_over_tol=step_err),
+        launches=launches, launches_per_step=per_step, edge_dot_launches=dots,
+        edge_dot_launches_per_step=check_dots, train_peak_gb=train_peak_gb,
+        one_step_check=dict(rtol=CONFIG4_RTOL, launches=check_launches,
+                            edge_dot_launches=check_dots, err_over_tol=step_err),
         step_peak_memory=peak, fwd_bwd_ms=remat_ms, profile=profile,
     )
-    return launches
+    return dict(bucket_weighted=launches, edge_dot=dots)
 
 
 def _rel_err(got, want):
@@ -1610,7 +1672,8 @@ def _kernel_counts():
 
     return dict(csr=csr_spmm.launches, csr_weighted=csr_spmm.weighted_launches,
                 bucket=csr_spmm.bucket_launches,
-                bucket_weighted=csr_spmm.bucket_weighted_launches, **gat_attn.launches)
+                bucket_weighted=csr_spmm.bucket_weighted_launches,
+                edge_dot=csr_spmm.edge_dot_launches, **gat_attn.launches)
 
 
 def phase_physics(dev, epochs=PHYS_EPOCHS):
@@ -1844,7 +1907,7 @@ class plain_calls:
         self.count = 0
         self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
             (csr_spmm, "_reduce_plain"), (csr_spmm, "_bucket_reduce_plain"),
-            (gat_attn, "gat_fwd_plain"),
+            (csr_spmm, "_edge_dot_plain"), (gat_attn, "gat_fwd_plain"),
             (gat_attn, "gat_bwd_plain"), (gat_attn, "gat_dwh_plain"))]
 
         def counting(fn):
@@ -2101,7 +2164,7 @@ def _zero_kernel_counts():
     from graph_odenet_tpu_torch.ops import csr_spmm, gat_attn
 
     csr_spmm.launches = csr_spmm.weighted_launches = 0
-    csr_spmm.bucket_launches = csr_spmm.bucket_weighted_launches = 0
+    csr_spmm.bucket_launches = csr_spmm.bucket_weighted_launches = csr_spmm.edge_dot_launches = 0
     for k in gat_attn.launches:
         gat_attn.launches[k] = 0
 
@@ -3039,17 +3102,18 @@ def _sharded_labels(data, dev):
 
 def _b2_counts():
     """B2's and B2-w's launches so far: every bucket launch, those of the
-    bf16 entry, the weighted ones (f32 entry)."""
+    bf16 entry, the weighted ones (f32 entry), and B2-w's per-edge dot."""
     from graph_odenet_tpu_torch.ops import csr_spmm
 
     return dict(bucket=csr_spmm.bucket_launches, bucket_bf16=csr_spmm.bf16_launches["bucket"],
-                bucket_weighted=csr_spmm.bucket_weighted_launches)
+                bucket_weighted=csr_spmm.bucket_weighted_launches,
+                edge_dot=csr_spmm.edge_dot_launches)
 
 
 def _zero_b2_counts():
     from graph_odenet_tpu_torch.ops import csr_spmm
 
-    csr_spmm.bucket_launches = csr_spmm.bucket_weighted_launches = 0
+    csr_spmm.bucket_launches = csr_spmm.bucket_weighted_launches = csr_spmm.edge_dot_launches = 0
     csr_spmm.bf16_launches["bucket"] = 0
 
 
@@ -3241,12 +3305,16 @@ def phase_bf16_sharded(dev, arxiv, arxiv_cal):
         r = runs["bfloat16"]
         # Each model aggregates 2 + 4·steps times a forward, once more each in the
         # backward, and the GAT-ODE's remat recomputes the 4 a substep.
+        # B2-w's per-edge dot: once a layer in each training step's backward.
         per_eval = 2 + 4 * cfg.steps
         per_step = 2 * per_eval + (4 * cfg.steps if gat else 0)
         want = r["epochs_run"] * per_step + r["evals"] * per_eval
-        want_launches = (dict(bucket=0, bucket_bf16=0, bucket_weighted=want) if gat
-                         else dict(bucket=want, bucket_bf16=want, bucket_weighted=0))
-        step_launches = dict(want_launches, **{k: per_step for k, v in want_launches.items() if v})
+        want_launches = (
+            dict(bucket=0, bucket_bf16=0, bucket_weighted=want, edge_dot=r["epochs_run"] * per_eval)
+            if gat else dict(bucket=want, bucket_bf16=want, bucket_weighted=0, edge_dot=0))
+        step_launches = (dict(bucket=0, bucket_bf16=0, bucket_weighted=per_step, edge_dot=per_eval)
+                         if gat else dict(bucket=per_step, bucket_bf16=per_step,
+                                          bucket_weighted=0, edge_dot=0))
         failed = []
         if not r["last_loss"] < r["step0_loss"]:
             failed.append("the loss did not fall")
@@ -3396,6 +3464,9 @@ def main():
     per_call += [(f"weighted {k}", "write", r["call_costs"]) for k, r in weighted_buckets.items()
                  if "call_costs" in r]
     own = {k: "csr_reduce_kernel" for _, k, _ in per_call}
+    per_call += [(f"H={h},F={f}", "edge_dot", weighted_buckets[h, f]["edge_dot"]["call_costs"])
+                 for h, f in GAT_SHAPES]
+    own["edge_dot"] = "edge_dot_kernel"
     # gat_fwd, gat_bwd and gat_dwh: one launch of their own kernel a call, split rows too.
     att_calls = [(f"{r['graph']} H={r['H']} F={r['F']} {r['mode']}", k, r["call_costs"][k])
                  for r in att for k in ("gat_fwd", "gat_bwd", "gat_dwh") if k in r["call_costs"]]
@@ -3529,7 +3600,7 @@ def main():
             "source": spmm_src,
             "replaces": "graph_odenet_tpu/ops/pallas_spmm.py:227",
             "via": "weighted, graph_odenet_tpu/parallel/halo.py:147",
-            "launches": gat_bucket_launches,
+            "launches": gat_bucket_launches["bucket_weighted"],
             "max_abs_err": max(r["max_abs_err"] for r in weighted_buckets.values()),
             "max_err_over_tol": max(
                 max(r["max_err_over_tol"], r.get("ring_order_max_err_over_tol", 0.0))
@@ -3549,6 +3620,25 @@ def main():
             "other_shapes": {f"H={h},F={f}": {k: weighted_buckets[h, f][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dpv_plain_ms")}
                 for h, f in GAT_SHAPES},
+        },
+        {
+            "name": "edge_dot",
+            "route": "cuda",
+            "source": spmm_src,
+            "replaces": "none: B2-w's dpv, which the JAX package leaves to XLA "
+                        "(graph_odenet_tpu/parallel/halo.py:179)",
+            "launches": gat_bucket_launches["edge_dot"],
+            "max_abs_err": max(weighted_buckets[sh]["edge_dot"]["max_abs_err"]
+                               for sh in GAT_SHAPES),
+            "max_err_over_tol": max(weighted_buckets[sh]["edge_dot"]["max_err_over_tol"]
+                                    for sh in GAT_SHAPES),
+            "tolerance": "1e-5 + 1e-5 of the terms' magnitudes against the plain version in "
+                         "float64: three shapes at P=1, every bucket at P=8",
+            **{k: dyn_row["edge_dot"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "shape": "calibrated arxiv twin, P=1, H=1, F=256 (the dynamics' layers), one call",
+            "other_shapes": {f"H={h},F={f}": {k: weighted_buckets[h, f]["edge_dot"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")} for h, f in GAT_SHAPES},
         },
         dict(att_entry("csr_spmm_weighted", spmm_src, "graph_odenet_tpu/ops/pallas_spmm.py:479",
                        mask_row, weighted),

@@ -71,6 +71,34 @@
 // stored (the accumulate form adds the f32 sum to the widened out, then
 // rounds).  The bytes halve; the schedule is the f32 one.  The weighted
 // modes take f32 only: their tables (the GAT backward's g) are f32.
+//
+// Per-edge dot (gode_edge_dot_f32): out[p, h] = sum_f x[col[p], h*feat + f]
+// * g[r_p, h*feat + f] over a view's receiver-sorted edges, r_p the row of
+// position p: B2-w's gradient for its numerators (dpv), run over the
+// bucket's CSR view.  It replaces no TPU kernel: the JAX package leaves dpv
+// to XLA (graph_odenet_tpu/parallel/halo.py::_bucket_spmm_weighted_bwd, two
+// [E, H*F] gathers, a product and a sum), and so did the port until this
+// kernel, at three [E, H*F] f32 temporaries a call.  What bounds it: the
+// bytes of the gather of x's rows, as in B2-w's forward (the same rows over
+// the same plan); g is read once a row, out written once, 2 flops per
+// gathered float.  What the design does about it:
+//   * a warp item is one warp segment, so the segment's receiver row of g is
+//     loaded once per feature chunk and 32 edges (one register a lane), and
+//     the warp gathers the edges' rows of x with the lanes of the CSR kernel
+//     (ops/csr_spmm.py::_lanes: float4 lanes at feat % 4 == 0 and aligned
+//     rows, single lanes otherwise), four edges in flight per edge slot.
+//     One chunk at a time keeps a lane at 64 registers at H*F = 256, so 32
+//     warps fit an SM; holding two chunks a pass took 96 and half the
+//     warps, and 1.17 ms where one chunk takes 0.62 (H100, H = 1, F = 256);
+//   * each lane multiplies its features and the lanes of one head are added
+//     by a segmented shuffle scan within the edge slot; the last lane of a
+//     head in a chunk adds the chunk's sum into the warp's shared buffer of
+//     32 edges x H (written by the chunk where the head starts, added by the
+//     later ones, in chunk order), and the batch's [n, H] results leave in
+//     one coalesced store;
+//   * no split-row merge, no arrival counter and no atomic: every edge's dot
+//     belongs to one warp, so repeated calls are bit-equal and the call is
+//     one capturable launch.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -271,6 +299,120 @@ int reduce_entry(const CsrPlan* plan, const T* x, const float* alpha, T* out, fl
 #undef GODE_LAUNCH
 }
 
+// Most heads the per-edge dot takes: its shared buffer is 32 edges x heads
+// floats per warp (32 KB a block at 32 heads).
+constexpr int64_t kMaxDotHeads = 32;
+
+// Where one lane's V features of feature chunk c lie among the heads: its
+// first feature f (live: f < W), its head h, the first lane j0 of the head
+// in the chunk (within the edge slot), whether it is the head's last lane
+// in the chunk (its scan holds the chunk's sum of the head) and whether the
+// head starts in the chunk (the sum is written, not added).  feat % V == 0,
+// so a lane's features are in one head.
+struct DotLane {
+  int64_t f;
+  int h, j0;
+  bool live, end, first;
+};
+
+template <int G, int V>
+__device__ __forceinline__ DotLane dot_lane(int64_t c, int j, int64_t W, int64_t feat) {
+  constexpr int64_t kWidth = G * V;
+  const int64_t base = c * kWidth;
+  DotLane d;
+  d.f = base + static_cast<int64_t>(j) * V;
+  d.live = d.f < W;
+  if (!d.live) {
+    d.h = 0, d.j0 = j, d.end = d.first = false;
+    return d;
+  }
+  const int64_t h = d.f / feat, lo = h * feat, hi = lo + feat;
+  d.h = static_cast<int>(h);
+  d.first = lo >= base;
+  d.j0 = d.first ? static_cast<int>((lo - base) / V) : 0;
+  d.end = d.f == (hi < base + kWidth ? hi : base + kWidth) - V;
+  return d;
+}
+
+// Segmented inclusive scan over the G lanes of an edge slot: lane j ends with
+// the sum of lanes j0 .. j, in a fixed order.
+template <int G>
+__device__ __forceinline__ float head_scan(float v, int j, int j0) {
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) {
+    const float t = __shfl_up_sync(kFullMask, v, off, G);
+    if (j - off >= j0) v += t;
+  }
+  return v;
+}
+
+// Grid: one warp per segment of the view.  Per batch of 32 of the segment's
+// edges (lane e loads edge e's column) and per feature chunk (G*V features),
+// edge slot `sub` takes edges e0 + u * kSlots + sub.
+template <int G, int V>
+__global__ void __launch_bounds__(kThreads)
+edge_dot_kernel(const CsrPlan plan, const float* __restrict__ x, const float* __restrict__ g,
+                float* __restrict__ out, int64_t W, int64_t feat, int64_t heads,
+                int64_t n_chunks) {
+  extern __shared__ float dot_buf[];  // [warps of the block][32 edges * heads]
+  constexpr int kSlots = 32 / G;
+  constexpr int kUnroll = kSlots <= 8 ? 4 : 32 / kSlots;  // kSlots * kUnroll divides 32
+  const int64_t s = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  if (s >= plan.n_seg) return;  // uniform across the warp
+  const int lane = threadIdx.x & 31;
+  const int sub = lane / G;
+  const int j = lane % G;
+  float* buf = dot_buf + (threadIdx.x >> 5) * 32 * heads;
+  const int64_t p0 = plan.seg_ptr[s], p1 = plan.seg_ptr[s + 1];
+  const float* grow = g + static_cast<int64_t>(plan.seg_row[s]) * W;
+  for (int64_t pb = p0; pb < p1; pb += 32) {
+    const int n = static_cast<int>(p1 - pb < 32 ? p1 - pb : 32);
+    const int c_mine = lane < n ? __ldg(plan.col + pb + lane) : 0;
+    for (int64_t chunk = 0; chunk < n_chunks; ++chunk) {
+      const DotLane d = dot_lane<G, V>(chunk, j, W, feat);
+      const Lane<V> gv = d.live ? Lane<V>::ldg(grow + d.f) : Lane<V>::zero();
+      for (int e0 = 0; e0 < n; e0 += kSlots * kUnroll) {
+        Lane<V> xv[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {  // every gather of the group in flight
+          const int e = e0 + u * kSlots + sub;  // < 32
+          const int64_t c = __shfl_sync(kFullMask, c_mine, e);
+          xv[u] = e < n && d.live ? Lane<V>::ldg(x + c * W + d.f) : Lane<V>::zero();
+        }
+        float v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) v[u] = head_scan<G>(xv[u].dot(gv), j, d.j0);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int e = e0 + u * kSlots + sub;
+          if (d.end && e < n) {
+            float* dst = buf + e * heads + d.h;
+            *dst = d.first ? v[u] : *dst + v[u];
+          }
+        }
+        __syncwarp();  // a later chunk's sums add to these
+      }
+    }
+    // The batch's [n, heads] results, one coalesced store.
+    for (int q = lane; q < n * heads; q += 32) out[pb * heads + q] = buf[q];
+    __syncwarp();  // the next batch writes the buffer again
+  }
+}
+
+template <int G, int V>
+int launch_dot(const CsrPlan& plan, const float* x, const float* g, float* out, int64_t heads,
+               int64_t feat, cudaStream_t st) {
+  const int64_t W = heads * feat;
+  const int64_t n_chunks = (W + G * V - 1) / (G * V);
+  const int64_t blocks = (plan.n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;
+  const size_t smem = static_cast<size_t>(kWarpsPerBlock) * 32 * heads * sizeof(float);
+  edge_dot_kernel<G, V><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+      plan, x, g, out, W, feat, heads, n_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One launch: out (+)= A x over the view of `plan` (see the header).  `mode`:
@@ -300,4 +442,43 @@ extern "C" int gode_csr_reduce_bf16(const CsrPlan* plan, const __nv_bfloat16* x,
   if (mode == static_cast<int>(Mode::kAlpha)) return static_cast<int>(cudaErrorInvalidValue);
   return reduce_entry<__nv_bfloat16>(plan, x, nullptr, out, partial, F, 1, mode, lanes, vec,
                                      accumulate, stream);
+}
+
+// One launch of the per-edge dot over the view of `plan` (see the header):
+// out [L, heads] (row-major, L the view's edges) = per head, the dot of
+// x[col[p]] and g[row of p] over feat features; x [>= max col + 1, heads *
+// feat] and g [rows, heads * feat] f32, row-major.  `lanes` and `vec` as for
+// gode_csr_reduce_f32 (V = 4 needs feat % 4 == 0, G >= 8 and x and g 16-byte
+// aligned); 1 <= heads <= 32.  Launches on `stream`, does not synchronise,
+// and returns cudaGetLastError() after the launch (0 on success; nothing is
+// launched for a view without segments).
+extern "C" int gode_edge_dot_f32(const CsrPlan* plan, const float* x, const float* g, float* out,
+                                 int64_t heads, int64_t feat, int lanes, int vec, void* stream) {
+  const auto bad = static_cast<int>(cudaErrorInvalidValue);
+  if (heads < 1 || heads > kMaxDotHeads || feat < 1) return bad;
+  if (vec == 4) {
+    const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+    if (feat % 4 != 0 || misaligned(x) || misaligned(g)) return bad;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GODE_DOT(G_, V_) return launch_dot<G_, V_>(*plan, x, g, out, heads, feat, st)
+  if (vec == 4) {
+    switch (lanes) {
+      case 8: GODE_DOT(8, 4);
+      case 16: GODE_DOT(16, 4);
+      case 32: GODE_DOT(32, 4);
+      default: return bad;
+    }
+  }
+  if (vec != 1) return bad;
+  switch (lanes) {
+    case 1: GODE_DOT(1, 1);
+    case 2: GODE_DOT(2, 1);
+    case 4: GODE_DOT(4, 1);
+    case 8: GODE_DOT(8, 1);
+    case 16: GODE_DOT(16, 1);
+    case 32: GODE_DOT(32, 1);
+    default: return bad;
+  }
+#undef GODE_DOT
 }

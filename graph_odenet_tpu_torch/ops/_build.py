@@ -61,6 +61,11 @@ _SIGNATURES = {
             _i64, _i, _i, _i,          # F, mode, lanes, vec
             _i, _p,                    # accumulate, stream
         ],
+        "gode_edge_dot_f32": [
+            _p, _p, _p, _p,            # plan, x, g, out
+            _i64, _i64, _i, _i,        # heads, feat, lanes, vec
+            _p,                        # stream
+        ],
     },
     "gat_attn": {
         "gode_gat_fwd_f32": _GAT_FWD,

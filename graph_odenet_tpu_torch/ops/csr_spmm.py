@@ -20,6 +20,13 @@ of ``out``: the first bucket of a receiver block.  With ``alpha=[L, H]`` and
 ``alpha3d``): lane ``f`` of edge ``p`` is scaled by ``alpha[p, f // feat]``,
 the per-head softmax numerators of the edge-partitioned GAT.
 
+``edge_dot(view, x, g, heads, feat)`` is B2-w's gradient for its
+numerators: ``out[p, h] = Σ_f x[col[p], h·feat + f] · g[r_p, h·feat + f]``
+over the view's edges, ``r_p`` the row of position ``p``.  On a CUDA tensor
+it is a kernel of its own in the same source (one pass over the view's
+segments, no ``[E, H·feat]`` temporary), on a CPU tensor the plain gather,
+product and sum ``_edge_dot_plain``.
+
 On a CUDA tensor the reduction is the hand-written kernel in
 ``csrc/csr_spmm.cu``; on a CPU tensor it is the plain version
 ``_reduce_plain`` (gather + ``index_add_``).  There is no other path: a CUDA
@@ -70,7 +77,7 @@ from graph_odenet_tpu_torch.utils.sanitize import validate_tiling
 
 __all__ = [
     "CSRGraph", "CSRView", "Partition", "LaunchPlan", "prepare", "csr_view", "csr_reduce",
-    "bucket_reduce", "spmm_csr", "spmm_csr_reference", "SEG_EDGES", "widen",
+    "bucket_reduce", "edge_dot", "spmm_csr", "spmm_csr_reference", "SEG_EDGES", "widen",
 ]
 
 #: Most edges one warp reduces; longer rows are cut into several segments.
@@ -84,6 +91,10 @@ bucket_launches = 0
 bucket_weighted_launches = 0
 #: Of those, the launches on bf16 features (the unweighted modes' bf16 entry).
 bf16_launches = {"csr": 0, "bucket": 0}
+#: Number of kernel launches made by ``edge_dot`` in this process.
+edge_dot_launches = 0
+#: Most heads ``edge_dot`` takes (its kernel keeps 32 edges × heads sums a warp).
+EDGE_DOT_MAX_HEADS = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -581,6 +592,69 @@ def bucket_reduce(
         bucket_weighted_launches += 1
     if x.dtype == torch.bfloat16:
         bf16_launches["bucket"] += 1
+    return out
+
+
+def _edge_dot_plain(view: CSRView, x, g, heads, feat, rows=None):
+    """Plain PyTorch version of ``edge_dot``: gather both sides' rows, multiply,
+    sum each head's features."""
+    if rows is None:
+        rows = row_ids(view.row_ptr, view.n_edge)
+    prod = x.index_select(0, view.col) * g.index_select(0, rows)
+    return prod.view(prod.shape[0], heads, feat).sum(-1)
+
+
+def edge_dot(
+    view: CSRView, x: torch.Tensor, g: torch.Tensor, heads: int, feat: int, *,
+    rows: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Per-edge dot over ``view``: ``out[p, h] = Σ_f x[col[p], h·feat + f] ·
+    g[r_p, h·feat + f]``, f32 ``[view.n_edge, heads]`` in the view's edge
+    order, ``r_p`` the row of position ``p`` (B2-w's gradient for its
+    numerators, over the bucket's CSR view).
+
+    ``x`` is the gathered table, f32 contiguous ``[view.n_cols, heads·feat]``,
+    ``g`` f32 contiguous ``[view.n_rows, heads·feat]``, both on the view's
+    device; ``1 <= heads <= EDGE_DOT_MAX_HEADS``.  ``rows`` (int64 ``[L]``,
+    the row of each edge) spares the plain version working it out; the
+    kernel reads the view's own segments.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel, one launch (none for a view
+    without edges).
+    """
+    global edge_dot_launches
+    device = view.device
+    if not 1 <= heads <= EDGE_DOT_MAX_HEADS or feat < 1:
+        raise ValueError(f"edge_dot takes 1 <= heads <= {EDGE_DOT_MAX_HEADS} and feat >= 1, "
+                         f"got heads={heads}, feat={feat}")
+    w = heads * feat
+    for name, t, n in (("x", x, view.n_cols), ("g", g, view.n_rows)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"edge_dot takes float32 {name}, got {t.dtype}")
+        if t.dim() != 2 or tuple(t.shape) != (n, w):
+            raise ValueError(f"edge_dot takes {name} [{n}, {w}], got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"edge_dot takes a contiguous {name}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device} but the view is on {device}")
+    if rows is not None and (rows.shape != (view.n_edge,) or rows.device != device):
+        raise ValueError(f"edge_dot takes rows [{view.n_edge}] on {device}, got "
+                         f"{tuple(rows.shape)} on {rows.device}")
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"edge_dot runs on CPU or CUDA tensors, not {x.device}")
+        return _edge_dot_plain(view, x, g, heads, feat, rows)
+    out = torch.empty((view.n_edge, heads), dtype=torch.float32, device=device)
+    plan = view.plan
+    if plan.n_seg == 0:
+        return out  # no edge: nothing launched
+    x_ptr, g_ptr = x.data_ptr(), g.data_ptr()
+    lanes, vec = _lanes(w, feat % 4 == 0 and (x_ptr | g_ptr) % 16 == 0)
+    rc = _build.load_library("csr_spmm").gode_edge_dot_f32(
+        plan.address, x_ptr, g_ptr, out.data_ptr(), heads, feat, lanes, vec,
+        torch.cuda.current_stream(plan.index).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"edge_dot kernel launch failed: CUDA error {rc}")
+    edge_dot_launches += 1
     return out
 
 

@@ -31,9 +31,10 @@ same exchange on each rank's column slice, over its edge group alone.
 For the sharded GAT (``parallel.sharded_gat``), whose per-edge weights are
 traced, the ring is built from differentiable pieces instead of one
 Function: ``_bucket_spmm_weighted`` (one hop's attention-weighted bucket
-reduction, B2-w, with a hand-written backward), ``ring_hop`` (the exchange
-of one hop; its backward is the reverse exchange) and ``all_gather_rows``
-(its backward a reduce-scatter).
+reduction, B2-w, with a hand-written backward: ``dchunk`` through B2-w over
+the bucket's CSC view, ``dpv`` through ``ops.csr_spmm.edge_dot`` over its
+CSR view), ``ring_hop`` (the exchange of one hop; its backward is the
+reverse exchange) and ``all_gather_rows`` (its backward a reduce-scatter).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from graph_odenet_tpu_torch.ops.csr_spmm import bucket_reduce, row_ids, widen
+from graph_odenet_tpu_torch.ops.csr_spmm import bucket_reduce, edge_dot, row_ids, widen
 from graph_odenet_tpu_torch.parallel.mesh import check_backend, global_rank, world
 from graph_odenet_tpu_torch.parallel.partition import Bucket, PartitionedGraph
 from graph_odenet_tpu_torch.utils.profiling import annotate
@@ -125,10 +126,11 @@ class _BucketSpMMWeighted(torch.autograd.Function):
                           alpha=widen(pv_h.index_select(0, bucket.t_perm)), feat=feat)
             dchunk = dchunk.to(chunk.dtype)
         if ctx.needs_input_grad[1]:
-            # dpv[e, h] = Σ_f chunk[s_e, hF+f] · g[r_e, hF+f]: gathers only.
+            # dpv[e, h] = Σ_f chunk[s_e, hF+f] · g[r_e, hF+f]: the per-edge dot
+            # over the bucket's CSR view, on the chunk widened at [B, H·F].
             with annotate("gode.b2w.dpv"):
-                prod = widen(chunk.index_select(0, bucket.fwd.col)) * g.index_select(0, ctx.rows)
-                dpv = prod.view(prod.shape[0], pv_h.shape[1], feat).sum(-1).to(pv_h.dtype)
+                dpv = edge_dot(bucket.fwd, widen(chunk), g, pv_h.shape[1], feat,
+                               rows=ctx.rows).to(pv_h.dtype)
         return dchunk, dpv, g if ctx.added else None, None, None, None
 
 
@@ -143,17 +145,17 @@ def _bucket_spmm_weighted(
 
     With ``acc`` the result is added into it in place and ``acc`` is
     returned (a later hop of the ring); without, a new ``[B, H·F]`` is
-    written.  ``rows`` is the receiver of each edge (int64 ``[L]``; worked
-    out from the view when not given).  The backward reduces ``dchunk``
-    through the bucket's CSC view with the same kernel.
+    written.  ``rows`` is the receiver of each edge (int64 ``[L]``), which
+    the plain version of the backward's ``dpv`` reads (worked out from the
+    view when not given; the kernel reads the view's segments).  The
+    backward reduces ``dchunk`` through the bucket's CSC view with the same
+    kernel and ``dpv`` with ``edge_dot`` over its CSR view.
 
     bf16 ``chunk`` and ``pv_h`` are widened to f32 for the kernel's f32
     entry (the wrapper takes no bf16 in its weighted mode), so ``out`` (and
     ``acc``) is f32: the caller rounds the sum over hops once.  Each
     gradient comes back in its input's dtype, ``dpv`` summed in f32.
     """
-    if rows is None:
-        rows = row_ids(bucket.fwd.row_ptr, bucket.fwd.n_edge)
     return _BucketSpMMWeighted.apply(chunk.contiguous(), pv_h.contiguous(), acc, bucket, rows, feat)
 
 

@@ -46,7 +46,7 @@ from graph_odenet_tpu_torch.ops import segment
 from graph_odenet_tpu_torch.parallel import (
     gat_sharded, padded_buckets, partition_by_receiver, sharded_gat, sharded_gcn,
 )
-from graph_odenet_tpu_torch.ops.csr_spmm import _bucket_reduce_plain
+from graph_odenet_tpu_torch.ops.csr_spmm import _bucket_reduce_plain, _edge_dot_plain
 from graph_odenet_tpu_torch.parallel import halo
 from graph_odenet_tpu_torch.parallel.halo import _bucket_spmm_weighted
 
@@ -94,15 +94,16 @@ def _bits(t):
 
 @contextlib.contextmanager
 def float64_sums():
-    """Within the block ``parallel.halo`` reduces every bucket with the plain
-    version itself, which sums float64 tables too (the wrapper takes f32 and
-    bf16): the exact sums of a bf16 computation's inputs."""
-    kernel = halo.bucket_reduce
-    halo.bucket_reduce = _bucket_reduce_plain
+    """Within the block ``parallel.halo`` reduces every bucket, and takes B2-w's
+    per-edge dot, with the plain versions themselves, which sum float64
+    tables too (the wrappers take f32, and bf16 for the bucket mode): the
+    exact sums of a bf16 computation's inputs."""
+    kernels = halo.bucket_reduce, halo.edge_dot
+    halo.bucket_reduce, halo.edge_dot = _bucket_reduce_plain, _edge_dot_plain
     try:
         yield
     finally:
-        halo.bucket_reduce = kernel
+        halo.bucket_reduce, halo.edge_dot = kernels
 
 
 # ------------------------------------------------------------ the inits

@@ -7,7 +7,8 @@ the batched VCABM on adams_scan (one host read an attempt round); and the adjoin
 one-step check through the kernels (``chip_smoke.adjoint_step_check``), the
 same check of the Adams family, config 4's bit-equal resume,
 ``validate_tiling`` inside ``prepare`` of a card graph, and one step of each
-sharded model built in bf16 (``chip_smoke.sharded_step_check``).
+sharded model built in bf16 (``chip_smoke.sharded_step_check``); and
+B2-w's per-edge dot (``edge_dot``, ``dpv``) against its plain version.
 
 Every test here needs a CUDA card and skips without one.  On the card
 (which has no JAX, so the repo's conftest cannot load):
@@ -518,6 +519,143 @@ def test_gat_calls_are_one_launch_and_repeat_bit_for_bit(cuda, heads, feat):
     assert not any(plan.arrivals.any() for plan in csr.plans)
 
 
+# ------------------------------------ B2-w's per-edge dot (edge_dot, dpv)
+
+# The sharded GAT-ODE's three shapes, Fs that are no multiple of 4 and an H·F
+# under 32 (single lanes), and H·F of three feature chunks (heads across
+# chunks; one head over a whole pass, then a chunk added).
+EDGE_DOT_SHAPES = [(1, 256), (4, 64), (1, 40), (2, 3), (3, 5), (2, 8), (3, 100), (1, 70)]
+
+
+def _dot_inputs(view, heads, feat, rng, device):
+    f = heads * feat
+    x = torch.from_numpy(rng.standard_normal((view.n_cols, f)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.standard_normal((view.n_rows, f)).astype(np.float32)).to(device)
+    return x, g
+
+
+def _assert_dot_close(got, view, x, g, heads, feat):
+    """``got`` against the plain version in float64 on the same inputs, within
+    f32 rounding, as ``chip_smoke.py`` holds it (``_dot_err``: 1e-5 + 1e-5 of
+    the sum of the terms' magnitudes)."""
+    import chip_smoke
+
+    assert got.dtype == torch.float32 and got.shape == (view.n_edge, heads)
+    assert chip_smoke._dot_err(got, view, x, g, heads, feat)[1] <= 1.0
+
+
+@pytest.mark.parametrize("heads,feat", EDGE_DOT_SHAPES)
+def test_edge_dot_kernel_matches_plain_float64(cuda, heads, feat):
+    """On a block with a hub row of 2,000 edges (eight warp segments) and empty
+    rows: against the plain version in float64, one launch counted a call,
+    and two calls bit-equal."""
+    view = _bucket_view(np.random.default_rng(heads * feat)).to(cuda)
+    assert int(view.row_ptr.diff().max()) > SEG_EDGES
+    x, g = _dot_inputs(view, heads, feat, np.random.default_rng(300 + heads * feat), cuda)
+    before = csr_spmm.edge_dot_launches
+    got = csr_spmm.edge_dot(view, x, g, heads, feat)
+    again = csr_spmm.edge_dot(view, x, g, heads, feat)
+    torch.cuda.synchronize()
+    assert csr_spmm.edge_dot_launches == before + 2
+    _assert_dot_close(got, view, x, g, heads, feat)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("heads,feat", [(4, 16), (1, 40)])
+@pytest.mark.parametrize("n_parts", [1, 4])
+def test_edge_dot_on_every_bucket(cuda, n_parts, heads, feat):
+    """Every bucket of a 1- and a 4-part partition of a split hub graph, each
+    on its CSR view, against the plain version in float64."""
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver
+
+    pg = partition_by_receiver(_split_hub_graph(np.random.default_rng(12)), n_parts).to(cuda)
+    rng = np.random.default_rng(13)
+    before = csr_spmm.edge_dot_launches
+    launched = 0
+    for p in range(n_parts):
+        for b in range(n_parts):
+            view = pg.bucket(p, b).fwd
+            x, g = _dot_inputs(view, heads, feat, rng, cuda)
+            got = csr_spmm.edge_dot(view, x, g, heads, feat)
+            launched += view.n_edge > 0
+            _assert_dot_close(got, view, x, g, heads, feat)
+    assert csr_spmm.edge_dot_launches - before == launched
+    assert max(int(pg.bucket(0, b).fwd.row_ptr.diff().max()) for b in range(n_parts)) > SEG_EDGES
+
+
+def test_edge_dot_empty_bucket_and_bad_input(cuda):
+    from graph_odenet_tpu_torch.ops.csr_spmm import csr_view
+
+    view = csr_view(np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0), 64, 32).to(cuda)
+    before = csr_spmm.edge_dot_launches
+    got = csr_spmm.edge_dot(view, torch.ones(32, 8, device=cuda), torch.ones(64, 8, device=cuda),
+                            2, 4)
+    assert got.shape == (0, 2) and csr_spmm.edge_dot_launches == before  # nothing launched
+    hub = _bucket_view(np.random.default_rng(0)).to(cuda)
+    x, g = torch.ones(hub.n_cols, 8, device=cuda), torch.ones(hub.n_rows, 8, device=cuda)
+    for args, err in (((x.double(), g, 2, 4), TypeError),
+                      ((x, g.cpu(), 2, 4), ValueError),
+                      ((x[:, :4], g, 2, 4), ValueError),
+                      ((x, g[1:], 2, 4), ValueError),
+                      ((torch.ones(hub.n_cols, 33, device=cuda),
+                        torch.ones(hub.n_rows, 33, device=cuda), 33, 1), ValueError)):
+        with pytest.raises(err):
+            csr_spmm.edge_dot(hub, *args)
+    assert csr_spmm.edge_dot_launches == before
+
+
+@pytest.mark.parametrize("heads,feat", [(1, 256), (4, 64), (1, 40), (2, 3)])
+def test_edge_dot_is_one_launch_of_its_own_kernel(cuda, heads, feat):
+    """One device launch a call by the profiler, of ``edge_dot_kernel`` (not
+    ``csr_reduce_kernel``, which the benchmark counts as B2 and B2-w), and 20
+    calls bit-equal."""
+    view = _bucket_view(np.random.default_rng(1)).to(cuda)
+    x, g = _dot_inputs(view, heads, feat, np.random.default_rng(2), cuda)
+    first = csr_spmm.edge_dot(view, x, g, heads, feat)
+    kernels = _device_kernels(lambda: csr_spmm.edge_dot(view, x, g, heads, feat))
+    assert len(kernels) == 1 and "edge_dot_kernel" in kernels[0], kernels
+    assert "csr_reduce_kernel" not in kernels[0]
+    for got in [csr_spmm.edge_dot(view, x, g, heads, feat) for _ in range(20)]:
+        assert torch.equal(got, first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bucket_function_dpv_on_the_card_matches_the_plain_version(cuda, dtype):
+    """``_bucket_spmm_weighted``'s backward on the card (``dpv`` by the
+    per-edge dot, one launch a backward) at the encoder's H = 4, F = 64 on a
+    split hub graph, ``pv``'s gradient in ``pv``'s dtype: in f32 within f32
+    rounding of the plain version in float64; in bf16 within one bf16 ulp
+    of the same Function on the CPU (the plain gather, product and sum;
+    both round an f32 sum once)."""
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver
+    from graph_odenet_tpu_torch.parallel.halo import _bucket_spmm_weighted
+
+    heads, feat = 4, 64
+    g = _split_hub_graph(np.random.default_rng(14))
+    rng = np.random.default_rng(15)
+    n = g.n_node_pad
+    chunk0 = torch.from_numpy(rng.standard_normal((n, heads * feat)).astype(np.float32))
+    up0 = torch.from_numpy(rng.standard_normal((n, heads * feat)).astype(np.float32))
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        pg = partition_by_receiver(g, 1).to(dev)
+        bucket, rows = pg.bucket(0, 0), pg.blocks[0].receivers
+        pv0 = _softmax_weights(bucket.fwd, heads, np.random.default_rng(16), dev)
+        chunk = chunk0.to(dev).to(dtype).requires_grad_(True)
+        pv = pv0.to(dtype).requires_grad_(True)
+        before = csr_spmm.edge_dot_launches
+        _bucket_spmm_weighted(chunk, pv, bucket, feat, rows=rows).backward(up0.to(dev))
+        assert csr_spmm.edge_dot_launches - before == (1 if dev.type == "cuda" else 0)
+        assert pv.grad.dtype == dtype
+        grads[dev.type] = (pv.grad.cpu(), chunk.detach().cpu(), bucket.to("cpu"))
+    got, chunk, bucket = grads["cuda"]
+    want = grads["cpu"][0]
+    if dtype == torch.bfloat16:
+        _assert_within_bf16_ulp(got, want)
+    else:
+        _assert_dot_close(got, bucket.fwd, chunk, up0, heads, feat)
+
+
 def test_captured_graph_replays_bit_equal_to_eager_calls(cuda):
     """``spmm_csr`` forward and backward, and a ring of ``bucket_reduce`` calls
     (each block's first bucket written, the rest added), captured in a CUDA
@@ -686,6 +824,24 @@ def test_gat_captured_graph_outlives_a_wider_eager_call(cuda):
     with pytest.raises(RuntimeError, match="eager call"):
         with torch.cuda.graph(torch.cuda.CUDAGraph()):
             _gat_fwd_bwd(csr, *widest)
+
+
+def test_edge_dot_captured_graph_replays_bit_equal_to_eager_calls(cuda):
+    """The per-edge dot on a split hub block at H = 1, F = 256 and H = 4, F = 64,
+    captured in a CUDA graph: its replays equal the eager calls bit for bit."""
+    view = _bucket_view(np.random.default_rng(24)).to(cuda)
+    rng = np.random.default_rng(25)
+    inputs = [(*_dot_inputs(view, h, f, rng, cuda), h, f) for h, f in ((1, 256), (4, 64))]
+
+    def work():
+        return [csr_spmm.edge_dot(view, *args) for args in inputs]
+
+    graph, eager, captured = _capture(work)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
 
 
 # ------------------------------------------ B2-w: the weighted bucket mode
@@ -1284,8 +1440,9 @@ def test_bf16_sharded_step_through_the_kernels_matches_plain(cuda, model):
     full arxiv twins: config 4's GCN-ODE launches B2's bf16 entry, one launch
     a layer each way (36); the GAT-ODE (16 × 2 heads, rk4 × 2, ``ring_pallas``
     with ``remat``) launches B2-w's f32 entry on the widened chunk, two a
-    layer and remat's 4 a substep (28), takes bf16 chunks and hands back a
-    bf16 ``dchunk``.  No plain version is called; bf16 log-probs and
+    layer and remat's 4 a substep (28), and B2-w's per-edge dot once a layer
+    in the backward (10), takes bf16 chunks and hands back a bf16
+    ``dchunk``.  No plain version is called; bf16 log-probs and
     gradients agree with the plain versions' (sums in a fixed order) at
     ``BF16_STEP_TOL`` (each gradient's atol relative to its largest entry)."""
     import dataclasses
@@ -1297,11 +1454,12 @@ def test_bf16_sharded_step_through_the_kernels_matches_plain(cuda, model):
 
     if model == "gcnode":
         cfg, data = sharded_train_config(get_config(4)[1]), synthetic_ogbn_arxiv(seed=0)
-        want = dict(bucket=36, bucket_bf16=36, bucket_weighted=0)
+        want = dict(bucket=36, bucket_bf16=36, bucket_weighted=0, edge_dot=0)
     else:
         cfg = dataclasses.replace(chip_smoke.sharded_gat_config(), hidden=16, heads=2, steps=2)
         data = synthetic_ogbn_arxiv(seed=0, calibrated=True)
-        want = dict(bucket=0, bucket_bf16=0, bucket_weighted=2 * (2 + 4 * 2) + 4 * 2)
+        want = dict(bucket=0, bucket_bf16=0, bucket_weighted=2 * (2 + 4 * 2) + 4 * 2,
+                    edge_dot=2 + 4 * 2)
     check = chip_smoke.sharded_step_check(cfg, data, cuda)
     assert check["launches"] == want and check["plain_calls"] == 0
     assert max(check["err_over_tol"].values()) <= 1.0, check
