@@ -26,8 +26,12 @@ the JAX package once more, since the check imports the reference.
 
 With ``--trace 1`` the window runs under ``torch.profiler``: a stretch of
 whole epochs, starting at an epoch that evaluates, is recorded (the
-profiler's steps are advanced by an optimizer post-step hook), and the
-per-layer readers (``metrics/``) take their numbers from it.
+profiler's steps are advanced by an optimizer post-step hook).  Each rank
+reduces it twice, by kernel (``harness.trace``) and by the program's spans
+(``harness.spans``, under ``spans`` in its summary), and the per-layer
+readers (``metrics/``) take their numbers from every rank's summary.  Rank 0
+prints each rank's table by span and the attribution's checks on standard
+error; they decide neither ``correct`` nor the exit code.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ import numpy as np
 import torch
 from torch.optim.optimizer import register_optimizer_step_post_hook
 
-from perfbench.harness import compare, trace as tr
+from perfbench.harness import compare, spans as sp, trace as tr
 from perfbench.harness.result import emit, forbidden_modules
 from perfbench.harness.twin import load_twin
 from perfbench.reference.train import run_steps
@@ -257,7 +261,9 @@ def run_rank(spec: Spec, rank: int, world: int) -> int:
         active = _window_epochs(spec.rate, traffic["trace_seconds"])
         epochs = max(epochs, 5 * math.ceil((trace_from + active + 2) / 5))
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        prof = profile(activities=acts, on_trace_ready=lambda p: events.update(t=tr.from_profiler(p)),
+        prof = profile(activities=acts,
+                       on_trace_ready=lambda p: events.update(t=tr.from_profiler(p),
+                                                              s=sp.from_profiler(p)),
                        schedule=schedule(wait=trace_from, warmup=1, active=active, repeat=1))
         events["active"] = active
 
@@ -283,7 +289,8 @@ def run_rank(spec: Spec, rank: int, world: int) -> int:
     losses = np.asarray(res["losses"], np.float64)
     del res
     found = forbidden_modules()
-    summary = tr.summarise(events["t"]) if "t" in events else None
+    summary = (dict(tr.summarise(events["t"]), spans=sp.summarise(events["s"]))
+               if "t" in events else None)
     mine = dict(seconds=t1 - t0, window_peak=window_peak, peak=max(setup_peak, window_peak),
                 done=int(np.isfinite(losses).sum()), forbidden=found, summary=summary)
     everyone = gather(mine)
@@ -318,6 +325,15 @@ def run_rank(spec: Spec, rank: int, world: int) -> int:
         breakdown = dict(
             device_ops=[[n, ns * 1e-9] for n, ns in ranks[0]["top_device_ops"]],
             idle_gaps=[[n, ns * 1e-9] for n, ns in ranks[0]["idle_by_host"]])
+        for i, r in enumerate(ranks):
+            print(f"rank {i}, {ctx['steps']} epochs, {ctx['evaluations']} evaluations:",
+                  file=sys.stderr)
+            for line in sp.table(r["spans"], ctx["steps"]):
+                print("  " + line, file=sys.stderr)
+        for name, (value, limit, ok) in sp.checks(ctx).items():
+            print(f"span check {name}: {value!r} limit {limit!r} {'ok' if ok else 'FAILED'}",
+                  file=sys.stderr)
+        sys.stderr.flush()
     else:
         values = dict(epoch_ms=everyone[0]["seconds"] * 1e3 / epochs,
                       peak_mem_gb=max(r["window_peak"] for r in everyone) / 1e9,

@@ -13,7 +13,9 @@ none: ``run.py`` has no option that reaches this module.
 
 from __future__ import annotations
 
-__all__ = ["FAULTS", "plant"]
+import contextlib
+
+__all__ = ["FAULTS", "plant", "planted"]
 
 FAULTS = ("state_unchanged", "half_batch", "no_exchange")
 
@@ -45,3 +47,20 @@ def plant(name: str) -> None:
         halo._exchange = keep
     else:
         raise ValueError(f"unknown fault {name!r}; one of {FAULTS}")
+
+
+@contextlib.contextmanager
+def planted(name):
+    """``name`` planted inside the block (none for None), and the program as
+    it was after it."""
+    import torch
+
+    from graph_odenet_tpu_torch.parallel import halo, trainer
+
+    saved = torch.optim.Adam.step, trainer._rows_mask, halo._exchange
+    if name is not None:
+        plant(name)
+    try:
+        yield
+    finally:
+        torch.optim.Adam.step, trainer._rows_mask, halo._exchange = saved

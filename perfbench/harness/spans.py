@@ -37,8 +37,11 @@ what the host was doing when the device ran dry.
 The profiler stops inside the stretch's last step (the benchmark steps it
 from Adam's post-step hook) and may drop that step's range, still open:
 where the trainer's thread holds no ``gode.train.*`` span from the last
-one's end to the stretch's end, that interval is taken as the missing
-``gode.train.step``.
+one's end to the stretch's end, and opened a span or launched in that
+interval, the interval is taken as the missing ``gode.train.step``.
+
+``checks`` holds the attribution against what the trace and the work modules
+say apart from the spans; the driver prints them and they decide nothing.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ import dataclasses
 
 from perfbench.harness.trace import _gaps, union
 
-__all__ = ["PREFIX", "SpanTrace", "from_profiler", "summarise", "table"]
+__all__ = ["PREFIX", "SpanTrace", "from_profiler", "summarise", "table", "checks"]
 
 PREFIX = "gode."
 TRAIN = "gode.train."
@@ -131,12 +134,18 @@ def _trainer_thread(host):
 
 def _with_last_step(host, host_hi) -> list:
     """``host`` with the stretch's last step added where the profiler
-    dropped it."""
+    dropped it: the trainer's thread opened a span or launched after its
+    last ``gode.train.*`` span ended.  A step the profiler cut short at its
+    stop, but kept, leaves nothing after its end."""
     trainer = _trainer_thread(host)
     ends = [h[2] for h in host if h[3] == trainer and h[0].startswith(TRAIN)]
     if not ends or max(ends) >= host_hi:
         return host
-    return host + [(TRAIN + "step", max(ends), host_hi, trainer, 0, -1, 0)]
+    last = max(ends)
+    if not any(h[3] == trainer and last <= h[1] < host_hi and h[0].startswith((PREFIX, "cu"))
+               for h in host):
+        return host
+    return host + [(TRAIN + "step", last, host_hi, trainer, 0, -1, 0)]
 
 
 def _idle_by_span(host, gaps) -> dict:
@@ -203,3 +212,35 @@ def table(summary: dict, epochs: int) -> list:
     lines.append(f"{'device, in all':24} {summary['device_ns'] * 1e-6 / epochs:10.3f} "
                  f"(without a launch record {summary['unlaunched_ns'] * 1e-6 / epochs:.3f})")
     return lines
+
+
+def checks(ctx) -> dict:
+    """Each check of the attribution on each rank of the readers' context
+    (``drivers/sharded.py``), ``{name: (value, limit, ok)}``:
+
+    * the stretch's ``gode.bucket_reduce`` instances equal the work module's
+      count of bucket-kernel calls (``work/<model>.bucket_calls``) for the
+      stretch's instances of ``gode.train.step`` and ``gode.train.evaluate``;
+    * ``gode.bucket_reduce``'s device time equals the by-name device time of
+      the bucket kernel (``trace.KERNEL_KINDS``) within 1 %;
+    * at least 99 % of the stretch's device time lies under
+      ``gode.train.step`` or ``gode.train.evaluate``.
+    """
+    out = {}
+    for rank, (summary, calls) in enumerate(zip(ctx["ranks"], ctx["bucket"])):
+        s = summary["spans"]
+        ((train, evaluation),) = calls.values()
+        n = s["instances"]
+        want = (n.get(TRAIN + "step", 0) * len(train)
+                + n.get(TRAIN + "evaluate", 0) * len(evaluation))
+        got = n.get("gode.bucket_reduce", 0)
+        out[f"rank{rank}.bucket_instances"] = (got, want, got == want)
+        by_name = summary["kind_ns"].get("bucket_kernel", 0)
+        if by_name:
+            gap = abs(s["span_ns"].get("gode.bucket_reduce", 0) - by_name) / by_name
+            out[f"rank{rank}.bucket_ns_vs_by_name"] = (gap, 0.01, gap <= 0.01)
+        if s["device_ns"]:
+            share = (s["span_ns"].get(TRAIN + "step", 0)
+                     + s["span_ns"].get(TRAIN + "evaluate", 0)) / s["device_ns"]
+            out[f"rank{rank}.under_step_or_evaluate"] = (share, 0.99, share >= 0.99)
+    return out

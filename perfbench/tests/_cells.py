@@ -14,7 +14,10 @@ import run  # noqa: E402
 
 GCN1 = "ogbn-arxiv-gcnode-sharded.train.1chip"
 GAT1 = "ogbn-arxiv-gatode-sharded.train.1chip"
-GCN4 = "ogbn-arxiv-gcnode-sharded.train.4chip"  # not in BENCHMARK.json yet (PERF.md §7)
+# Config 4 over four parts: its traffic and own file are in place, but its epoch time on
+# four cards spreads too widely for any bound, so it is not a cell of BENCHMARK.json
+# (PERF.md §7); the tests run it from a manifest that adds it.
+GCN4 = "ogbn-arxiv-gcnode-sharded.train.4chip"
 WIDTH = {"gcnode": 16, "gatode": 8}
 
 
@@ -24,22 +27,28 @@ def small_config(name: str) -> dict:
     return dict(twin=dict(cfg["twin"], scale=0.01), trainer=trainer)
 
 
-def _four_chip_manifest():
-    """``BENCHMARK.json`` with config 4 over four parts (``traffic/train.4chip``)
-    added as a cell, and that cell's own numbers: the one-chip cell's."""
+def _with_four_chip_cell() -> dict:
+    """``BENCHMARK.json`` with GCN4 added as a cell, reading the per-layer
+    metrics of config 4's one-chip cell and ``halo_exposed_ms``."""
     bench = json.loads((PERFBENCH.parent / "BENCHMARK.json").read_text())
-    one = GCN4.replace("4chip", "1chip")
-    bench["workloads"].append(dict(name=GCN4, config=one.split(".train")[0],
+    bench["workloads"].append(dict(name=GCN4, config=GCN4.split(".train")[0],
                                    traffic="train.4chip", chips=4, why="tests"))
-    return bench, json.loads((PERFBENCH / "workloads" / f"{one}.json").read_text())
+    for m in bench["per_layer"]:
+        if GCN1 in m["workloads"]:
+            m["workloads"].append(GCN4)
+    bench["per_layer"].append(dict(name="halo_exposed_ms", unit="ms", better="lower",
+                                   source="device_trace", layer="parallel.halo ring exchange",
+                                   moves="epoch_ms", workloads=[GCN4]))
+    return bench
 
 
 def run_small(cell: str, capfd, *, seed=3_000_000_001, trace=0, fault=None):
-    """``(exit code, the result's JSON or None)``."""
-    bench, own = _four_chip_manifest() if cell == GCN4 else (None, None)
+    """``(exit code, the result's JSON or None, standard error)``."""
     rc = run.main(["--workload", cell, "--seed", str(seed), "--seconds", "1", "--trace", str(trace)],
                   require_cuda=False, device="cpu", fault=fault,
-                  config_overrides=small_config(cell.split(".train")[0]), bench=bench, own=own)
-    lines = capfd.readouterr().out.strip().splitlines()
+                  config_overrides=small_config(cell.split(".train")[0]),
+                  bench=_with_four_chip_cell() if cell == GCN4 else None)
+    out = capfd.readouterr()
+    lines = out.out.strip().splitlines()
     result = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else None
-    return rc, result
+    return rc, result, out.err

@@ -14,7 +14,7 @@ from perfbench.harness import compare
 from perfbench.harness.twin import load_twin
 from perfbench.reference.common import round_tf32
 from perfbench.reference.train import run_steps
-from perfbench.tests._cells import GAT1, GCN1, small_config
+from perfbench.tests._cells import GAT1, GCN1, GCN4, small_config
 
 PERFBENCH = Path(__file__).resolve().parents[1]
 
@@ -24,7 +24,7 @@ def test_round_tf32_keeps_ten_mantissa_bits():
     assert round_tf32(x).tolist() == [1.0 + 2 ** -10, 1.0, 1.0 + 2 * 2 ** -10, -3.0]
 
 
-@pytest.mark.parametrize("cell", [GCN1, GAT1])
+@pytest.mark.parametrize("cell", [GCN1, GAT1, GCN4])
 @pytest.mark.parametrize("seed", [5, 2_000_000_011, 4_294_967_311])
 def test_tf32_control_is_not_correct(cell, seed):
     cfg = small_config(cell.split(".train")[0])

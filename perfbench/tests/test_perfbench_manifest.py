@@ -79,11 +79,22 @@ def test_metrics():
         assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
         assert m["moves"] in e2e and LINE.match(m["layer"])
-        assert set(m["workloads"]) <= cells
-        assert (REPO / "perfbench" / "metrics" / f"{m['name']}.py").is_file()
         layers.setdefault(m["layer"].lower(), set()).add(m["layer"])
     assert all(len(v) == 1 for v in layers.values())
     for cell in cells:  # every cell reports set-up, one more end-to-end metric and a per-layer one
         reported = {m["name"] for m in BENCH["end_to_end"] if cell in m.get("workloads", [cell])}
         assert "setup_s" in reported and len(reported) >= 2
         assert any(cell in m.get("workloads", [cell]) for m in BENCH["per_layer"])
+
+
+@pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
+def test_every_per_layer_metric_has_a_reader_and_its_cells(metric):
+    """A reader file, and a ``workloads`` list that names cells there are and
+    that report the end-to-end metric it moves."""
+    (m,) = [m for m in BENCH["per_layer"] if m["name"] == metric]
+    assert (REPO / "perfbench" / "metrics" / f"{metric}.py").is_file()
+    cells = {w["name"] for w in BENCH["workloads"]}
+    assert m.get("workloads") and set(m["workloads"]) <= cells
+    (moved,) = [e for e in BENCH["end_to_end"] if e["name"] == m["moves"]]
+    assert set(m["workloads"]) <= set(moved.get("workloads", cells))
+

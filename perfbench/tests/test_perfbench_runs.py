@@ -8,21 +8,19 @@ import types
 import pytest
 import torch
 
+from perfbench.harness.faults import planted
 from perfbench.tests._cells import GAT1, GCN1, GCN4, run, run_small
 
 
 @pytest.fixture
 def restore_program():
-    from graph_odenet_tpu_torch.parallel import halo, trainer
-
-    saved = (torch.optim.Adam.step, trainer._rows_mask, halo._exchange)
-    yield
-    torch.optim.Adam.step, trainer._rows_mask, halo._exchange = saved
+    with planted(None):
+        yield
 
 
 @pytest.mark.parametrize("cell", [GCN1, GAT1, GCN4])
 def test_clean_run_is_correct(cell, capfd):
-    rc, result = run_small(cell, capfd)
+    rc, result, _ = run_small(cell, capfd)
     assert rc == 0 and result["correct"], result
     assert result["attempted"] > 0 and result["failed"] == 0
     assert set(result["metrics"]) == {"epoch_ms", "peak_mem_gb", "setup_s"}
@@ -34,10 +32,10 @@ def test_clean_run_is_correct(cell, capfd):
 @pytest.mark.parametrize("cell,fault", [
     (GCN1, "state_unchanged"), (GCN1, "half_batch"),
     (GAT1, "state_unchanged"), (GAT1, "half_batch"),
-    (GCN4, "no_exchange"),
+    (GCN4, "state_unchanged"), (GCN4, "half_batch"), (GCN4, "no_exchange"),
 ])
 def test_a_broken_path_is_not_correct(cell, fault, capfd, restore_program):
-    rc, result = run_small(cell, capfd, fault=fault)
+    rc, result, _ = run_small(cell, capfd, fault=fault)
     assert rc == 0 and result is not None
     assert result["correct"] is False, result["checks"]
 
@@ -55,14 +53,14 @@ def test_a_module_of_jax_loaded_by_the_check_prints_no_result(capfd, monkeypatch
 
     monkeypatch.setattr(sharded, "run_steps", loads_jax)
     try:
-        rc, result = run_small(GCN1, capfd)
+        rc, result, _ = run_small(GCN1, capfd)
     finally:
         sys.modules.pop("jax", None)
     assert rc == 4 and result is None
 
 
 def test_traced_run_reports_per_layer_metrics_only(capfd):
-    rc, result = run_small(GCN1, capfd, trace=1)
+    rc, result, _ = run_small(GCN1, capfd, trace=1)
     assert rc == 0 and result["correct"]
     assert not set(result["metrics"]) & {"epoch_ms", "peak_mem_gb", "setup_s"}
     assert result["device"]["window_s"] > 0 and "breakdown" in result

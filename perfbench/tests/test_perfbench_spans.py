@@ -1,19 +1,19 @@
 """The span reduction (``harness/spans.py``) on a synthetic trace: a span on
 the launching thread, a backward node tied to its forward op, remat's span
 inside a backward node, ``gode.train.*`` holding another thread's launches
-by time, idle gaps by their start; the span readers; and traced runs on the
-CPU through ``trace_spans.py``."""
+by time, idle gaps by their start; the attribution's checks; the span
+readers; and traced runs of the driver on the CPU, on one part and on four."""
 
 import json
+import re
 
 import pytest
 
-from perfbench import trace_spans
 from perfbench.harness import spans as sp
 from perfbench.metrics import (
     bucket_reduce_ms, gat_dpv_ms, gat_recompute_ms, gat_softmax_ms, sync_idle_ms,
 )
-from perfbench.tests._cells import GAT1, GCN1, run, run_small, small_config
+from perfbench.tests._cells import GAT1, GCN1, GCN4, run, run_small
 
 
 def _launch(t, thread, corr, name="cudaLaunchKernel"):
@@ -102,6 +102,14 @@ def test_the_last_step_dropped_by_the_profiler_is_restored(summary):
     assert sp.summarise(sp.SpanTrace(DEVICE, dropped)) == summary
 
 
+def test_a_last_step_cut_short_but_kept_is_not_added_again(summary):
+    """On some ranks the profiler keeps the last step's range, ended at its
+    stop a little before the stretch's end: no second step is made up."""
+    cut = [h if h[:3] != ("gode.train.step", 1000, 2000) else ("gode.train.step", 1000, 1990)
+           + h[3:] for h in HOST]
+    assert sp.summarise(sp.SpanTrace(DEVICE, cut))["instances"] == summary["instances"]
+
+
 def test_a_span_inside_the_node_wins_over_the_forward_ops():
     """dpv: the node's forward op ran inside a softmax span, but the node
     opens its own span, which takes the launch alone."""
@@ -150,36 +158,75 @@ def test_table_lists_every_span(summary):
         assert any(line.startswith(name) for line in lines)
 
 
-def test_the_span_metrics_fit_the_manifest():
-    bench = json.loads((run.REPO / "BENCHMARK.json").read_text())
-    cells = {w["name"] for w in bench["workloads"]}
-    names = {m["name"] for m in bench["per_layer"]}
-    layers = {m["layer"] for m in bench["per_layer"]}
-    for m in trace_spans.SPAN_METRICS:
-        assert set(m) == {"name", "unit", "better", "source", "layer", "moves", "workloads"}
-        assert m["name"] not in names and set(m["workloads"]) <= cells
-        assert m["layer"] in layers
-        assert (run.HERE / "metrics" / f"{m['name']}.py").is_file()
+def _checked(kind_ns, **spans):
+    summary = dict(instances={"gode.train.step": 2, "gode.train.evaluate": 1,
+                              "gode.bucket_reduce": 8},
+                   span_ns={"gode.train.step": 90, "gode.train.evaluate": 10,
+                            "gode.bucket_reduce": 50},
+                   device_ns=100)
+    summary.update(spans)
+    ctx = dict(steps=2, evaluations=1, ranks=[dict(kind_ns=kind_ns, spans=summary)],
+               bucket=[{"b2": ([(1, 1)] * 3, [(1, 1)] * 2)}])
+    return sp.checks(ctx)
+
+
+def test_checks_of_the_attribution():
+    assert _checked({"bucket_kernel": 50}) == {
+        "rank0.bucket_instances": (8, 2 * 3 + 2, True),
+        "rank0.bucket_ns_vs_by_name": (0.0, 0.01, True),
+        "rank0.under_step_or_evaluate": (1.0, 0.99, True),
+    }
+    bad = _checked({"bucket_kernel": 40}, instances={"gode.train.step": 2}, device_ns=125)
+    assert bad["rank0.bucket_instances"] == (0, 6, False)
+    assert bad["rank0.bucket_ns_vs_by_name"] == (pytest.approx(0.25), 0.01, False)
+    assert bad["rank0.under_step_or_evaluate"] == (pytest.approx(0.8), 0.99, False)
+    assert "rank0.bucket_ns_vs_by_name" not in _checked({})  # no bucket kernel by name
+
+
+_SPAN_METRICS = ("gat_softmax_ms", "gat_dpv_ms", "gat_recompute_ms", "bucket_reduce_ms",
+                 "sync_idle_ms")
+
+
+def _instances_an_epoch(err, span):
+    """The instances an epoch of ``span`` in every rank's table on stderr."""
+    return [float(m) for m in re.findall(rf"^  {re.escape(span)} +\S+ +\S+ +(\S+) ", err, re.M)]
 
 
 def test_traced_run_holds_the_spans(capfd):
-    seen = {}
-    with trace_spans.wired(seen):
-        rc, result = run_small(GCN1, capfd, trace=1)
+    rc, result, err = run_small(GCN1, capfd, trace=1)
     assert rc == 0 and result["correct"]
-    (rank,) = seen["ctx"]["ranks"]
-    assert rank["spans"]["instances"]["gode.train.step"] == seen["ctx"]["steps"]
-    assert all(ok for _, _, ok in trace_spans.checks(seen["ctx"]).values())
-
-
-def test_trace_spans_prints_the_span_metrics(capfd):
-    rc = trace_spans.main(["--workload", GAT1, "--seed", "3000000001", "--seconds", "1"],
-                          require_cuda=False, device="cpu",
-                          config_overrides=small_config(GAT1.split(".train")[0]))
-    out = capfd.readouterr()
-    assert rc == 0, out.err[-2000:]
-    result = json.loads(out.out.strip().splitlines()[-1])
-    assert result["correct"]
-    want = {m["name"] for m in trace_spans.SPAN_METRICS if GAT1 in m["workloads"]}
+    assert _instances_an_epoch(err, "gode.train.step") == [1.0]
+    assert re.search(r"^span check rank0\.bucket_instances: \d+ limit \d+ ok$", err, re.M)
+    assert "FAILED" not in err
+    bench = json.loads((run.REPO / "BENCHMARK.json").read_text())
+    want = {m["name"] for m in bench["per_layer"]
+            if m["name"] in _SPAN_METRICS and GCN1 in m["workloads"]}
+    assert want == {"bucket_reduce_ms", "sync_idle_ms"}
     assert want <= set(result["metrics"])
-    assert "span check rank0.bucket_instances" in out.err
+
+
+def test_traced_run_prints_the_span_metrics(capfd):
+    rc, result, err = run_small(GAT1, capfd, trace=1)
+    assert rc == 0 and result["correct"], err[-2000:]
+    for name in _SPAN_METRICS:
+        assert isinstance(result["metrics"][name]["value"], float), name
+        assert result["metrics"][name]["unit"] == "ms"
+    assert "rank 0, " in err and "device, in all" in err
+    assert "span check rank0.bucket_instances" in err and "FAILED" not in err
+    # the table and the attribution's checks come before the checks of ``correct``
+    assert err.rindex("span check") < err.index("check loss:")
+
+
+def test_four_part_traced_run_gathers_every_ranks_spans(capfd):
+    """Each rank reduces its own trace by span; rank 0 gathers the summaries
+    and reads the span metrics over all of them."""
+    rc, result, err = run_small(GCN4, capfd, trace=1)
+    assert rc == 0 and result["correct"], err[-2000:]
+    assert _instances_an_epoch(err, "gode.train.step") == [1.0] * 4
+    for rank in range(4):
+        assert f"rank {rank}, " in err
+        assert re.search(rf"^span check rank{rank}\.bucket_instances: \d+ limit \d+ ok$", err,
+                         re.M)
+    assert "FAILED" not in err
+    for name in ("bucket_reduce_ms", "sync_idle_ms"):
+        assert isinstance(result["metrics"][name]["value"], float), name

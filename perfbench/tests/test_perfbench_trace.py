@@ -1,11 +1,12 @@
 """The trace reduction on a synthetic trace: the stretch by launch, the idle
-union over streams, the exposed part of the transfers, and the readers."""
+union over streams, the exposed part of the transfers, and the readers, the
+span readers of the attention's layer with the program's spans added."""
 
 import pytest
 
-from perfbench.harness import trace as tr
+from perfbench.harness import spans as sp, trace as tr
 from perfbench.metrics import (
-    b2_roofline_pct, device_idle_pct, gat_gather_scatter_ms, halo_exposed_ms, step_mfu,
+    b2_roofline_pct, device_idle_pct, gat_dpv_ms, gat_softmax_ms, halo_exposed_ms, step_mfu,
 )
 
 SEND = "ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>)"
@@ -42,6 +43,13 @@ def test_summarise():
     assert s["idle_by_host"] == [("aten::foo", 60)]  # the gap [200, 260], host in aten::foo at 230
 
 
+# The same host with the attention's spans: the softmax around the gather's
+# launch, ``dpv`` around the elementwise kernel's (host events as in
+# ``harness/spans.py``: sequence number and forward thread added).
+SPANS = [("gode.gat.softmax", 140, 160, 1, 0), ("gode.b2w.dpv", 245, 255, 1, 0)]
+SPAN_HOST = [h + (-1, 0) for h in HOST + SPANS]
+
+
 def _ctx(summary, **kw):
     ctx = dict(chips=1, steps=2, evaluations=0, ranks=[summary], flops=(1e9, 0.0),
                bucket=[{"b2": ([(1000, 10)], [])}])
@@ -53,7 +61,9 @@ def test_readers():
     s = tr.summarise(tr.Trace(DEVICE, HOST))
     assert device_idle_pct.read(_ctx(s)) == pytest.approx(100 * 60 / 180)
     assert halo_exposed_ms.read(_ctx(s)) == pytest.approx(10e-6 / 2)
-    assert gat_gather_scatter_ms.read(_ctx(s)) == pytest.approx(20e-6 / 2)
+    s["spans"] = sp.summarise(sp.SpanTrace(DEVICE, SPAN_HOST))
+    assert gat_softmax_ms.read(_ctx(s)) == pytest.approx(20e-6 / 2)   # indexSelectLargeIndex
+    assert gat_dpv_ms.read(_ctx(s)) == pytest.approx(60e-6 / 2)       # the elementwise kernel
     assert step_mfu.read(_ctx(s)) == pytest.approx(100 * 2e9 / (180e-9 * 67e12))
     # one B2 launch seen, two expected: the roofline reader reads nothing
     assert b2_roofline_pct.read(_ctx(s)) is None
