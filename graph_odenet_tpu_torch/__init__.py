@@ -23,7 +23,10 @@ This package imports neither JAX nor the JAX package.
   data             Planetoid and OGBN-arxiv loaders and twins, spring n-body.
   train            Full-batch node-classification and physics trainers.
   parallel         The edge-partitioned tier (config 4), on meshes of
-                   process groups (feature-axis tensor parallelism too).
+                   process groups (feature-axis tensor parallelism too):
+                   the sharded GCN-ODE, GAT-ODE and GRAND-nl
+                   (``parallel.sharded_grand``, which has no counterpart in
+                   the JAX package).
   configs          Named configs 0–4 and extras, and ``run_config``.
   convert          Flax parameter trees to torch ``state_dict``s.
   utils            Device choice, metrics, logging, plots (matplotlib, lazily),

@@ -17,7 +17,11 @@ owning a receiver block of the graph's nodes.
   sharded_gat.py edge-partitioned attention (``gat_sharded``: the ring of
                  attention-weighted bucket reductions, B2-w, or the ring of
                  online-softmax updates) and the edge-parallel GAT-ODE
-  trainer.py     the trainer of both models
+  sharded_grand.py
+                 GRAND-nl: attention recomputed at every evaluation, scored
+                 per bucket (``halo.bucket_scores``), aggregated by the same
+                 ring of B2-w
+  trainer.py     the trainer of the three models
 """
 
 from graph_odenet_tpu_torch.parallel.halo import spmm_sharded  # noqa: F401

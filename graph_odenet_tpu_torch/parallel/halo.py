@@ -35,6 +35,10 @@ reduction, B2-w, with a hand-written backward: ``dchunk`` through B2-w over
 the bucket's CSC view, ``dpv`` through ``ops.csr_spmm.edge_dot`` over its
 CSR view), ``ring_hop`` (the exchange of one hop; its backward is the
 reverse exchange) and ``all_gather_rows`` (its backward a reduce-scatter).
+GRAND-nl (``parallel.sharded_grand``) scores its edges with
+``bucket_scores``: ``ops.csr_spmm.edge_dot`` as a forward op over a
+bucket's CSR view, its gradients two B2-w reductions (over the CSR view
+for the queries, over the CSC view for the keys).
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ from graph_odenet_tpu_torch.parallel.mesh import check_backend, global_rank, wor
 from graph_odenet_tpu_torch.parallel.partition import Bucket, PartitionedGraph
 from graph_odenet_tpu_torch.utils.profiling import annotate
 
-__all__ = ["spmm_sharded", "bucket_reduce_pallas", "ring_hop", "all_gather_rows", "MODES"]
+__all__ = ["spmm_sharded", "bucket_reduce_pallas", "bucket_scores", "ring_hop", "all_gather_rows",
+           "MODES"]
 
 MODES = ("allgather", "ring", "ring_pallas")
 
@@ -157,6 +162,50 @@ def _bucket_spmm_weighted(
     gradient comes back in its input's dtype, ``dpv`` summed in f32.
     """
     return _BucketSpMMWeighted.apply(chunk.contiguous(), pv_h.contiguous(), acc, bucket, rows, feat)
+
+
+class _BucketScores(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, bucket, rows, heads, feat):
+        ctx.bucket, ctx.feat = bucket, feat
+        ctx.save_for_backward(q, k)
+        return edge_dot(bucket.fwd, k, q, heads, feat, rows=rows)
+
+    @staticmethod
+    def backward(ctx, ds):
+        q, k = ctx.saved_tensors
+        bucket, feat = ctx.bucket, ctx.feat
+        ds = ds.contiguous()
+        dq = dk = None
+        if ctx.needs_input_grad[1]:
+            ds_t = ds.index_select(0, bucket.t_perm)  # the scores' gradients in CSC order
+        with annotate("gode.grand.score"):
+            if ctx.needs_input_grad[0]:
+                # dq[r] = Σ_{e: r_e = r} ds[e, h] · k[s_e]: B2-w over the CSR view.
+                dq = bucket_reduce(bucket.fwd, k, torch.empty_like(q), accumulate=False,
+                                   alpha=ds, feat=feat)
+            if ctx.needs_input_grad[1]:
+                # dk[s] = Σ_{e: s_e = s} ds[e, h] · q[r_e]: B2-w over the CSC view.
+                dk = bucket_reduce(bucket.bwd, q, torch.empty_like(k), accumulate=False,
+                                   alpha=ds_t, feat=feat)
+        return dq, dk, None, None, None, None
+
+
+def bucket_scores(
+    q: torch.Tensor, k: torch.Tensor, bucket: Bucket, heads: int, feat: int, *,
+    rows: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Per-edge, per-head dot products of one bucket: ``s[e, h] = Σ_f q[r_e,
+    h·F+f] · k[s_e, h·F+f]``, f32 ``[L, H]`` in the bucket's CSR edge order,
+    differentiable in ``q`` (the receiver block's rows, f32 ``[B, H·F]``) and
+    ``k`` (the sender block's rows, f32 ``[B, H·F]``).
+
+    The forward is one ``edge_dot`` over the CSR view; the backward reduces
+    ``dq`` with B2-w over the CSR view and ``dk`` with B2-w over the CSC view
+    (the scores' gradients carried into CSC order by ``t_perm``), inside a
+    ``gode.grand.score`` span of its own.  ``rows`` is the receiver of each
+    edge, which the plain version of ``edge_dot`` reads."""
+    return _BucketScores.apply(q.contiguous(), k.contiguous(), bucket, rows, heads, feat)
 
 
 def _exchange(send: torch.Tensor, recv: torch.Tensor, me: int, n_parts: int, step: int = -1,

@@ -47,7 +47,8 @@ from graph_odenet_tpu_torch.parallel.partition import PartitionedGraph
 from graph_odenet_tpu_torch.parallel.sharded_gcn import _feature_dropout, _glorot
 from graph_odenet_tpu_torch.utils.profiling import annotate
 
-__all__ = ["gat_sharded", "ShardedGATODE", "init_gatode_params", "gatode_forward", "MODES"]
+__all__ = ["gat_sharded", "edge_softmax", "weighted_ring", "ShardedGATODE", "init_gatode_params",
+           "gatode_forward", "MODES"]
 
 MODES = ("ring", "ring_pallas")
 _NEG = -1e30
@@ -58,6 +59,47 @@ def _segment_max(e: torch.Tensor, rows: torch.Tensor, n_rows: int) -> torch.Tens
     without edges (not −inf, which would turn its output into NaN)."""
     m = e.new_full((n_rows, e.shape[1]), _NEG)
     return m.scatter_reduce(0, rows[:, None].expand_as(e), e, "amax", include_self=True)
+
+
+def edge_softmax(e: torch.Tensor, receivers: torch.Tensor, n_rows: int):
+    """The exact softmax of each receiver's in-edges, unnormalised: the
+    numerators ``p = exp(e − m[r_e])`` ``[E, H]`` (``m`` each row's maximum,
+    taken without a gradient) and the denominators ``l [n_rows, H]``, each
+    an f32 sum rounded once to ``e``'s dtype (``ops.segment.segment_sum``).
+    ``receivers`` is each edge's local row.  Shared by ``gat_sharded``'s
+    ``ring_pallas`` mode and GRAND-nl (``parallel.sharded_grand``), each
+    inside its own span."""
+    m = _segment_max(e.detach(), receivers, n_rows)
+    p = torch.exp(e - m.index_select(0, receivers))
+    return p, segment_sum(p, receivers, n_rows)
+
+
+def weighted_ring(pg: PartitionedGraph, chunk: torch.Tensor, pv: torch.Tensor, feat: int,
+                  group=None) -> torch.Tensor:
+    """``ring_pallas``'s ring: ``out[r] = Σ_e pv[e, h] · chunk[s_e, h·F+f]``
+    over every edge of the rank's block, one B2-w reduction
+    (``halo._bucket_spmm_weighted``) a hop, the first writing ``out`` and
+    the rest adding, the next chunk's exchange in flight behind each.
+    ``chunk`` is the rank's rows ``[B, H·F]``; ``pv [E_p, H]`` the per-edge
+    weights in the block's edge order (``BlockEdges``).  Returns ``[B, H·F]``
+    in the type B2-w sums in (f32 for a bf16 chunk).  Shared by
+    ``gat_sharded`` and GRAND-nl (``parallel.sharded_grand``)."""
+    n_parts, me = world(group)
+    blk = pg.blocks[me]
+    out = None
+    for k in range(n_parts):
+        b = (me + k) % n_parts
+        pending = []
+        if k < n_parts - 1:
+            nxt = ring_hop(chunk, pending, group)
+        span = blk.bucket(b)
+        out = _bucket_spmm_weighted(chunk, pv[span], pg.bucket(me, b), feat,
+                                    rows=blk.receivers[span], acc=out)
+        for req in pending:
+            req.wait()
+        if pending:
+            chunk = nxt
+    return out
 
 
 def gat_sharded(
@@ -127,25 +169,10 @@ def gat_sharded(
             # 1. The score table is H lanes wide, not H·F: gather all of it.
             e = logits(all_gather_rows(s_src, group), blk.senders, blk.receivers)  # [E_p, H]
             # 2. Exact softmax over all the rank's edges at once.
-            m = _segment_max(e.detach(), blk.receivers, B)
-            p = torch.exp(e - m.index_select(0, blk.receivers))
-            l = segment_sum(p, blk.receivers, B)
+            p, l = edge_softmax(e, blk.receivers, B)
             p_v = p * scale(blk.senders, blk.receivers) if seed is not None else p
-        # 3. Ring over value chunks: one weighted bucket reduction per hop,
-        # the next chunk's exchange in flight behind it.
-        out, chunk = None, wh.reshape(B, heads * feat)
-        for k in range(n_parts):
-            b = (me + k) % n_parts
-            pending = []
-            if k < n_parts - 1:
-                nxt = ring_hop(chunk, pending, group)
-            span = blk.bucket(b)
-            out = _bucket_spmm_weighted(chunk, p_v[span], pg.bucket(me, b), feat,
-                                        rows=blk.receivers[span], acc=out)
-            for req in pending:
-                req.wait()
-            if pending:
-                chunk = nxt
+        # 3. Ring over value chunks: one weighted bucket reduction per hop.
+        out = weighted_ring(pg, wh.reshape(B, heads * feat), p_v, feat, group)
         out = out.view(B, heads, feat) / torch.clamp(l, min=1e-30)[..., None]
         return out.to(wh.dtype)
 

@@ -3,8 +3,9 @@
 Counterpart of ``graph_odenet_tpu/parallel/trainer.py``: Adam with weight
 decay as L2 in the gradient, full-batch NLL on the training nodes, early
 stopping on validation loss, test accuracy at the best epoch, over the
-edge-partitioned GCN-ODE (``parallel.sharded_gcn``) or GAT-ODE
-(``parallel.sharded_gat``).  Every rank runs this
+edge-partitioned GCN-ODE (``parallel.sharded_gcn``), GAT-ODE
+(``parallel.sharded_gat``) or GRAND-nl (``parallel.sharded_grand``).  Every
+rank runs this
 function (SPMD): it partitions the graph on the host, keeps its node
 block's rows on its device, and holds a replica of the parameters.  Per
 step it all-reduces the parameter gradients once (SUM, before Adam) and
@@ -32,22 +33,26 @@ import torch
 import torch.distributed as dist
 
 from graph_odenet_tpu_torch.data.planetoid import NodeClassificationData
-from graph_odenet_tpu_torch.parallel import sharded_gat, sharded_gcn
+from graph_odenet_tpu_torch.parallel import sharded_gat, sharded_gcn, sharded_grand
 from graph_odenet_tpu_torch.parallel.mesh import device_for, world
 from graph_odenet_tpu_torch.parallel.partition import partition_by_receiver
 from graph_odenet_tpu_torch.utils.profiling import annotate
 
-__all__ = ["ShardedTrainConfig", "fit_sharded_node_classifier"]
+__all__ = ["ShardedTrainConfig", "fit_sharded_node_classifier", "MODELS"]
+
+MODELS = ("gcnode", "gatode", "grandnl")
 
 
 @dataclasses.dataclass
 class ShardedTrainConfig:
-    model: str = "gcnode"        # gcnode | gatode
-    hidden: int = 256            # gatode: per-head width (heads * hidden in all)
-    heads: int = 4               # gatode only
+    model: str = "gcnode"        # gcnode | gatode | grandnl
+    # gatode, grandnl: per-head width (heads * hidden in all; grandnl's d_k)
+    hidden: int = 256
+    heads: int = 4               # gatode and grandnl only
     steps: int = 4               # rk4 substeps
     t1: float = 1.0
-    mode: str = "ring"           # ring | ring_pallas | allgather (gcnode only)
+    # ring | ring_pallas | allgather (gcnode only); grandnl takes ring_pallas alone
+    mode: str = "ring"
     lr: float = 0.01
     weight_decay: float = 5e-4
     # Feature (and, gatode, attention) dropout; evaluation never drops.
@@ -58,7 +63,7 @@ class ShardedTrainConfig:
     eval_every: Optional[int] = None
     seed: int = 0
     # gatode: recompute each dynamics evaluation in the backward instead of
-    # keeping its per-edge activations.
+    # keeping its per-edge activations (grandnl takes False alone).
     remat: bool = False
     n_parts: Optional[int] = None  # default: the process group's size
     ckpt_dir: Optional[str] = None
@@ -88,11 +93,14 @@ def fit_sharded_node_classifier(
     replaces the seeded initialisation, e.g. with the JAX package's
     (``convert.params_from_sharded`` or ``params_from_sharded_gat``).
     """
-    if cfg.model not in ("gcnode", "gatode"):
-        raise ValueError(f"unknown sharded model {cfg.model!r}")
-    gat = cfg.model == "gatode"
+    if cfg.model not in MODELS:
+        raise ValueError(f"unknown sharded model {cfg.model!r}; one of {MODELS}")
+    gat, grand = cfg.model == "gatode", cfg.model == "grandnl"
     if gat and cfg.mode not in sharded_gat.MODES:
         raise ValueError(f"unknown mode {cfg.mode!r} for gatode; one of {sharded_gat.MODES}")
+    if grand and (cfg.mode != "ring_pallas" or cfg.remat):
+        raise ValueError(f"grandnl runs mode='ring_pallas' without remat, got mode={cfg.mode!r}, "
+                         f"remat={cfg.remat}")
     n_world, rank = world()
     n_parts = cfg.n_parts or n_world
     if n_parts != n_world:
@@ -118,6 +126,9 @@ def fit_sharded_node_classifier(
     if gat:
         model = sharded_gat.init_gatode_params(x.shape[1], cfg.hidden, cfg.heads, c,
                                                generator=init_gen)
+    elif grand:
+        model = sharded_grand.init_grandnl_params(x.shape[1], cfg.hidden, cfg.heads, c,
+                                                  generator=init_gen)
     else:
         model = sharded_gcn.init_params(x.shape[1], cfg.hidden, c, generator=init_gen)
     if init_state is not None:
@@ -126,14 +137,16 @@ def fit_sharded_node_classifier(
     opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, weight_decay=cfg.weight_decay)
     drop_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     seed_gen = torch.Generator().manual_seed(cfg.seed + 1)  # attention-dropout seeds (CPU)
-    common = dict(steps=cfg.steps, t1=cfg.t1, mode=cfg.mode)
+    common = dict(steps=cfg.steps, t1=cfg.t1)
 
     def forward(train: bool):
         kw = dict(common, dropout=cfg.dropout, generator=drop_gen) if train else common
         if gat:
             return sharded_gat.gatode_forward(model, pg, x, seed_generator=seed_gen,
-                                              remat=cfg.remat, **kw)
-        return sharded_gcn.forward(model, pg, x, **kw)
+                                              remat=cfg.remat, mode=cfg.mode, **kw)
+        if grand:
+            return sharded_grand.grandnl_forward(model, pg, x, **kw)
+        return sharded_gcn.forward(model, pg, x, mode=cfg.mode, **kw)
 
     def nll_sum(lp, w):
         return -(lp * y1h).sum(-1).mul(w).sum()

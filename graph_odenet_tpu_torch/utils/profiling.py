@@ -45,13 +45,25 @@ its forward (``perfbench/harness/spans.py``):
   ``gode.gat.recompute``   ``parallel.sharded_gat.gatode_forward`` under
                            ``remat``: each dynamics evaluation's recomputation
                            in the backward
+  ``gode.grand.score``     ``parallel.sharded_grand``: GRAND-nl's score pass,
+                           the keys' all-gather and each bucket's per-edge dot
+                           (``halo.bucket_scores``); its backward opens the
+                           span again around the scores' two B2-w reductions
+  ``gode.grand.softmax``   ``parallel.sharded_grand``: the scores' scale,
+                           segment max, exp, denominators, normalisation and
+                           mean over heads
+  ``gode.grand.aggregate`` ``parallel.sharded_grand``: the forward ring of B2-w
+                           over x(t) chunks (its backward's launches count
+                           under ``gode.bucket_reduce`` and ``gode.b2w.dpv``)
 
 What reads them: ``gode.train.step`` and ``gode.train.evaluate`` bound the
 trainer's device time; the device's idle time under ``gode.train.loss_read``
 and ``gode.train.eval_read`` is ``sync_idle_ms``; ``gode.bucket_reduce``,
-``gode.gat.softmax``, ``gode.b2w.dpv`` and ``gode.gat.recompute`` give
-``bucket_reduce_ms``, ``gat_softmax_ms``, ``gat_dpv_ms`` and
-``gat_recompute_ms``, the device ms of an epoch under each.
+``gode.gat.softmax``, ``gode.b2w.dpv``, ``gode.gat.recompute``,
+``gode.grand.score``, ``gode.grand.softmax`` and ``gode.grand.aggregate`` give
+``bucket_reduce_ms``, ``gat_softmax_ms``, ``gat_dpv_ms``,
+``gat_recompute_ms``, ``grand_score_ms``, ``grand_softmax_ms`` and
+``grand_aggregate_ms``, the device ms of an epoch under each.
 """
 
 from __future__ import annotations
@@ -68,6 +80,7 @@ __all__ = ["trace", "annotate", "debug_nans", "SPANS"]
 SPANS = (
     "gode.train.step", "gode.train.evaluate", "gode.train.loss_read", "gode.train.eval_read",
     "gode.bucket_reduce", "gode.gat.softmax", "gode.b2w.dpv", "gode.gat.recompute",
+    "gode.grand.score", "gode.grand.softmax", "gode.grand.aggregate",
 )
 
 _OFF = contextlib.nullcontext()

@@ -8,7 +8,8 @@ one-step check through the kernels (``chip_smoke.adjoint_step_check``), the
 same check of the Adams family, config 4's bit-equal resume,
 ``validate_tiling`` inside ``prepare`` of a card graph, and one step of each
 sharded model built in bf16 (``chip_smoke.sharded_step_check``); and
-B2-w's per-edge dot (``edge_dot``, ``dpv``) against its plain version.
+B2-w's per-edge dot (``edge_dot``, ``dpv``) against its plain version, and
+GRAND-nl's launches and one step against the CPU.
 
 Every test here needs a CUDA card and skips without one.  On the card
 (which has no JAX, so the repo's conftest cannot load):
@@ -937,6 +938,55 @@ def test_gat_sharded_kernel_path_matches_plain_path(cuda, rate):
     for other in ("plain", "ring"):
         for got, want in zip(results["kernel"], results[other]):
             torch.testing.assert_close(got, want, **TOL, msg=other)
+
+
+def test_grandnl_launches_and_step_on_the_card_match_the_cpu(cuda):
+    """GRAND-nl at its benchmark widths (4 heads of 64, rk4 × 4) on one part of
+    the calibrated arxiv twin at a hundredth: launches by ``ops.csr_spmm``'s
+    counters, a training step 32 ``edge_dot`` (16 scores, 16 ``dpv``) and 64
+    B2-w (16 aggregations, 16 value gradients, 32 score gradients), an
+    evaluation 16 and 16, no unweighted B2; and the step's log-probs (no
+    dropout: the card's generator draws other masks than the CPU's; atol
+    1e-4, f32 sums in the kernels' order through 16 evaluations) and every
+    gradient (atol 1e-4 of the larger of its leaf's largest entry and the
+    median leaf's: ``b_k``'s gradient is rounding, the softmax cancels it)
+    against the same step on the CPU."""
+    from graph_odenet_tpu_torch.data import synthetic_ogbn_arxiv
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver
+    from graph_odenet_tpu_torch.parallel.sharded_grand import grandnl_forward, init_grandnl_params
+
+    data = synthetic_ogbn_arxiv(seed=0, scale=0.01, calibrated=True)
+    init = init_grandnl_params(data.features.shape[1], 64, 4, data.n_class,
+                               generator=torch.Generator().manual_seed(3)).state_dict()
+    train = torch.zeros(data.graph.n_node_pad)
+    train[data.idx_train] = 1.0
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        pg = partition_by_receiver(data.graph, 1).to(dev)
+        model = init_grandnl_params(data.features.shape[1], 64, 4, data.n_class).to(dev)
+        model.load_state_dict(init)
+        x, labels, w = data.features.to(dev), data.labels.clamp(min=0).to(dev), train.to(dev)
+        counts = lambda: (csr_spmm.edge_dot_launches, csr_spmm.bucket_weighted_launches,  # noqa: E731
+                          csr_spmm.bucket_launches)
+        before = counts()
+        lp = grandnl_forward(model, pg, x, steps=4)  # no dropout: the card draws other masks
+        loss = -(lp.gather(1, labels[:, None])[:, 0] * w).sum() / w.sum()
+        loss.backward()
+        step = counts()
+        with torch.no_grad():
+            grandnl_forward(model, pg, x, steps=4)
+        evaluation = counts()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert tuple(a - b for a, b in zip(step, before)) == (32, 64, 0)
+            assert tuple(a - b for a, b in zip(evaluation, step)) == (16, 16, 0)
+        out[dev.type] = (lp.detach().cpu(), {k: v.grad.cpu() for k, v in model.named_parameters()})
+    (lp_card, g_card), (lp_cpu, g_cpu) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(lp_card, lp_cpu, rtol=0, atol=1e-4)
+    top = {k: float(v.abs().max()) for k, v in g_cpu.items()}
+    median = float(np.median(list(top.values())))
+    for k, g in g_cpu.items():
+        torch.testing.assert_close(g_card[k], g, rtol=0, atol=1e-4 * max(top[k], median), msg=k)
 
 
 # ------------------------------------------- config 3: the batched adaptive solver

@@ -11,8 +11,9 @@ from graph_odenet_tpu_torch.parallel import ShardedTrainConfig, fit_sharded_node
 from graph_odenet_tpu_torch.utils import profiling
 from perfbench.work import gatode as gatode_work
 from perfbench.work import gcnode as gcnode_work
+from perfbench.work import grandnl as grandnl_work
 
-WORK = {"gcnode": gcnode_work, "gatode": gatode_work}
+WORK = {"gcnode": gcnode_work, "gatode": gatode_work, "grandnl": grandnl_work}
 STEPS = 4  # rk4 substeps, as the benchmark's configurations run them
 LAYERS = 1 + 4 * STEPS + 1  # encoder, dynamics evaluations, readout
 DYNAMICS = 4 * STEPS
@@ -108,6 +109,34 @@ def test_span_instances_per_step_and_evaluation(model, mode, remat, data, tmp_pa
                  "gode.train.eval_read"):
         assert total[name] == 1, name
     assert set(total) <= set(profiling.SPANS)
+
+
+def test_grandnl_spans_per_step_and_evaluation(data, tmp_path):
+    """GRAND-nl opens its three spans at each evaluation of the dynamics; the
+    score op's backward opens ``gode.grand.score`` itself, around its two
+    B2-w reductions a bucket, so the scores' backward work lies under it."""
+    cfg = ShardedTrainConfig(model="grandnl", mode="ring_pallas", hidden=8, heads=2, steps=STEPS,
+                             dropout=0.5, epochs=1, eval_every=1, seed=5)
+    with profiling.trace(str(tmp_path / "trace")) as prof:
+        fit_sharded_node_classifier(cfg, data, device="cpu")
+    step, evaluation, total = _counts(prof)
+    train_calls, eval_calls = _bucket_calls("grandnl", cfg, data)
+    assert (train_calls, eval_calls) == (4 * DYNAMICS, DYNAMICS)
+    want_step = {"gode.grand.score": 2 * DYNAMICS, "gode.grand.softmax": DYNAMICS,
+                 "gode.grand.aggregate": DYNAMICS, "gode.bucket_reduce": train_calls,
+                 "gode.b2w.dpv": DYNAMICS, "gode.gat.softmax": 0, "gode.gat.recompute": 0}
+    want_eval = {"gode.grand.score": DYNAMICS, "gode.grand.softmax": DYNAMICS,
+                 "gode.grand.aggregate": DYNAMICS, "gode.bucket_reduce": eval_calls,
+                 "gode.b2w.dpv": 0}
+    assert {k: step.get(k, 0) for k in want_step} == want_step
+    assert {k: evaluation.get(k, 0) for k in want_eval} == want_eval
+    assert set(total) <= set(profiling.SPANS)
+
+    events = [e for e in prof.events() if e.name.startswith("gode.")]
+    scores = [e.time_range for e in events if e.name == "gode.grand.score"]
+    inside = [e for e in events if e.name == "gode.bucket_reduce"
+              and any(s.start <= e.time_range.start and e.time_range.end <= s.end for s in scores)]
+    assert len(inside) == 2 * DYNAMICS  # the scores' gradients: q's and k's, one bucket
 
 
 def test_a_traced_run_trains_as_an_untraced_one(data, tmp_path):

@@ -189,6 +189,36 @@ def sharded_gatode(rank, n_ranks, *, scale, params, hidden, heads, steps, modes,
     return out
 
 
+def grandnl(rank, n_ranks, *, scale, params, heads, steps, rate, drop_seed):
+    """GRAND-nl from ``params`` (numpy, by name) on this rank's block: the
+    log-prob rows without dropout, and with feature dropout ``rate`` from a
+    CPU generator seeded ``drop_seed`` the log-prob rows, the NLL over the
+    training nodes (all-reduced) and the all-reduced parameter gradients."""
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver
+    from graph_odenet_tpu_torch.parallel.sharded_gcn import (
+        all_reduce_grads, all_reduce_sum, shard_batch,
+    )
+    from graph_odenet_tpu_torch.parallel.sharded_grand import grandnl_forward, init_grandnl_params
+
+    data = _twin(scale)
+    pg = partition_by_receiver(data.graph, n_ranks)
+    d = params["w_q"].shape[0]
+    model = init_grandnl_params(data.features.shape[1], d // heads, heads, data.n_class)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
+    y1h, w = _labels_weight(data)
+    total = w.sum()
+    x, y1h, w = shard_batch(n_ranks, rank, data.features, y1h, w)
+    with torch.no_grad():
+        lp = grandnl_forward(model, pg, x, steps=steps)
+    lp_drop = grandnl_forward(model, pg, x, steps=steps, dropout=rate,
+                              generator=torch.Generator().manual_seed(drop_seed))
+    loss = -(lp_drop * y1h).sum(-1).mul(w).sum() / total
+    loss.backward()
+    all_reduce_grads(model)
+    return dict(lp=_np(lp), lp_drop=_np(lp_drop), loss=float(all_reduce_sum(loss.detach())),
+                grads={k: _np(p.grad) for k, p in model.named_parameters()})
+
+
 def _edge_graph(s, r, n, node_multiple):
     from graph_odenet_tpu_torch.graph import from_edges
 
@@ -539,5 +569,5 @@ TASKS = {"spmm_modes": spmm_modes, "sharded_gcn": sharded_gcn, "train": train, "
          "resume": resume,
          "config4_world": config4_world, "gat_modes": gat_modes, "sharded_gatode": sharded_gatode,
          "gat_world": gat_world, "feature_tp": feature_tp, "data_edge": data_edge,
-         "gat_data_edge": gat_data_edge,
+         "gat_data_edge": gat_data_edge, "grandnl": grandnl,
          "two_rings": two_rings, "scaling": scaling, "feature_tp_world": feature_tp_world}
