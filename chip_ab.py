@@ -8,8 +8,10 @@ from its own sources and measured in a process of its own.  The trees run
 one after another in the order given, so that two versions alternate on one
 card (parent, change, change, parent).  A turn runs this checkout's
 ``chip_smoke.py`` phases ``kernel`` (B1), ``bucket`` (B2),
-``bucket_weighted`` (B2-w) and ``attention`` (B3 ``gat_dwh``, B4 ``gat_fwd``,
-B5 ``gat_bwd`` and B1-w: ms, plain ms, bound, and host µs, device µs, device
+``bucket_weighted`` (B2-w), ``softmax_passes`` (``gather_rows`` and
+``segment_max`` beside ``index_select`` and ``scatter_reduce``, in a tree
+that has them) and ``attention`` (B3 ``gat_dwh``, B4 ``gat_fwd``, B5
+``gat_bwd`` and B1-w: ms, plain ms, bound, and host µs, device µs, device
 launches and share of bound (bound / device time) per call at each shape)
 with the tree's package, then, end
 to end, ``pubmed-gcnode``'s s/epoch, config 2's s/epoch (GAT-ODE on the
@@ -53,9 +55,12 @@ def turn(tree):
             for r in smoke.phase_kernel(dev, pubmed, smoke.bench_graph(from_edges))}
     for p, r in smoke.phase_bucket(dev, synthetic_ogbn_arxiv(seed=0).graph).items():
         rows[f"B2 arxiv P={p}"] = r
-    weighted = smoke.phase_bucket_weighted(dev, synthetic_ogbn_arxiv(seed=0, calibrated=True).graph)
+    arxiv_cal = synthetic_ogbn_arxiv(seed=0, calibrated=True).graph
+    weighted = smoke.phase_bucket_weighted(dev, arxiv_cal)
     for (h, f), r in ((k, r) for k, r in weighted.items() if k != "P8"):
         rows[f"B2-w calibrated arxiv P=1 H={h} F={f}"] = r
+    if hasattr(csr_spmm, "gather_rows"):  # a tree without the softmax's kernels has no such rows
+        rows.update(smoke.phase_softmax_passes(dev, arxiv_cal))
     names = {"gat_fwd": "B4", "gat_bwd": "B5", "gat_dwh": "B3", "csr_spmm_weighted": "B1-w"}
     for r in smoke.phase_attention(dev, smoke.bench_graph(from_edges, normalize=None)):
         for k, ms in r["kernel_ms"].items():
@@ -104,11 +109,15 @@ def main():
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             fh.writelines(line + "\n" for line in lines)
-    for key in turns[0]["rows"]:
-        for what in ("ms", "host_us", "device_us", "launches_per_call", "share_of_bound"):
-            if what in turns[0]["rows"][key]:
+    keys = dict.fromkeys(k for t in turns for k in t["rows"])
+    for key in keys:
+        for what in ("ms", "library_ms", "host_us", "device_us", "library_device_us",
+                     "launches_per_call", "share_of_bound"):
+            have = [t for t in turns
+                    if isinstance(t["rows"].get(key, {}).get(what), (int, float))]
+            if have:
                 print(key, what, " | ".join(f"{t['tree']} {t['rows'][key][what]:.4f}"
-                                             for t in turns))
+                                             for t in have))
     for key in turns[0]["end_to_end"]:
         print(key, " | ".join(f"{t['tree']} {t['end_to_end'][key]:.4f}" for t in turns))
 

@@ -93,6 +93,17 @@ so the exit code is non-zero:
              (``_dot_err``), two calls bit-equal; its ms beside the plain
              ``dpv``'s, its bound, and its host µs, device µs and device
              launches per call (one launch of ``edge_dot_kernel``).
+  softmax_passes
+             the attention softmax's order-free passes on the calibrated
+             arxiv twin at P = 1: ``gather_rows`` against ``index_select``
+             and ``segment_max`` against ``scatter_reduce`` ("amax" from the
+             floor), each bit for bit, at H = 1 and 4 in f32 with the
+             receivers in CSR order and in ``t_perm``'s (CSC) order; ms of
+             each and of its PyTorch call in turns, the bound by bytes, and
+             host µs and device µs per call of both, and device launches per
+             call (one of ``gather_rows_kernel`` or, rows of 2, 4 or 8 bytes,
+             ``gather_packed_kernel``; one of ``segment_max_kernel`` beside
+             the fill of the floor).
   config4_gat
              the edge-partitioned GAT-ODE (hidden 64 × 4 heads, rk4 × 4,
              dropout 0.6, ``ring_pallas``, ``remat``) on the full calibrated
@@ -287,6 +298,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -1545,6 +1557,112 @@ class plain_bucket_mode:
 
     def __exit__(self, *exc):
         self.halo.bucket_reduce, self.halo.edge_dot = self.kernels
+
+
+class plain_softmax_passes:
+    """Within the block the sharded GAT and GRAND-nl take the softmax's
+    order-free passes through PyTorch's calls instead of the kernels:
+    ``index_select`` (autograd's backward) for ``gather_rows``,
+    ``scatter_reduce`` for ``segment_max``, ``ops.segment.segment_sum`` for
+    the denominators' Function: the calls the kernels replace."""
+
+    def __enter__(self):
+        from graph_odenet_tpu_torch.ops import segment
+        from graph_odenet_tpu_torch.ops.csr_spmm import MAX_FLOOR
+        from graph_odenet_tpu_torch.parallel import halo, sharded_gat, sharded_grand
+
+        def gather(t, idx):
+            return t.index_select(0, idx)
+
+        def seg_max(e, rows, n_rows):
+            e = e.detach()
+            m = e.new_full((n_rows, e.shape[1]), MAX_FLOOR)
+            return m.scatter_reduce(0, rows.long()[:, None].expand_as(e), e, "amax",
+                                    include_self=True)
+
+        self.saved = [(m, k, getattr(m, k)) for m, k in (
+            (sharded_gat, "gather_rows"), (sharded_grand, "gather_rows"), (halo, "gather_rows"),
+            (sharded_gat, "segment_max"), (sharded_gat, "_Denominators"))]
+        for m in (sharded_gat, sharded_grand, halo):
+            m.gather_rows = gather
+        sharded_gat.segment_max = seg_max
+        sharded_gat._Denominators = types.SimpleNamespace(apply=segment.segment_sum)
+
+    def __exit__(self, *exc):
+        for m, k, v in self.saved:
+            setattr(m, k, v)
+
+
+def phase_softmax_passes(dev, graph, iters=50):
+    """``gather_rows`` and ``segment_max`` on the calibrated arxiv twin at P = 1
+    against PyTorch's calls (see the module doc).  Returns ``{name: row}``."""
+    from graph_odenet_tpu_torch.ops import csr_spmm
+    from graph_odenet_tpu_torch.ops.csr_spmm import MAX_FLOOR, gather_rows, segment_max
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver
+
+    pg = partition_by_receiver(graph, 1).to(dev)
+    blk, perm = pg.blocks[0], pg.bucket(0, 0).t_perm
+    n, n_edge = pg.block_size, blk.receivers.shape[0]
+    rng = np.random.default_rng(51)
+
+    def scatter_max(e, rows):
+        m = e.new_full((n, e.shape[1]), MAX_FLOOR)
+        return m.scatter_reduce(0, rows[:, None].expand_as(e), e, "amax", include_self=True)
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    rows = {}
+    for heads in (1, 4):
+        table, e = _randn(rng, (n, heads), dev), _randn(rng, (n_edge, heads), dev)
+        per_edge = _randn(rng, (n_edge, heads), dev)
+        e_t, rows_t = e.index_select(0, perm), blk.receivers.index_select(0, perm)
+        # (kernel, PyTorch's call, rows of the table or of the max): the gathers of
+        # m and of the denominators (by receiver), of the scores (by sender), of the
+        # scores' gradients into CSC order (an [E, H] table by t_perm); the max in
+        # CSR order and in t_perm's.
+        calls = {
+            "gather_rows receivers": (lambda: gather_rows(table, blk.receivers),
+                                      lambda: table.index_select(0, blk.receivers), n),
+            "gather_rows senders": (lambda: gather_rows(table, blk.senders),
+                                    lambda: table.index_select(0, blk.senders), n),
+            "gather_rows t_perm": (lambda: gather_rows(per_edge, perm),
+                                   lambda: per_edge.index_select(0, perm), n_edge),
+            "segment_max sorted": (lambda: segment_max(e, blk.receivers, n),
+                                   lambda: scatter_max(e, blk.receivers), n),
+            "segment_max t_perm": (lambda: segment_max(e_t, rows_t, n),
+                                   lambda: scatter_max(e_t, rows_t), n),
+        }
+        for key, (kernel, library, n_table) in calls.items():
+            name = key.split()[0]
+            counter = f"{name}_launches"
+            before = getattr(csr_spmm, counter)
+            got, want = kernel(), library()
+            torch.cuda.synchronize()
+            if getattr(csr_spmm, counter) - before != 1 or not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"softmax_passes {key} H={heads}: not one launch or not "
+                                     "bit-equal to PyTorch's call")
+            times = alternate({"kernel": kernel, "library": library}, iters)
+            costs, lib_costs = call_costs(kernel, calls=200), call_costs(library, calls=200)
+            # segment_max: its kernel beside the fill of the floor.
+            most = 1 if name == "gather_rows" else 2
+            mine = ("gather_rows_kernel", "gather_packed_kernel") if name == "gather_rows" \
+                else ("segment_max_kernel",)
+            if costs["launches_per_call"] > most or not any(m in k for m in mine
+                                                             for k in costs["kernels"]):
+                raise AssertionError(f"softmax_passes {key}: kernels {costs['kernels']}")
+            # [E, H] f32 written (gather) or read (max), E int64 indices, the table or the max.
+            cost = bound(n_edge * heads * 4 + n_edge * 8 + n_table * heads * 4, 0)
+            rows[f"{key} H={heads}"] = row = dict(
+                ms=times["kernel"], library_ms=times["library"], **cost,
+                shape=f"[{n_edge}, {heads}] f32, {n_table} rows of table or max",
+                host_us=costs["host_us"], device_us=costs["device_us"],
+                library_host_us=lib_costs["host_us"], library_device_us=lib_costs["device_us"],
+                launches_per_call=costs["launches_per_call"], kernels=costs["kernels"],
+                share_of_bound=(cost["bound_ms"] * 1e3 / costs["device_us"]
+                                if costs["device_us"] else float("nan")))
+            emit("softmax_passes", name=f"{key} H={heads}", **row)
+    return rows
 
 
 def sharded_gat_config():
@@ -3444,6 +3562,7 @@ def main():
     ])
     arxiv_cal = synthetic_ogbn_arxiv(seed=0, calibrated=True)  # the sharded GAT-ODE's twin
     weighted_buckets = timed("bucket_weighted", phase_bucket_weighted, dev, arxiv_cal.graph)
+    softmax = timed("softmax_passes", phase_softmax_passes, dev, arxiv_cal.graph)
     gat_bucket_launches = timed("config4_gat", phase_config4_gat, dev, arxiv_cal)
     resume_launches = timed("resume", phase_resume, dev, arxiv, arxiv_cal)
     physics = timed("physics", phase_physics, dev, args.physics_epochs)
@@ -3640,6 +3759,23 @@ def main():
             "other_shapes": {f"H={h},F={f}": {k: weighted_buckets[h, f]["edge_dot"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by")} for h, f in GAT_SHAPES},
         },
+        *({
+            "name": name,
+            "route": "cuda",
+            "source": spmm_src,
+            "replaces": f"none: PyTorch's {library} in the attention softmax (the JAX package "
+                        "leaves it to XLA)",
+            "tolerance": "bit-equal to PyTorch's call",
+            **{k: softmax[f"{row} H=4"][k] for k in (
+                "ms", "library_ms", "bound_ms", "bound_by", "host_us", "device_us",
+                "library_device_us", "launches_per_call")},
+            "shape": f"calibrated arxiv twin, P=1, [E, 4] f32, {row}, one call",
+            "other_shapes": {k: {f: r[f] for f in ("ms", "library_ms", "bound_ms", "device_us",
+                                                   "library_device_us")}
+                             for k, r in softmax.items() if k.startswith(name)},
+        } for name, library, row in (
+            ("gather_rows", "index_select", "gather_rows receivers"),
+            ("segment_max", "scatter_reduce amax", "segment_max sorted"))),
         dict(att_entry("csr_spmm_weighted", spmm_src, "graph_odenet_tpu/ops/pallas_spmm.py:479",
                        mask_row, weighted),
              surfaces_launches=surface_launches.get("csr_weighted", 0)),

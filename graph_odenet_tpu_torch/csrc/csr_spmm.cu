@@ -99,6 +99,45 @@
 //   * no split-row merge, no arrival counter and no atomic: every edge's dot
 //     belongs to one warp, so repeated calls are bit-equal and the call is
 //     one capturable launch.
+//
+// The attention softmax's order-free per-edge passes
+// (parallel/sharded_gat.py::edge_softmax and the gathers around it, shared by
+// the sharded GAT-ODE and GRAND-nl).  Neither replaces a TPU kernel: the JAX
+// package leaves them to XLA, and the port left them to PyTorch, whose
+// index_select took 1.23 ms a call on 2.04 M indices for rows of 16 bytes or
+// more (H = 4 f32; 0.02 ms for rows of 4 or 8 bytes) and whose scatter_reduce
+// "amax" 0.6-1.4 ms (a float CAS loop per edge, about 12 consecutive lanes of
+// receiver-sorted edges on one address; H100).  Neither takes a sum, so both
+// give the same bits in any order, and every sum of the softmax stays on
+// index_add_.
+//
+// Narrow-row gather (gode_gather_rows): out[p, :] = table[idx[p], :].  What
+// bounds it: bytes, [E, H] written and E indices read (the table's 169,344
+// short rows sit in L2).  Design: one thread per 16-byte vector of output, so
+// a warp's stores are one contiguous span and its index loads coalesce: a
+// row that is a multiple of 16 bytes is copied in 16-byte units; a row of 2,
+// 4 or 8 bytes (H = 1 in f32, H = 4 in bf16) is packed, a thread gathering
+// the 16 / row-bytes consecutive rows of one 16-byte store, its loads all in
+// flight; any other row (or a strided table) one element a thread.  A copy of
+// bits, so any dtype of 2 or 4 bytes is exact.  An index out of range stops
+// the kernel with a device-side assert, as index_select does.
+//
+// Per-receiver max (gode_segment_max): out[r, h] = max(out[r, h], max over
+// the edges p with rows[p] = r of e[p, h]), out filled with the floor by the
+// wrapper.  What bounds it: bytes, [E, H] values and E indices read.  Design:
+// one thread per value (an edge's head), so the loads coalesce, each value
+// mapped to an int that orders as the float does (NaN above everything, +0
+// above -0).  Lanes l and l + H of a warp hold one head of consecutive edges:
+// the lanes of one head and one run of equal rows are reduced by a segmented
+// shuffle scan at strides H, 2H, ..., and the run's first lane makes one
+// atomic on the float's own bits: an atomicMax of a non-negative float as an
+// int, an atomicMin of a negative one as an unsigned (bf16: a CAS on the
+// 32-bit word that holds it).  A warp's atomics land on the rows of its
+// edges, the heads of a row side by side, so even rows in no order (every
+// lane its own atomic) cost a row's sector per edge, not per value.  Rows in
+// any order give the same result.
+#include <cassert>
+#include <climits>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -413,6 +452,194 @@ int launch_dot(const CsrPlan& plan, const float* x, const float* g, float* out, 
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kPassThreads = 256;
+
+// Grid-stride over the E * width units of out: unit c of out row p is unit c
+// of table row idx[p].  U is the unit (a 16-byte vector or one element), I
+// the index type; ld is the table's row stride in units.
+template <class U, class I>
+__global__ void __launch_bounds__(kPassThreads)
+gather_rows_kernel(const U* __restrict__ table, const I* __restrict__ idx, U* __restrict__ out,
+                   int64_t n_table, int64_t ld, int64_t width, int64_t n) {
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kPassThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kPassThreads + threadIdx.x; i < n;
+       i += step) {
+    const int64_t p = width == 1 ? i : i / width;
+    const int64_t j = static_cast<int64_t>(__ldg(idx + p));
+    assert(j >= 0 && j < n_table);
+    out[i] = __ldg(table + j * ld + (i - p * width));
+  }
+}
+
+// Packed rows: Row is one whole row of 2, 4 or 8 bytes (a contiguous table),
+// and thread t writes rows t·R .. t·R + R - 1 (R = 16 / sizeof(Row)) as one
+// 16-byte store; the last, partial vector row by row.
+template <class Row, class I>
+__global__ void __launch_bounds__(kPassThreads)
+gather_packed_kernel(const Row* __restrict__ table, const I* __restrict__ idx,
+                     Row* __restrict__ out, int64_t n_table, int64_t n_idx) {
+  constexpr int R = 16 / sizeof(Row);
+  const int64_t n_vec = (n_idx + R - 1) / R;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kPassThreads;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * kPassThreads + threadIdx.x; t < n_vec;
+       t += step) {
+    const int64_t p0 = t * R;
+    if (p0 + R <= n_idx) {
+      int64_t j[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) j[k] = static_cast<int64_t>(__ldg(idx + p0 + k));
+      union {
+        uint4 v;
+        Row r[R];
+      } u;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        assert(j[k] >= 0 && j[k] < n_table);
+        u.r[k] = __ldg(table + j[k]);
+      }
+      reinterpret_cast<uint4*>(out)[t] = u.v;
+    } else {
+      for (int64_t p = p0; p < n_idx; ++p) {
+        const int64_t jp = static_cast<int64_t>(__ldg(idx + p));
+        assert(jp >= 0 && jp < n_table);
+        out[p] = __ldg(table + jp);
+      }
+    }
+  }
+}
+
+inline unsigned gather_blocks(int64_t threads) {
+  const int64_t want = (threads + kPassThreads - 1) / kPassThreads;
+  return static_cast<unsigned>(want < (1 << 20) ? want : (1 << 20));
+}
+
+template <class U, class I>
+int launch_gather(const void* table, const void* idx, void* out, int64_t n_table, int64_t ld,
+                  int64_t width, int64_t n, cudaStream_t st) {
+  gather_rows_kernel<U, I><<<gather_blocks(n), kPassThreads, 0, st>>>(
+      static_cast<const U*>(table), static_cast<const I*>(idx), static_cast<U*>(out), n_table, ld,
+      width, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Row, class I>
+int launch_packed(const void* table, const void* idx, void* out, int64_t n_table, int64_t n_idx,
+                  cudaStream_t st) {
+  constexpr int R = 16 / sizeof(Row);
+  gather_packed_kernel<Row, I><<<gather_blocks((n_idx + R - 1) / R), kPassThreads, 0, st>>>(
+      static_cast<const Row*>(table), static_cast<const I*>(idx), static_cast<Row*>(out), n_table,
+      n_idx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An int that orders as the float does: a non-negative float's bits, a
+// negative one's bits with the magnitude flipped (so -0 < +0), NaN above all.
+__device__ __forceinline__ int order_key(float v) {
+  const int b = __float_as_int(v);
+  return v != v ? INT_MAX : b >= 0 ? b : b ^ 0x7fffffff;
+}
+__device__ __forceinline__ unsigned int key_bits(int k) {
+  return static_cast<unsigned int>(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+__device__ __forceinline__ float load_value(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_value(const __nv_bfloat16* p) {
+  return gode::bf16_lo(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// out = max(out, the float of `key`).  Non-negative floats order as ints,
+// negative ones in reverse as unsigneds, and either order puts every
+// non-negative float above every negative one.
+__device__ __forceinline__ void max_into(float* out, int key) {
+  if (key >= 0) {
+    atomicMax(reinterpret_cast<int*>(out), key);
+  } else {
+    atomicMin(reinterpret_cast<unsigned int*>(out), key_bits(key));
+  }
+}
+
+// bf16: a CAS on the aligned 32-bit word that holds out (the wrapper pads the
+// buffer to whole words).  The key came from a bf16, so its float's low 16
+// bits are 0.  A stale first read is older, hence no larger: it can only cost
+// a CAS, never skip one.
+__device__ __forceinline__ void max_into(__nv_bfloat16* out, int key) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(out);
+  unsigned int* word = reinterpret_cast<unsigned int*>(a & ~static_cast<uintptr_t>(3));
+  const int shift = (a & 2) ? 16 : 0;
+  const unsigned int mine = (key_bits(key) >> 16) << shift;
+  unsigned int old = *word;
+  while (order_key(__uint_as_float(((old >> shift) & 0xffffu) << 16)) < key) {
+    const unsigned int seen = atomicCAS(word, old, (old & ~(0xffffu << shift)) | mine);
+    if (seen == old) return;
+    old = seen;
+  }
+}
+
+// One thread per value i of e (edge p = i / H, head i % H).  Lane l + H holds
+// the same head of the next edge, so a reverse shuffle scan at strides H, 2H,
+// 4H, ... folds the lanes of one head and one run of equal rows into the
+// run's first lane (lane l takes lane l + H·2^k's value where that lane holds
+// l's row: within a run, lane l ends with every value of the run, and perhaps
+// other values of the same row, which a max may take twice), then one atomic
+// a run.  At H >= 32 every lane is its own run.
+// kH: H at compile time (1, 2, 4, 8: the edge of value i is a shift away), or
+// 0 for H as given.
+template <class T, class I, int kH>
+__global__ void __launch_bounds__(kPassThreads)
+segment_max_kernel(const T* __restrict__ e, const I* __restrict__ rows, T* __restrict__ out,
+                   int64_t n, int64_t n_heads, int64_t n_rows) {
+  const int64_t heads = kH ? kH : n_heads;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kPassThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool live = i < n;
+  const int64_t p = heads == 1 ? i : i / heads;
+  const int64_t r = live ? static_cast<int64_t>(__ldg(rows + p)) : -1;
+  assert(!live || (r >= 0 && r < n_rows));
+  const int stride = heads < 32 ? static_cast<int>(heads) : 32;  // uniform across the warp
+  const int64_t up = stride < 32 ? __shfl_up_sync(kFullMask, r, stride) : r;
+  const bool first = live && (lane < stride || up != r);
+  unsigned int same = 0;  // bit k: lane + stride·2^k is in the warp and holds this lane's row
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int d = stride << k;
+    if (d >= 32) break;
+    const int64_t down = __shfl_down_sync(kFullMask, r, d);
+    if (live && lane + d < 32 && down == r) same |= 1u << k;
+  }
+  int key = live ? order_key(load_value(e + i)) : INT_MIN;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int d = stride << k;
+    if (d >= 32) break;
+    const int other = __shfl_down_sync(kFullMask, key, d);
+    if ((same >> k) & 1u) key = other > key ? other : key;
+  }
+  if (first) max_into(out + r * heads + (i - p * heads), key);
+}
+
+template <class T, class I>
+int launch_max(const void* e, const void* rows, void* out, int64_t n_edge, int64_t heads,
+               int64_t n_rows, cudaStream_t st) {
+  const int64_t n = n_edge * heads;
+  const int64_t blocks = (n + kPassThreads - 1) / kPassThreads;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* ev = static_cast<const T*>(e);
+  const auto* rv = static_cast<const I*>(rows);
+  auto* ov = static_cast<T*>(out);
+  const unsigned nb = static_cast<unsigned>(blocks);
+#define GODE_MAX_H(H_) \
+  segment_max_kernel<T, I, H_><<<nb, kPassThreads, 0, st>>>(ev, rv, ov, n, heads, n_rows)
+  switch (heads) {
+    case 1: GODE_MAX_H(1); break;
+    case 2: GODE_MAX_H(2); break;
+    case 4: GODE_MAX_H(4); break;
+    case 8: GODE_MAX_H(8); break;
+    default: GODE_MAX_H(0);
+  }
+#undef GODE_MAX_H
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One launch: out (+)= A x over the view of `plan` (see the header).  `mode`:
@@ -481,4 +708,68 @@ extern "C" int gode_edge_dot_f32(const CsrPlan* plan, const float* x, const floa
     default: return bad;
   }
 #undef GODE_DOT
+}
+
+// One launch of the narrow-row gather (see the header): out [n_idx, width]
+// units = table[idx[p]] row by row, the table [n_table, >= width] units with
+// row stride ld.  `unit` is the bytes of a unit: 16 (table and out 16-byte
+// aligned), 4 or 2; or, `packed` nonzero, the bytes of a whole row (2, 4 or
+// 8; width = ld = 1, table aligned to it, out 16-byte aligned).  `idx64`
+// nonzero for int64 indices, else int32.  Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() after the launch (0 on
+// success; nothing is launched for an empty out).
+extern "C" int gode_gather_rows(const void* table, const void* idx, void* out, int64_t n_table,
+                                int64_t ld, int64_t width, int64_t n_idx, int unit, int packed,
+                                int idx64, void* stream) {
+  const auto bad = static_cast<int>(cudaErrorInvalidValue);
+  const auto t = reinterpret_cast<uintptr_t>(table), o = reinterpret_cast<uintptr_t>(out);
+  if (n_table < 0 || n_idx < 0 || width < 1 || ld < width) return bad;
+  if ((unit == 16 || packed) && (o % 16 || t % unit)) return bad;
+  if (packed && (width != 1 || ld != 1)) return bad;
+  const int64_t n = n_idx * width;
+  if (n == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GODE_GATHER(U_)                                                                        \
+  return idx64 ? launch_gather<U_, long long>(table, idx, out, n_table, ld, width, n, st)     \
+               : launch_gather<U_, int>(table, idx, out, n_table, ld, width, n, st)
+#define GODE_PACKED(R_)                                                                        \
+  return idx64 ? launch_packed<R_, long long>(table, idx, out, n_table, n_idx, st)            \
+               : launch_packed<R_, int>(table, idx, out, n_table, n_idx, st)
+  if (packed) {
+    switch (unit) {
+      case 8: GODE_PACKED(uint2);
+      case 4: GODE_PACKED(unsigned int);
+      case 2: GODE_PACKED(unsigned short);
+      default: return bad;
+    }
+  }
+  switch (unit) {
+    case 16: GODE_GATHER(uint4);
+    case 4: GODE_GATHER(unsigned int);
+    case 2: GODE_GATHER(unsigned short);
+    default: return bad;
+  }
+#undef GODE_GATHER
+#undef GODE_PACKED
+}
+
+// One launch of the per-receiver max (see the header): out [n_rows, heads]
+// (filled by the caller; bf16: in a buffer of whole 32-bit words) = the max
+// of out and, per row, its edges' rows of e [n_edge, heads], row-major, f32 or
+// (`bf16` nonzero) bf16; rows [n_edge] int64 (`idx64` nonzero) or int32, in
+// any order.  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after the launch (0 on success; nothing is launched
+// without edges).
+extern "C" int gode_segment_max(const void* e, const void* rows, void* out, int64_t n_edge,
+                                int64_t heads, int64_t n_rows, int bf16, int idx64,
+                                void* stream) {
+  if (n_edge < 0 || heads < 1 || n_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_edge == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GODE_MAX(T_)                                                                           \
+  return idx64 ? launch_max<T_, long long>(e, rows, out, n_edge, heads, n_rows, st)           \
+               : launch_max<T_, int>(e, rows, out, n_edge, heads, n_rows, st)
+  if (bf16) GODE_MAX(__nv_bfloat16);
+  GODE_MAX(float);
+#undef GODE_MAX
 }

@@ -66,6 +66,16 @@ _SIGNATURES = {
             _i64, _i64, _i, _i,        # heads, feat, lanes, vec
             _p,                        # stream
         ],
+        "gode_gather_rows": [
+            _p, _p, _p,                # table, idx, out
+            _i64, _i64, _i64, _i64,    # n_table, ld, width, n_idx
+            _i, _i, _i, _p,            # unit, packed, idx64, stream
+        ],
+        "gode_segment_max": [
+            _p, _p, _p,                # e, rows, out
+            _i64, _i64, _i64,          # n_edge, heads, n_rows
+            _i, _i, _p,                # bf16, idx64, stream
+        ],
     },
     "gat_attn": {
         "gode_gat_fwd_f32": _GAT_FWD,

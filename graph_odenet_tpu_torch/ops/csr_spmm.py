@@ -27,6 +27,14 @@ it is a kernel of its own in the same source (one pass over the view's
 segments, no ``[E, H·feat]`` temporary), on a CPU tensor the plain gather,
 product and sum ``_edge_dot_plain``.
 
+``gather_rows(table, idx)`` and ``segment_max(e, rows, n_rows)`` are the
+attention softmax's order-free per-edge passes: ``table[idx]`` (differentiable,
+its backward ``index_select``'s own ``index_add_``) and each row's maximum of
+its edges.  On a CUDA tensor each is one launch of a kernel of its own in the
+same source; on a CPU tensor ``index_select`` and ``scatter_reduce``.  A copy
+and a max do not depend on order, so the kernels give the plain versions'
+bits.
+
 On a CUDA tensor the reduction is the hand-written kernel in
 ``csrc/csr_spmm.cu``; on a CPU tensor it is the plain version
 ``_reduce_plain`` (gather + ``index_add_``).  There is no other path: a CUDA
@@ -77,7 +85,8 @@ from graph_odenet_tpu_torch.utils.sanitize import validate_tiling
 
 __all__ = [
     "CSRGraph", "CSRView", "Partition", "LaunchPlan", "prepare", "csr_view", "csr_reduce",
-    "bucket_reduce", "edge_dot", "spmm_csr", "spmm_csr_reference", "SEG_EDGES", "widen",
+    "bucket_reduce", "edge_dot", "gather_rows", "segment_max", "spmm_csr", "spmm_csr_reference",
+    "SEG_EDGES", "MAX_FLOOR", "widen",
 ]
 
 #: Most edges one warp reduces; longer rows are cut into several segments.
@@ -95,6 +104,12 @@ bf16_launches = {"csr": 0, "bucket": 0}
 edge_dot_launches = 0
 #: Most heads ``edge_dot`` takes (its kernel keeps 32 edges × heads sums a warp).
 EDGE_DOT_MAX_HEADS = 32
+#: Number of kernel launches made by ``gather_rows`` and by ``segment_max`` in this process.
+gather_rows_launches = 0
+segment_max_launches = 0
+#: What ``segment_max`` starts each row at, and a row without edges reads (not
+#: −inf, which would turn a softmax over no edges into NaN).
+MAX_FLOOR = -1e30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -655,6 +670,128 @@ def edge_dot(
     if rc != 0:
         raise RuntimeError(f"edge_dot kernel launch failed: CUDA error {rc}")
     edge_dot_launches += 1
+    return out
+
+
+def _check_pass(who, name, t, idx, n_idx, n_range):
+    """The per-edge passes' checks: a 2-D ``t`` of a dtype they take (float64
+    on the CPU only: the plain versions serve the float64 references), a 1-D
+    int64 or int32 ``idx`` of ``n_idx`` entries (any, when None) on ``t``'s
+    device, and on the CPU every entry in ``[0, n_range)`` (the kernels stop
+    on one out of range with a device-side assert, as ``index_select`` does:
+    a check here would wait for the device)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who} runs on CPU or CUDA tensors, not {t.device}")
+    taken = DTYPES + ((torch.float64,) if t.device.type == "cpu" else ())
+    if t.dtype not in taken:
+        raise TypeError(f"{who} takes {name} of {', '.join(map(str, taken))}, got {t.dtype}")
+    if t.dim() != 2:
+        raise ValueError(f"{who} takes a 2-D {name}, got shape {tuple(t.shape)}")
+    if idx.dtype not in (torch.int64, torch.int32):
+        raise TypeError(f"{who} takes int64 or int32 indices, got {idx.dtype}")
+    if idx.dim() != 1 or (n_idx is not None and idx.shape[0] != n_idx):
+        raise ValueError(f"{who} takes indices [{'E' if n_idx is None else n_idx}], got "
+                         f"{tuple(idx.shape)}")
+    if idx.device != t.device:
+        raise ValueError(f"the indices are on {idx.device} but {name} is on {t.device}")
+    if not t.is_cuda and idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n_range):
+        raise IndexError(f"{who}: an index outside [0, {n_range})")
+
+
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table.index_select(0, idx)``, ``[E, H]`` in ``table``'s dtype: the plain
+    call on a CPU tensor, one launch of the gather kernel on a CUDA one (none
+    for an empty result).  The kernel copies 16-byte units where a row is a
+    multiple of 16 bytes and aligned, packs rows of 2, 4 or 8 bytes of a
+    contiguous table 16 bytes a thread, and copies any other row one element a
+    thread."""
+    global gather_rows_launches
+    _check_pass("gather_rows", "table", table, idx, None, table.shape[0] if table.dim() else 0)
+    if not table.is_cuda:
+        return table.index_select(0, idx)
+    if table.stride(1) != 1:
+        table = table.contiguous()
+    n, h = idx.shape[0], table.shape[1]
+    out = table.new_empty((n, h))
+    if n == 0 or h == 0:
+        return out
+    size, t_ptr, o_ptr = table.element_size(), table.data_ptr(), out.data_ptr()
+    row = h * size
+    ld = table.stride(0) if table.shape[0] > 1 else h
+    if row % 16 == 0 and (ld * size) % 16 == 0 and (t_ptr | o_ptr) % 16 == 0:
+        unit, packed = 16, 0
+    elif row in (2, 4, 8) and ld == h and t_ptr % row == 0 and o_ptr % 16 == 0:
+        unit, packed = row, 1
+    else:
+        unit, packed = size, 0
+    per = unit // size
+    rc = _build.load_library("csr_spmm").gode_gather_rows(
+        t_ptr, idx.data_ptr(), o_ptr, table.shape[0], ld // per, h // per, n, unit, packed,
+        int(idx.dtype == torch.int64), torch.cuda.current_stream(table.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {rc}")
+    gather_rows_launches += 1
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return _gather_rows(table, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        # index_select's own backward: each row's gradient added at its table row.
+        return g.new_zeros((ctx.n_rows, g.shape[1])).index_add_(0, idx, g), None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``: the rows ``idx [E]`` (int64 or int32) of ``table [N, H]``
+    (float32 or bfloat16; float64 on the CPU), ``[E, H]``, differentiable in
+    ``table`` with ``index_select``'s backward (``zeros([N, H]).index_add_(0,
+    idx, g)``), so its gradient sums as ``index_select``'s does.  A CPU tensor
+    takes ``index_select``; a CUDA tensor one launch of the gather kernel,
+    which copies bits: the same values in any index order.  A table whose rows
+    are strided (a column slice) is read in place."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return _GatherRows.apply(table, idx)
+    return _gather_rows(table, idx)
+
+
+def segment_max(e: torch.Tensor, rows: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """``[n_rows, H]``: each row's maximum of its edges' rows of ``e [E, H]``
+    and ``MAX_FLOOR`` (which a row without edges reads), without a gradient;
+    ``rows [E]`` (int64 or int32) is each edge's row, in any order.  A CPU
+    tensor takes ``scatter_reduce`` ("amax", the floor included); a CUDA tensor
+    one launch of the max kernel beside the fill of the floor: the same bits
+    (where a row's maximum is a zero of both signs the kernel gives +0 and
+    ``scatter_reduce`` either), since a max does not depend on order.  f32 or
+    bf16 (float64 on the CPU), in ``e``'s dtype."""
+    global segment_max_launches
+    _check_pass("segment_max", "e", e, rows, e.shape[0] if e.dim() else None, n_rows)
+    e = e.detach()
+    if not e.is_cuda:
+        m = e.new_full((n_rows, e.shape[1]), MAX_FLOOR)
+        return m.scatter_reduce(0, rows.long()[:, None].expand_as(e), e, "amax",
+                                include_self=True)
+    e = e.contiguous()
+    h = e.shape[1]
+    numel = n_rows * h
+    # bf16: a buffer of whole 32-bit words, which the kernel's CAS takes.
+    out = torch.full((numel + numel % 2,), MAX_FLOOR, dtype=e.dtype, device=e.device)
+    out = out[:numel].view(n_rows, h)
+    if e.shape[0] == 0 or h == 0:
+        return out
+    rc = _build.load_library("csr_spmm").gode_segment_max(
+        e.data_ptr(), rows.data_ptr(), out.data_ptr(), e.shape[0], h, n_rows,
+        int(e.dtype == torch.bfloat16), int(rows.dtype == torch.int64),
+        torch.cuda.current_stream(e.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_max kernel launch failed: CUDA error {rc}")
+    segment_max_launches += 1
     return out
 
 

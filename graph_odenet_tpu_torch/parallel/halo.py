@@ -46,7 +46,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from graph_odenet_tpu_torch.ops.csr_spmm import bucket_reduce, edge_dot, row_ids, widen
+from graph_odenet_tpu_torch.ops.csr_spmm import bucket_reduce, edge_dot, gather_rows, row_ids, widen
 from graph_odenet_tpu_torch.parallel.mesh import check_backend, global_rank, world
 from graph_odenet_tpu_torch.parallel.partition import Bucket, PartitionedGraph
 from graph_odenet_tpu_torch.utils.profiling import annotate
@@ -178,7 +178,7 @@ class _BucketScores(torch.autograd.Function):
         ds = ds.contiguous()
         dq = dk = None
         if ctx.needs_input_grad[1]:
-            ds_t = ds.index_select(0, bucket.t_perm)  # the scores' gradients in CSC order
+            ds_t = gather_rows(ds, bucket.t_perm)  # the scores' gradients in CSC order
         with annotate("gode.grand.score"):
             if ctx.needs_input_grad[0]:
                 # dq[r] = Σ_{e: r_e = r} ds[e, h] · k[s_e]: B2-w over the CSR view.
@@ -202,7 +202,8 @@ def bucket_scores(
 
     The forward is one ``edge_dot`` over the CSR view; the backward reduces
     ``dq`` with B2-w over the CSR view and ``dk`` with B2-w over the CSC view
-    (the scores' gradients carried into CSC order by ``t_perm``), inside a
+    (the scores' gradients carried into CSC order by ``t_perm``, with
+    ``ops.csr_spmm.gather_rows``), inside a
     ``gode.grand.score`` span of its own.  ``rows`` is the receiver of each
     edge, which the plain version of ``edge_dot`` reads."""
     return _BucketScores.apply(q.contiguous(), k.contiguous(), bucket, rows, heads, feat)

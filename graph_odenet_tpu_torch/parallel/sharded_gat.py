@@ -9,17 +9,21 @@ ring hop.  Every rank runs the same program on its node block's rows.
 
   * ``"ring_pallas"``: the score table ``s_src`` is only ``[N, H]``, so it is
     all-gathered once; the rank then takes one exact softmax over all its
-    edges (plain PyTorch segment ops), and each ring hop is one
+    edges (``edge_softmax``), and each ring hop is one
     attention-weighted bucket reduction (B2-w, ``halo._bucket_spmm_weighted``:
     the CSR kernel's weighted bucket mode on a CUDA tensor, its plain version
     on a CPU tensor), the first hop writing the output and the rest adding.
-  * ``"ring"``: a flash-style online softmax folded over the hops, all plain
+  * ``"ring"``: a flash-style online softmax folded over the hops, plain
     PyTorch segment ops.  Each hop carries one packed ``[B, H + H·F]`` tensor
     (``s_src`` beside ``Wh``), so every rank posts one exchange per hop, in
     one order, forward and backward.
 
 The running maximum ``m`` only stabilises the exponentials: the output does
-not depend on it, so it is computed without a gradient.  Attention dropout
+not depend on it, so it is computed without a gradient.  The softmax's
+gathers and maxima, which do not depend on order, go through
+``ops.csr_spmm.gather_rows`` and ``segment_max`` (kernels on a CUDA tensor,
+``index_select`` and ``scatter_reduce`` on a CPU one); every sum stays on
+``index_add_``.  Attention dropout
 scales the numerators only (the denominator keeps every edge) by the counter
 hash of ``ops/dropmask.py`` on global sender and receiver ids, so the mask
 does not depend on the partitioning and equals the single-device paths'.
@@ -38,7 +42,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from graph_odenet_tpu_torch.ops.csr_spmm import widen
+from graph_odenet_tpu_torch.ops.csr_spmm import MAX_FLOOR, gather_rows, segment_max, widen
 from graph_odenet_tpu_torch.ops.dropmask import attention_dropout_scale, draw_seed
 from graph_odenet_tpu_torch.ops.segment import segment_sum
 from graph_odenet_tpu_torch.parallel.halo import _bucket_spmm_weighted, all_gather_rows, ring_hop
@@ -51,27 +55,33 @@ __all__ = ["gat_sharded", "edge_softmax", "weighted_ring", "ShardedGATODE", "ini
            "gatode_forward", "MODES"]
 
 MODES = ("ring", "ring_pallas")
-_NEG = -1e30
 
 
-def _segment_max(e: torch.Tensor, rows: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """``[n_rows, H]`` per-row maximum of ``e [L, H]``, ``_NEG`` for a row
-    without edges (not −inf, which would turn its output into NaN)."""
-    m = e.new_full((n_rows, e.shape[1]), _NEG)
-    return m.scatter_reduce(0, rows[:, None].expand_as(e), e, "amax", include_self=True)
+class _Denominators(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, receivers, n_rows):
+        ctx.save_for_backward(receivers)
+        return segment_sum(p, receivers, n_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        (receivers,) = ctx.saved_tensors
+        # index_add_'s own backward, each edge its receiver's row.
+        return gather_rows(g, receivers), None, None
 
 
 def edge_softmax(e: torch.Tensor, receivers: torch.Tensor, n_rows: int):
     """The exact softmax of each receiver's in-edges, unnormalised: the
     numerators ``p = exp(e − m[r_e])`` ``[E, H]`` (``m`` each row's maximum,
-    taken without a gradient) and the denominators ``l [n_rows, H]``, each
-    an f32 sum rounded once to ``e``'s dtype (``ops.segment.segment_sum``).
-    ``receivers`` is each edge's local row.  Shared by ``gat_sharded``'s
-    ``ring_pallas`` mode and GRAND-nl (``parallel.sharded_grand``), each
-    inside its own span."""
-    m = _segment_max(e.detach(), receivers, n_rows)
-    p = torch.exp(e - m.index_select(0, receivers))
-    return p, segment_sum(p, receivers, n_rows)
+    ``ops.csr_spmm.segment_max``, without a gradient) and the denominators
+    ``l [n_rows, H]``, each an f32 sum rounded once to ``e``'s dtype
+    (``ops.segment.segment_sum``; its backward gathers the gradient by
+    ``receivers`` with ``gather_rows``).  ``receivers`` is each edge's local
+    row.  Shared by ``gat_sharded``'s ``ring_pallas`` mode and GRAND-nl
+    (``parallel.sharded_grand``), each inside its own span."""
+    m = segment_max(e, receivers, n_rows)
+    p = torch.exp(e - gather_rows(m, receivers))
+    return p, _Denominators.apply(p, receivers, n_rows)
 
 
 def weighted_ring(pg: PartitionedGraph, chunk: torch.Tensor, pv: torch.Tensor, feat: int,
@@ -161,7 +171,7 @@ def gat_sharded(
     def logits(ssrc, senders, receivers):
         """The edges' logits in the scores' dtype, gathered from widened scores
         so that the backward sums each node's edges in f32 (bf16 scores)."""
-        pair = widen(ssrc).index_select(0, senders) + widen(s_dst).index_select(0, receivers)
+        pair = gather_rows(widen(ssrc), senders) + gather_rows(widen(s_dst), receivers)
         return torch.nn.functional.leaky_relu(pair.to(s_dst.dtype), negative_slope)
 
     if mode == "ring_pallas":
@@ -179,7 +189,7 @@ def gat_sharded(
     # mode == "ring": fold each arriving bucket into an online softmax.  The
     # messages are formed from widened values, so they and their gradients
     # sum in f32 (bf16 values; f32 ones as they are).
-    m = wh.new_full((B, heads), _NEG)
+    m = wh.new_full((B, heads), MAX_FLOOR)
     l = wh.new_zeros((B, heads))
     acc = widen(wh).new_zeros((B, heads, feat))
     packed = torch.cat([s_src, wh.reshape(B, heads * feat)], dim=1)
@@ -192,8 +202,8 @@ def gat_sharded(
         s_b, r_b = pg.bucket(me, b).fwd.col, blk.receivers[span]
         with annotate("gode.gat.softmax"):
             e = logits(packed[:, :heads], s_b, r_b)
-            m_new = torch.maximum(m, _segment_max(e.detach(), r_b, B))
-            p = torch.exp(e - m_new.index_select(0, r_b))
+            m_new = torch.maximum(m, segment_max(e, r_b, B))
+            p = torch.exp(e - gather_rows(m_new, r_b))
             p_v = p * scale(blk.senders[span], r_b) if seed is not None else p
             rescale = torch.exp(m - m_new)
         vals = widen(packed[:, heads:]).reshape(B, heads, feat)

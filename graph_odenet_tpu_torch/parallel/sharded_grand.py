@@ -41,6 +41,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from graph_odenet_tpu_torch.ops.csr_spmm import gather_rows
 from graph_odenet_tpu_torch.parallel.halo import all_gather_rows, bucket_scores
 from graph_odenet_tpu_torch.parallel.mesh import check_backend, world
 from graph_odenet_tpu_torch.parallel.partition import PartitionedGraph
@@ -94,7 +95,7 @@ def _attention(p: ShardedGRANDNL, pg: PartitionedGraph, h: torch.Tensor, group) 
         s = s[0] if n_parts == 1 else torch.cat(s)  # [E_p, H]
     with annotate("gode.grand.softmax"):
         num, den = edge_softmax(s * (1.0 / math.sqrt(d_k)), blk.receivers, B)
-        return (num / den.index_select(0, blk.receivers)).mean(-1, keepdim=True)
+        return (num / gather_rows(den, blk.receivers)).mean(-1, keepdim=True)
 
 
 def grandnl_forward(

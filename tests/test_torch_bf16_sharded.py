@@ -46,6 +46,7 @@ from graph_odenet_tpu_torch.ops import segment
 from graph_odenet_tpu_torch.parallel import (
     gat_sharded, padded_buckets, partition_by_receiver, sharded_gat, sharded_gcn,
 )
+from graph_odenet_tpu_torch.ops import csr_spmm
 from graph_odenet_tpu_torch.ops.csr_spmm import _bucket_reduce_plain, _edge_dot_plain
 from graph_odenet_tpu_torch.parallel import halo
 from graph_odenet_tpu_torch.parallel.halo import _bucket_spmm_weighted
@@ -434,7 +435,7 @@ def test_gat_sharded_bf16_ring_pallas_rounds_once(twins):
     got = gat_sharded(pg, ss, sd, wh, mode="ring_pallas")
     blk = pg.blocks[0]
     e = torch.nn.functional.leaky_relu(ss[blk.senders] + sd[blk.receivers], 0.2)
-    m = sharded_gat._segment_max(e, blk.receivers, pg.block_size)
+    m = csr_spmm.segment_max(e, blk.receivers, pg.block_size)
     p = torch.exp(e - m[blk.receivers])
     l = segment.segment_sum(p, blk.receivers, pg.block_size)
     s = _bucket_spmm_weighted(wh.reshape(pg.block_size, -1).float(), p.float(), pg.bucket(0, 0),

@@ -657,6 +657,208 @@ def test_bucket_function_dpv_on_the_card_matches_the_plain_version(cuda, dtype):
         _assert_dot_close(got, bucket.fwd, chunk, up0, heads, feat)
 
 
+# ------------------- the softmax's order-free passes (gather_rows, segment_max)
+#
+# Held bit for bit to the PyTorch calls they replace (``index_select``,
+# ``scatter_reduce`` "amax" from the floor): a copy and a max give the same
+# bits in any order.  These count launches with the profiler, so they come
+# before the capture tests too.
+
+
+@pytest.fixture(scope="module")
+def arxiv_cal_parts():
+    """The calibrated arxiv twin (the attention cells' graph) in one part and
+    in eight, on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from graph_odenet_tpu_torch.data import synthetic_ogbn_arxiv
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver
+
+    graph = synthetic_ogbn_arxiv(seed=0, calibrated=True).graph
+    return {p: partition_by_receiver(graph, p) for p in (1, 8)}
+
+
+def _ints(t):
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def _with_zeros(t, rng):
+    """``t`` with one entry in 40 set to +0.0 and one in 40 to -0.0."""
+    pick = torch.from_numpy(rng.integers(0, 40, t.shape)).to(t.device)
+    zero = torch.zeros_like(t)
+    return torch.where(pick == 0, zero, torch.where(pick == 1, -zero, t))
+
+
+def _check_gather(table, idx):
+    """Bit-equal to ``index_select``; returns the launches it should make."""
+    got, want = csr_spmm.gather_rows(table, idx), table.index_select(0, idx)
+    assert got.dtype == table.dtype and torch.equal(_ints(got), _ints(want))
+    return int(idx.numel() > 0)
+
+
+def _check_max(e, rows, n_rows):
+    """Bit-equal to ``scatter_reduce``, but where a row's maximum is a zero,
+    whose sign ``scatter_reduce`` takes from whichever edge came last: the
+    kernel's is +0 when the row has a +0 edge.  The numerators
+    ``exp(e − m[r])`` are bit-equal either way.  Returns the launches it
+    should make."""
+    from graph_odenet_tpu_torch.ops.csr_spmm import MAX_FLOOR
+
+    got = csr_spmm.segment_max(e, rows, n_rows)
+    want = e.new_full((n_rows, e.shape[1]), MAX_FLOOR).scatter_reduce(
+        0, rows[:, None].expand_as(e), e, "amax", include_self=True)
+    assert torch.equal(got, want)
+    zero = want == 0
+    assert torch.equal(_ints(got)[~zero], _ints(want)[~zero])
+    plus = torch.zeros(got.shape, device=e.device).index_add_(0, rows, (_ints(e) == 0).float())
+    assert torch.equal(_ints(got)[zero] == 0, plus[zero] > 0)
+    p_got = torch.exp(e - got.index_select(0, rows))
+    p_want = torch.exp(e - want.index_select(0, rows))
+    assert torch.equal(_ints(p_got), _ints(p_want))
+    return int(rows.numel() > 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_softmax_passes_are_bit_equal_to_pytorch(cuda, arxiv_cal_parts, heads, dtype):
+    """On the calibrated twin's one-part block and on every block and bucket
+    at P = 8: ``gather_rows`` of the block's receivers (m, the denominators),
+    its global senders (the scores) and each bucket's int32 columns (``ring``
+    mode), of each bucket's ``t_perm`` from a per-edge table (the scores'
+    gradients), the block's receivers from a table with a row stride (the
+    ``ring`` mode's column slice), each also shuffled; ``segment_max`` over the block's
+    receivers (one CSR-sorted run per bucket), each bucket's and a shuffled
+    order; tables with ±0.0, the padding rows without edges."""
+    rng = np.random.default_rng(heads)
+    launches = 0
+    before = (csr_spmm.gather_rows_launches, csr_spmm.segment_max_launches)
+
+    def randn(*shape):
+        t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda).to(dtype)
+        return _with_zeros(t, rng)
+
+    for n_parts, pg in arxiv_cal_parts.items():
+        pg = pg.to(cuda)
+        n = pg.block_size
+        full = randn(n * n_parts, heads)
+        for me in range(n_parts):
+            blk = pg.blocks[me]
+            if n_parts == 1:  # the padding rows take no edge
+                assert torch.bincount(blk.receivers, minlength=n).eq(0).any()
+            shuffle = torch.randperm(blk.receivers.shape[0], device=cuda)
+            table, e = randn(n, heads), randn(blk.receivers.shape[0], heads)
+            for idx in (blk.receivers, blk.receivers[shuffle]):
+                launches += _check_gather(table, idx)
+            launches += _check_gather(randn(n, heads + 5)[:, :heads], blk.receivers)
+            launches += _check_gather(full, blk.senders)
+            launches += _check_max(e, blk.receivers, n)
+            launches += _check_max(e[shuffle], blk.receivers[shuffle], n)
+            for b in range(n_parts):
+                bucket, span = pg.bucket(me, b), blk.bucket(b)
+                per_edge = randn(bucket.fwd.n_edge, heads)
+                launches += _check_gather(table, bucket.fwd.col)
+                launches += _check_gather(per_edge, bucket.t_perm)
+                launches += _check_max(e[span], blk.receivers[span], n)
+    torch.cuda.synchronize()
+    gathers = csr_spmm.gather_rows_launches - before[0]
+    maxes = csr_spmm.segment_max_launches - before[1]
+    assert gathers + maxes == launches  # one launch a call
+
+
+def test_softmax_passes_are_one_launch_of_their_own_kernels(cuda):
+    """``gather_rows`` is one launch of its kernel a call (rows packed 16
+    bytes a thread at H = 1, 16-byte units at H = 4, elements at H = 3),
+    ``segment_max`` one of
+    ``segment_max_kernel`` beside the fill of the floor: by the counters, and
+    by the profiler over 20 calls, which shows those kernels alone and no more
+    launches than that (it may miss some); empty calls launch nothing."""
+    import chip_smoke
+
+    view = _bucket_view(np.random.default_rng(3)).to(cuda)
+    rows = csr_spmm.row_ids(view.row_ptr, view.n_edge)
+    for heads in (1, 3, 4):
+        table = torch.randn(view.n_rows, heads, device=cuda)
+        e = torch.randn(view.n_edge, heads, device=cuda)
+        for fn, own, most in ((lambda: csr_spmm.gather_rows(table, rows), "gather_rows", 1),
+                              (lambda: csr_spmm.segment_max(e, rows, view.n_rows),
+                               "segment_max", 2)):
+            mine = (("gather_rows_kernel", "gather_packed_kernel") if own == "gather_rows"
+                    else ("segment_max_kernel",))
+            before = getattr(csr_spmm, f"{own}_launches")
+            fn()
+            assert getattr(csr_spmm, f"{own}_launches") == before + 1
+            seen = chip_smoke.profiled(fn, 20)
+            kernels = seen["kernels"]
+            assert 0 < seen["launches_per_call"] <= most, (heads, seen)
+            assert sum(any(m in k for m in mine) for k in kernels) == 1, (heads, kernels)
+            assert len(kernels) == most or seen["launches_per_call"] < most, (heads, kernels)
+    before = (csr_spmm.gather_rows_launches, csr_spmm.segment_max_launches)
+    none = torch.zeros(0, dtype=torch.int64, device=cuda)
+    assert csr_spmm.gather_rows(table, none).shape == (0, 4)
+    m = csr_spmm.segment_max(torch.zeros(0, 4, device=cuda), none, 5)
+    assert torch.all(m == csr_spmm.MAX_FLOOR) and m.shape == (5, 4)
+    assert (csr_spmm.gather_rows_launches, csr_spmm.segment_max_launches) == before
+    with pytest.raises(TypeError):
+        csr_spmm.gather_rows(table.double(), rows)  # float64 is the CPU's plain version alone
+
+
+def _attention_model(name, data, cuda):
+    """GRAND-nl or the GAT-ODE at the cells' widths (4 heads of 64, rk4 × 4) on
+    one part of ``data``, and its forward (no dropout; the GAT-ODE with
+    ``remat``)."""
+    from graph_odenet_tpu_torch.parallel import partition_by_receiver, sharded_gat, sharded_grand
+
+    pg = partition_by_receiver(data.graph, 1).to(cuda)
+    gen = torch.Generator().manual_seed(4)
+    f_in, c = data.features.shape[1], data.n_class
+    if name == "grandnl":
+        model = sharded_grand.init_grandnl_params(f_in, 64, 4, c, generator=gen).to(cuda)
+        return model, lambda x: sharded_grand.grandnl_forward(model, pg, x, steps=4)
+    model = sharded_gat.init_gatode_params(f_in, 64, 4, c, generator=gen).to(cuda)
+    return model, lambda x: sharded_gat.gatode_forward(model, pg, x, steps=4, mode="ring_pallas",
+                                                       remat=True)
+
+
+# Launches of (gather_rows, segment_max) a training step and an evaluation.
+# GRAND-nl: each of 16 evaluations gathers m and the denominators forward and
+# the denominators' and the scores' gradients backward, one max.  The GAT-ODE:
+# each of 18 layers gathers both scores and m and takes one max forward and
+# gathers the denominators' gradient backward; remat runs the 16 dynamics'
+# forwards again.
+STEP_PASSES = {"grandnl": ((64, 16), (32, 16)), "gatode": ((120, 34), (54, 18))}
+
+
+@pytest.mark.parametrize("name", ["grandnl", "gatode"])
+def test_attention_models_take_the_softmax_passes_on_the_card(cuda, name):
+    """On the calibrated arxiv twin at a hundredth: the launches of a training
+    step and of an evaluation (``STEP_PASSES``), and one forward (the GAT-ODE's
+    with ``remat``) the same bits through the kernels as through PyTorch's calls
+    (``chip_smoke.plain_softmax_passes``), every sum in a fixed order
+    (``chip_smoke.fixed_order_sums``)."""
+    import chip_smoke
+    from graph_odenet_tpu_torch.data import synthetic_ogbn_arxiv
+
+    data = synthetic_ogbn_arxiv(seed=0, scale=0.01, calibrated=True)
+    model, forward = _attention_model(name, data, cuda)
+    x = data.features.to(cuda)
+    counts = lambda: (csr_spmm.gather_rows_launches, csr_spmm.segment_max_launches)  # noqa: E731
+    before = counts()
+    forward(x).logsumexp(-1).sum().backward()
+    step = counts()
+    with torch.no_grad():
+        forward(x)
+    evaluation = counts()
+    assert tuple(a - b for a, b in zip(step, before)) == STEP_PASSES[name][0]
+    assert tuple(a - b for a, b in zip(evaluation, step)) == STEP_PASSES[name][1]
+    with chip_smoke.fixed_order_sums(warn_only=True):
+        got = forward(x).detach()
+        with chip_smoke.plain_softmax_passes():
+            want = forward(x).detach()
+    torch.cuda.synchronize()
+    assert counts() == tuple(a + b for a, b in zip(evaluation, STEP_PASSES[name][1]))
+    assert torch.isfinite(got).all() and torch.equal(_ints(got), _ints(want))
+
+
 def test_captured_graph_replays_bit_equal_to_eager_calls(cuda):
     """``spmm_csr`` forward and backward, and a ring of ``bucket_reduce`` calls
     (each block's first bucket written, the rest added), captured in a CUDA

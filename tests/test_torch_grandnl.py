@@ -180,6 +180,25 @@ def test_one_part_matches_the_reference(data, params, reference):
                                   rate=RATE, drop_seed=DROP_SEED)], reference)
 
 
+def test_one_part_takes_the_softmax_passes_bit_for_bit(params):
+    """Log-probs with and without dropout, the NLL and every gradient: the same
+    bits through ``ops.csr_spmm.gather_rows``, ``segment_max`` and the
+    denominators' Function as through ``index_select``, ``scatter_reduce``
+    and ``segment_sum`` (``chip_smoke.plain_softmax_passes``)."""
+    import chip_smoke
+
+    kw = dict(scale=SCALE, params=params, heads=HEADS, steps=STEPS, rate=RATE,
+              drop_seed=DROP_SEED)
+    got = grandnl_task(0, 1, **kw)
+    with chip_smoke.plain_softmax_passes():
+        want = grandnl_task(0, 1, **kw)
+    assert got["loss"] == want["loss"]
+    for key in ("lp", "lp_drop"):
+        np.testing.assert_array_equal(got[key].view(np.int32), want[key].view(np.int32))
+    for k, g in want["grads"].items():
+        np.testing.assert_array_equal(got["grads"][k].view(np.int32), g.view(np.int32), err_msg=k)
+
+
 @pytest.mark.parametrize("n_ranks", [2, 4])
 def test_gloo_ranks_match_the_reference(n_ranks, params, reference, tmp_path):
     """Each rank's rows, its all-reduced NLL and gradients: K all-gathered,

@@ -275,6 +275,135 @@ def test_gat_sharded_rows_without_edges_are_zero_and_checks(twins):
         gat_sharded(pg, ss, sd, wh[:-1])
 
 
+# ----------------------------------------- (b') the softmax's order-free passes
+#
+# ``ops.csr_spmm.gather_rows`` and ``segment_max`` (kernels on a CUDA tensor,
+# held to PyTorch's calls in ``test_torch_cuda.py``) and the denominators'
+# Function: on the CPU PyTorch's calls, held here bit for bit, values and
+# gradients, to ``index_select``, ``scatter_reduce`` and ``segment_sum`` under
+# autograd, alone and inside ``gat_sharded`` and the GAT-ODE
+# (``chip_smoke.plain_softmax_passes`` swaps those back in).
+
+PASS_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+
+
+def _bits(t):
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _pass_inputs(dtype, n=40, n_edge=300, heads=3, seed=0):
+    """A ``[n, heads]`` table, ``n_edge`` indices into it (sorted, with repeats;
+    the last 5 rows take none) and an upstream ``[n_edge, heads]``."""
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.standard_normal((n, heads))).to(dtype)
+    idx = torch.from_numpy(np.sort(rng.integers(0, n - 5, n_edge)))
+    up = torch.from_numpy(rng.standard_normal((n_edge, heads))).to(dtype)
+    return table, idx, up
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("dtype", PASS_DTYPES)
+def test_gather_rows_is_index_select_with_its_gradient(dtype, idx_dtype):
+    table, idx, up = _pass_inputs(dtype)
+    idx = idx[torch.randperm(idx.shape[0], generator=torch.Generator().manual_seed(1))]
+    idx = idx.to(idx_dtype)
+    a, b = (table.clone().requires_grad_(True) for _ in range(2))
+    got, want = csr_spmm.gather_rows(a, idx), b.index_select(0, idx)
+    got.backward(up)
+    want.backward(up)
+    assert got.dtype == dtype and torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(a.grad), _bits(b.grad))
+
+
+@pytest.mark.parametrize("dtype", PASS_DTYPES)
+def test_denominators_are_segment_sum_with_its_gradient(dtype):
+    """In bf16 too: the sum in f32 rounded once, each edge's gradient its
+    receiver's row."""
+    from graph_odenet_tpu_torch.ops.segment import segment_sum
+
+    p, receivers, _ = _pass_inputs(dtype, seed=2)
+    n = 40
+    p = p.repeat(8, 1)[: receivers.shape[0]].abs()
+    up = torch.from_numpy(np.random.default_rng(3).standard_normal((n, 3))).to(dtype)
+    a, b = (p.clone().requires_grad_(True) for _ in range(2))
+    got = sharded_gat._Denominators.apply(a, receivers, n)
+    want = segment_sum(b, receivers, n)
+    got.backward(up)
+    want.backward(up)
+    assert got.dtype == dtype and torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(a.grad), _bits(b.grad))
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("idx_dtype", [torch.int64, torch.int32])
+def test_segment_max_is_scatter_reduce_from_the_floor(order, idx_dtype):
+    """Rows without edges, and an edge under the floor, read ``MAX_FLOOR``;
+    no gradient."""
+    _, rows, e = _pass_inputs(torch.float32, seed=4)
+    rows = rows.clamp(max=33)
+    e[0] = -1e35  # beside other edges of its row
+    rows[-1], e[-1] = 34, -1e35  # alone in row 34; rows 35-39 take no edge
+    if order == "shuffled":
+        perm = torch.randperm(rows.shape[0], generator=torch.Generator().manual_seed(5))
+        e, rows = e[perm], rows[perm]
+    m = csr_spmm.segment_max(e.requires_grad_(True), rows.to(idx_dtype), 40)
+    floor = torch.full((40, 3), csr_spmm.MAX_FLOOR)
+    want = floor.scatter_reduce(0, rows[:, None].expand_as(e), e.detach(), "amax",
+                                include_self=True)
+    assert not m.requires_grad and torch.equal(_bits(m), _bits(want))
+    assert torch.all(m[34:] == csr_spmm.MAX_FLOOR) and torch.all(m[:34] > csr_spmm.MAX_FLOOR)
+
+
+BAD_PASSES = {
+    "float16 table": (lambda t, i, e: csr_spmm.gather_rows(t.half(), i), TypeError),
+    "integer table": (lambda t, i, e: csr_spmm.gather_rows(t.long(), i), TypeError),
+    "float indices": (lambda t, i, e: csr_spmm.gather_rows(t, i.float()), TypeError),
+    "index past the table": (lambda t, i, e: csr_spmm.gather_rows(
+        t, torch.cat([i, torch.tensor([40])])), IndexError),
+    "negative index": (lambda t, i, e: csr_spmm.gather_rows(
+        t, torch.cat([torch.tensor([-1]), i])), IndexError),
+    "1-D table": (lambda t, i, e: csr_spmm.gather_rows(t[:, 0], i), ValueError),
+    "3-D table": (lambda t, i, e: csr_spmm.gather_rows(t[..., None], i), ValueError),
+    "2-D indices": (lambda t, i, e: csr_spmm.gather_rows(t, i[:, None]), ValueError),
+    "max of float16": (lambda t, i, e: csr_spmm.segment_max(e.half(), i, 40), TypeError),
+    "max over int32 values": (lambda t, i, e: csr_spmm.segment_max(e.int(), i, 40), TypeError),
+    "row past n_rows": (lambda t, i, e: csr_spmm.segment_max(e, i, 30), IndexError),
+    "rows of another length": (lambda t, i, e: csr_spmm.segment_max(e, i[1:], 40), ValueError),
+    "1-D values": (lambda t, i, e: csr_spmm.segment_max(e[:, 0], i, 40), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_PASSES))
+def test_softmax_passes_raise_on_bad_input(case):
+    call, err = BAD_PASSES[case]
+    table, idx, e = _pass_inputs(torch.float32, seed=6)
+    with pytest.raises(err):
+        call(table, idx, e)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("mode", MODES)
+def test_gat_sharded_takes_the_softmax_passes_bit_for_bit(twins, mode, rate):
+    """Values and the gradients of ``sum(sin(out))``: the same bits through the
+    new passes and through ``index_select``, ``scatter_reduce`` and
+    ``segment_sum``, with and without attention dropout."""
+    import chip_smoke
+
+    td, _ = twins
+    pg = partition_by_receiver(td.graph, 1)
+    kw = dict(attn_rate=rate, attn_seed=99) if rate else {}
+    inputs = _gat_inputs(td.graph, 2, 4, seed=22)
+
+    def fn(ss, sd, w):
+        return gat_sharded(pg, ss, sd, w, mode=mode, **kw)
+
+    got = _torch_probe(fn, inputs)
+    with chip_smoke.plain_softmax_passes():
+        want = _torch_probe(fn, inputs)
+    for name, a, b in zip(("out", "ds_src", "ds_dst", "dwh"), got, want):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32), err_msg=name)
+
+
 # ---------------------------------------------------- (c) the sharded GAT-ODE
 
 
@@ -344,6 +473,23 @@ def test_gatode_remat_changes_nothing(twins, jax_gatode, mode):
     assert loss0 == loss1
     for k in g0:  # the recomputed forward repeats the same f32 operations
         np.testing.assert_allclose(g1[k], g0[k], err_msg=k, rtol=2e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_gatode_step_takes_the_softmax_passes_bit_for_bit(twins, mode):
+    """A training step with ``remat``: log-probs, loss and every gradient the
+    same bits through the new passes and through PyTorch's calls."""
+    import chip_smoke
+
+    td, _ = twins
+    params = jax_gatode_params(td.features.shape[1], td.n_class)
+    lp, loss, grads = torch_sharded_gatode(td, params, mode=mode, remat=True)
+    with chip_smoke.plain_softmax_passes():
+        lp0, loss0, grads0 = torch_sharded_gatode(td, params, mode=mode, remat=True)
+    np.testing.assert_array_equal(lp.view(np.int32), lp0.view(np.int32))
+    assert loss == loss0
+    for k, g in grads.items():
+        np.testing.assert_array_equal(g.view(np.int32), grads0[k].view(np.int32), err_msg=k)
 
 
 def test_gatode_dropout_is_seeded_and_off_in_evaluation(twins):
