@@ -47,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 from graph_odenet_tpu_torch.ops.csr_spmm import bucket_reduce, edge_dot, gather_rows, row_ids, widen
-from graph_odenet_tpu_torch.parallel.mesh import check_backend, global_rank, world
+from graph_odenet_tpu_torch.parallel.mesh import check_parts, global_rank, world
 from graph_odenet_tpu_torch.parallel.partition import Bucket, PartitionedGraph
 from graph_odenet_tpu_torch.utils.profiling import annotate
 
@@ -383,16 +383,12 @@ def spmm_sharded(
     del check_vma
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
-    n_parts, me = world(group)
-    if pg.n_parts != n_parts:
-        raise ValueError(f"partitioning has {pg.n_parts} parts, the process group {n_parts}")
+    n_parts, me = check_parts(pg, x, group)
     if x.dim() not in (2, 3) or x.shape[-2] != pg.block_size:
         raise ValueError(f"spmm_sharded takes the block's rows [{pg.block_size}, F] "
                          f"or [b, {pg.block_size}, F], got {tuple(x.shape)}")
     if feat_axis is not None:
         _check_feat_slices(x, feat_axis)
-    if n_parts > 1:
-        check_backend(x, group)
     if x.dim() == 3:
         b, rows, f = x.shape
         out = spmm_sharded(pg, x.permute(1, 0, 2).reshape(rows, b * f), mode=mode, group=group)

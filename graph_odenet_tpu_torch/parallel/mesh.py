@@ -26,7 +26,7 @@ from graph_odenet_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "world", "global_rank", "Mesh", "make_mesh", "device_for", "bootstrap_distributed",
-    "check_backend",
+    "check_backend", "check_parts", "all_reduce_sum", "all_reduce_grads",
 ]
 
 
@@ -154,3 +154,37 @@ def check_backend(t: torch.Tensor, group=None) -> None:
         raise ValueError(
             f"a {t.device.type} tensor needs a {want} process group, not {backend}"
         )
+
+
+def check_parts(pg, t: torch.Tensor, group=None) -> tuple[int, int]:
+    """``world(group)`` for a call on the partitioning ``pg`` with the rank's
+    tensor ``t``.  Raises unless ``pg.n_parts`` equals the group's size and,
+    over several parts, unless the group's backend moves ``t``."""
+    n_parts, me = world(group)
+    if pg.n_parts != n_parts:
+        where = ("the default process group" if group is None else
+                 f"the process group of ranks {dist.get_process_group_ranks(group)}")
+        raise ValueError(f"partitioning has {pg.n_parts} parts, but {where} has {n_parts}")
+    if n_parts > 1:
+        check_backend(t, group)
+    return n_parts, me
+
+
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over ``group``'s ranks in place (the default group when
+    None; nothing with one part); returns ``t``."""
+    if world(group)[0] > 1:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def all_reduce_grads(params: torch.nn.Module, group=None) -> None:
+    """Sum every parameter gradient over ``group``'s ranks (the default
+    group when None; one collective)."""
+    if world(group)[0] == 1:
+        return
+    grads = [p.grad for p in params.parameters()]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))

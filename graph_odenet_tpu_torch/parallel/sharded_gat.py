@@ -38,7 +38,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -46,9 +45,9 @@ from graph_odenet_tpu_torch.ops.csr_spmm import MAX_FLOOR, gather_rows, segment_
 from graph_odenet_tpu_torch.ops.dropmask import attention_dropout_scale, draw_seed
 from graph_odenet_tpu_torch.ops.segment import segment_sum
 from graph_odenet_tpu_torch.parallel.halo import _bucket_spmm_weighted, all_gather_rows, ring_hop
-from graph_odenet_tpu_torch.parallel.mesh import check_backend, world
+from graph_odenet_tpu_torch.parallel.mesh import check_parts, world
+from graph_odenet_tpu_torch.parallel.model_parts import feature_dropout, glorot, rk4
 from graph_odenet_tpu_torch.parallel.partition import PartitionedGraph
-from graph_odenet_tpu_torch.parallel.sharded_gcn import _feature_dropout, _glorot
 from graph_odenet_tpu_torch.utils.profiling import annotate
 
 __all__ = ["gat_sharded", "edge_softmax", "weighted_ring", "ShardedGATODE", "init_gatode_params",
@@ -147,19 +146,13 @@ def gat_sharded(
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
-    n_parts, me = world(group)
-    if pg.n_parts != n_parts:
-        where = ("the default process group" if group is None else
-                 f"the process group of ranks {dist.get_process_group_ranks(group)}")
-        raise ValueError(f"partitioning has {pg.n_parts} parts, but {where} has {n_parts}")
+    n_parts, me = check_parts(pg, wh, group)
     B = pg.block_size
     if wh.dim() != 3 or wh.shape[0] != B or s_src.shape != wh.shape[:2] or s_dst.shape != s_src.shape:
         raise ValueError(
             f"gat_sharded takes the block's s_src, s_dst [{B}, H] and wh [{B}, H, F], got "
             f"{tuple(s_src.shape)}, {tuple(s_dst.shape)}, {tuple(wh.shape)}"
         )
-    if n_parts > 1:
-        check_backend(wh, group)
     heads, feat = wh.shape[1], wh.shape[2]
     blk = pg.blocks[me]
     seed = attn_seed if attn_rate > 0.0 and attn_seed is not None else None
@@ -233,15 +226,15 @@ class ShardedGATODE(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         d = heads * hidden
-        self.w_enc = _glorot(f_in, d, generator, dtype)
-        self.a_src_enc = _glorot(heads, hidden, generator, dtype)
-        self.a_dst_enc = _glorot(heads, hidden, generator, dtype)
-        self.w_dyn = _glorot(d, d, generator, dtype)
-        self.a_src_dyn = _glorot(1, d, generator, dtype)
-        self.a_dst_dyn = _glorot(1, d, generator, dtype)
-        self.w_out = _glorot(d, n_class, generator, dtype)
-        self.a_src_out = _glorot(1, n_class, generator, dtype)
-        self.a_dst_out = _glorot(1, n_class, generator, dtype)
+        self.w_enc = glorot(f_in, d, generator, dtype)
+        self.a_src_enc = glorot(heads, hidden, generator, dtype)
+        self.a_dst_enc = glorot(heads, hidden, generator, dtype)
+        self.w_dyn = glorot(d, d, generator, dtype)
+        self.a_src_dyn = glorot(1, d, generator, dtype)
+        self.a_dst_dyn = glorot(1, d, generator, dtype)
+        self.w_out = glorot(d, n_class, generator, dtype)
+        self.a_src_out = glorot(1, n_class, generator, dtype)
+        self.a_dst_out = glorot(1, n_class, generator, dtype)
 
 
 def init_gatode_params(
@@ -289,8 +282,7 @@ def gatode_forward(
     if drop:
         if seed_generator is None:
             raise ValueError("attention dropout needs a CPU seed_generator")
-        rows = slice(me * pg.block_size, (me + 1) * pg.block_size)
-        x = _feature_dropout(x, dropout, generator, rows, pg.n_node_pad)
+        x = feature_dropout(x, dropout, generator, pg, me)
         attn_seed = draw_seed(seed_generator)
     h = torch.nn.functional.elu(_att_layer(
         pg, x, p.w_enc, p.a_src_enc, p.a_dst_enc,
@@ -318,14 +310,6 @@ def gatode_forward(
             # The dynamics draw no random numbers, so no generator state is kept.
             return checkpoint(run, h, use_reentrant=False, preserve_rng_state=False)
 
-    dt = t1 / steps
-    for _ in range(steps):
-        k1 = dyn(h)
-        k2 = dyn(h + 0.5 * dt * k1)
-        k3 = dyn(h + 0.5 * dt * k2)
-        k4 = dyn(h + dt * k3)
-        h = h + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
-    if drop:
-        h = _feature_dropout(h, dropout, generator, rows, pg.n_node_pad)
+    h = feature_dropout(rk4(dyn, h, steps, t1), dropout, generator, pg, me)
     logits = _att_layer(pg, h, p.w_out, p.a_src_out, p.a_dst_out, mode=mode, group=group)
     return torch.log_softmax(logits, dim=-1)

@@ -11,7 +11,7 @@ arXiv:2106.10934), its non-linear form with a constant block (the authors'
 ``Q`` and ``K`` are linear maps with bias, split into H heads of d_k; α and
 β are learned scalars.  Linear encoder, the ODE under classic rk4, ReLU,
 linear readout, ``log_softmax``; feature dropout on the input and after the
-ReLU, as the sharded GAT-ODE draws it (``sharded_gcn._feature_dropout``).
+ReLU, as the sharded GAT-ODE draws it (``model_parts.feature_dropout``).
 
 Each evaluation on a rank, ``Ā`` computed anew:
 
@@ -38,15 +38,14 @@ import math
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from graph_odenet_tpu_torch.ops.csr_spmm import gather_rows
 from graph_odenet_tpu_torch.parallel.halo import all_gather_rows, bucket_scores
-from graph_odenet_tpu_torch.parallel.mesh import check_backend, world
+from graph_odenet_tpu_torch.parallel.mesh import check_parts, world
+from graph_odenet_tpu_torch.parallel.model_parts import feature_dropout, glorot, rk4
 from graph_odenet_tpu_torch.parallel.partition import PartitionedGraph
 from graph_odenet_tpu_torch.parallel.sharded_gat import edge_softmax, weighted_ring
-from graph_odenet_tpu_torch.parallel.sharded_gcn import _feature_dropout, _glorot
 from graph_odenet_tpu_torch.utils.profiling import annotate
 
 __all__ = ["ShardedGRANDNL", "init_grandnl_params", "grandnl_forward"]
@@ -63,15 +62,15 @@ class ShardedGRANDNL(nn.Module):
         super().__init__()
         d = heads * hidden
         self.heads = heads
-        self.w_enc = _glorot(f_in, d, generator)
+        self.w_enc = glorot(f_in, d, generator)
         self.b_enc = nn.Parameter(torch.zeros(d))
-        self.w_q = _glorot(d, d, generator)
+        self.w_q = glorot(d, d, generator)
         self.b_q = nn.Parameter(torch.zeros(d))
-        self.w_k = _glorot(d, d, generator)
+        self.w_k = glorot(d, d, generator)
         self.b_k = nn.Parameter(torch.zeros(d))
         self.alpha = nn.Parameter(torch.tensor(0.0))
         self.beta = nn.Parameter(torch.tensor(1.0))
-        self.w_out = _glorot(d, n_class, generator)
+        self.w_out = glorot(d, n_class, generator)
         self.b_out = nn.Parameter(torch.zeros(n_class))
 
 
@@ -114,21 +113,11 @@ def grandnl_forward(
     must equal its size (one part without a process group).
     """
     p = params
-    n_parts, me = world(group)
-    if pg.n_parts != n_parts:
-        where = ("the default process group" if group is None else
-                 f"the process group of ranks {dist.get_process_group_ranks(group)}")
-        raise ValueError(f"partitioning has {pg.n_parts} parts, but {where} has {n_parts}")
+    _, me = check_parts(pg, x, group)
     if x.shape[0] != pg.block_size:
         raise ValueError(f"grandnl_forward takes the block's rows [{pg.block_size}, F], "
                          f"got {tuple(x.shape)}")
-    if n_parts > 1:
-        check_backend(x, group)
-    drop = dropout > 0.0 and generator is not None
-    rows = slice(me * pg.block_size, (me + 1) * pg.block_size)
-    if drop:
-        x = _feature_dropout(x, dropout, generator, rows, pg.n_node_pad)
-    h0 = x @ p.w_enc + p.b_enc
+    h0 = feature_dropout(x, dropout, generator, pg, me) @ p.w_enc + p.b_enc
     d = h0.shape[1]
 
     def dyn(h):
@@ -137,14 +126,5 @@ def grandnl_forward(
             ah = weighted_ring(pg, h, w, d, group)
         return torch.sigmoid(p.alpha) * (ah - h) + p.beta * h0
 
-    h, dt = h0, t1 / steps
-    for _ in range(steps):
-        k1 = dyn(h)
-        k2 = dyn(h + 0.5 * dt * k1)
-        k3 = dyn(h + 0.5 * dt * k2)
-        k4 = dyn(h + dt * k3)
-        h = h + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
-    h = torch.relu(h)
-    if drop:
-        h = _feature_dropout(h, dropout, generator, rows, pg.n_node_pad)
+    h = feature_dropout(torch.relu(rk4(dyn, h0, steps, t1)), dropout, generator, pg, me)
     return torch.log_softmax(h @ p.w_out + p.b_out, dim=-1)

@@ -33,37 +33,53 @@ import torch
 import torch.distributed as dist
 
 from graph_odenet_tpu_torch.data.planetoid import NodeClassificationData
-from graph_odenet_tpu_torch.parallel import sharded_gat, sharded_gcn, sharded_grand
-from graph_odenet_tpu_torch.parallel.mesh import device_for, world
+from graph_odenet_tpu_torch.parallel import halo, sharded_gat, sharded_gcn, sharded_grand
+from graph_odenet_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_sum, device_for, world
 from graph_odenet_tpu_torch.parallel.partition import partition_by_receiver
 from graph_odenet_tpu_torch.utils.profiling import annotate
 
 __all__ = ["ShardedTrainConfig", "fit_sharded_node_classifier", "MODELS"]
 
-MODELS = ("gcnode", "gatode", "grandnl")
+
+# Each model: ``init(f_in, hidden, heads, n_class, generator=)``; ``forward(model,
+# pg, x, mode=, remat=, seed_generator=, steps=, t1=)``, the rank's log-probs
+# (with ``dropout=`` and ``generator=`` on a training step); the ``mode`` and
+# ``remat`` values it takes; the refusal of any other.
+_TABLE = {
+    "gcnode": (
+        lambda f_in, hidden, heads, c, **kw: sharded_gcn.init_params(f_in, hidden, c, **kw),
+        lambda m, pg, x, remat, seed_generator, **kw: sharded_gcn.forward(m, pg, x, **kw),
+        halo.MODES, (False, True), "unknown mode {mode!r}; one of {modes}"),
+    "gatode": (
+        sharded_gat.init_gatode_params, sharded_gat.gatode_forward,
+        sharded_gat.MODES, (False, True), "unknown mode {mode!r} for gatode; one of {modes}"),
+    "grandnl": (
+        sharded_grand.init_grandnl_params,
+        lambda m, pg, x, mode, remat, seed_generator, **kw: sharded_grand.grandnl_forward(
+            m, pg, x, **kw),
+        ("ring_pallas",), (False,),
+        "grandnl runs mode='ring_pallas' without remat, got mode={mode!r}, remat={remat}"),
+}
+MODELS = tuple(_TABLE)
 
 
 @dataclasses.dataclass
 class ShardedTrainConfig:
-    model: str = "gcnode"        # gcnode | gatode | grandnl
-    # gatode, grandnl: per-head width (heads * hidden in all; grandnl's d_k)
-    hidden: int = 256
-    heads: int = 4               # gatode and grandnl only
+    model: str = "gcnode"        # one of MODELS
+    hidden: int = 256            # gatode, grandnl: per head (grandnl's d_k), heads * hidden in all
+    heads: int = 4               # gatode, grandnl
     steps: int = 4               # rk4 substeps
     t1: float = 1.0
-    # ring | ring_pallas | allgather (gcnode only); grandnl takes ring_pallas alone
-    mode: str = "ring"
+    mode: str = "ring"           # ring | ring_pallas | allgather; _TABLE lists each model's
     lr: float = 0.01
     weight_decay: float = 5e-4
-    # Feature (and, gatode, attention) dropout; evaluation never drops.
-    dropout: float = 0.0
+    dropout: float = 0.0         # feature (gatode: and attention) dropout, never in evaluation
     epochs: int = 30
     patience: int = 100
-    # None: evaluate every epoch below 200,000 edges, every 5 above.
-    eval_every: Optional[int] = None
+    eval_every: Optional[int] = None  # None: every epoch below 200,000 edges, every 5 above
     seed: int = 0
     # gatode: recompute each dynamics evaluation in the backward instead of
-    # keeping its per-edge activations (grandnl takes False alone).
+    # keeping its per-edge activations.
     remat: bool = False
     n_parts: Optional[int] = None  # default: the process group's size
     ckpt_dir: Optional[str] = None
@@ -95,12 +111,9 @@ def fit_sharded_node_classifier(
     """
     if cfg.model not in MODELS:
         raise ValueError(f"unknown sharded model {cfg.model!r}; one of {MODELS}")
-    gat, grand = cfg.model == "gatode", cfg.model == "grandnl"
-    if gat and cfg.mode not in sharded_gat.MODES:
-        raise ValueError(f"unknown mode {cfg.mode!r} for gatode; one of {sharded_gat.MODES}")
-    if grand and (cfg.mode != "ring_pallas" or cfg.remat):
-        raise ValueError(f"grandnl runs mode='ring_pallas' without remat, got mode={cfg.mode!r}, "
-                         f"remat={cfg.remat}")
+    init, model_forward, modes, remats, refusal = _TABLE[cfg.model]
+    if cfg.mode not in modes or cfg.remat not in remats:
+        raise ValueError(refusal.format(mode=cfg.mode, remat=cfg.remat, modes=modes))
     n_world, rank = world()
     n_parts = cfg.n_parts or n_world
     if n_parts != n_world:
@@ -119,34 +132,23 @@ def fit_sharded_node_classifier(
         _rows_mask(idx.cpu(), n_pad, rows).to(dev)
         for idx in (data.idx_train, data.idx_val, data.idx_test)
     )
-    counts = sharded_gcn.all_reduce_sum(torch.stack([w_tr.sum(), w_va.sum(), w_te.sum()]))
+    counts = all_reduce_sum(torch.stack([w_tr.sum(), w_va.sum(), w_te.sum()]))
     n_tr, n_va, n_te = torch.clamp(counts, min=1.0)
 
-    init_gen = torch.Generator().manual_seed(cfg.seed)
-    if gat:
-        model = sharded_gat.init_gatode_params(x.shape[1], cfg.hidden, cfg.heads, c,
-                                               generator=init_gen)
-    elif grand:
-        model = sharded_grand.init_grandnl_params(x.shape[1], cfg.hidden, cfg.heads, c,
-                                                  generator=init_gen)
-    else:
-        model = sharded_gcn.init_params(x.shape[1], cfg.hidden, c, generator=init_gen)
+    model = init(x.shape[1], cfg.hidden, cfg.heads, c,
+                 generator=torch.Generator().manual_seed(cfg.seed))
     if init_state is not None:
         model.load_state_dict(init_state)
     model.to(dev)
     opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, weight_decay=cfg.weight_decay)
     drop_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     seed_gen = torch.Generator().manual_seed(cfg.seed + 1)  # attention-dropout seeds (CPU)
-    common = dict(steps=cfg.steps, t1=cfg.t1)
+    common = dict(steps=cfg.steps, t1=cfg.t1, mode=cfg.mode, remat=cfg.remat,
+                  seed_generator=seed_gen)
 
     def forward(train: bool):
         kw = dict(common, dropout=cfg.dropout, generator=drop_gen) if train else common
-        if gat:
-            return sharded_gat.gatode_forward(model, pg, x, seed_generator=seed_gen,
-                                              remat=cfg.remat, mode=cfg.mode, **kw)
-        if grand:
-            return sharded_grand.grandnl_forward(model, pg, x, **kw)
-        return sharded_gcn.forward(model, pg, x, mode=cfg.mode, **kw)
+        return model_forward(model, pg, x, **kw)
 
     def nll_sum(lp, w):
         return -(lp * y1h).sum(-1).mul(w).sum()
@@ -157,9 +159,9 @@ def fit_sharded_node_classifier(
             opt.zero_grad(set_to_none=True)
             loss = nll_sum(forward(True), w_tr) / n_tr  # the rank's share of the global loss
             loss.backward()
-            sharded_gcn.all_reduce_grads(model)
+            all_reduce_grads(model)
             opt.step()
-            return sharded_gcn.all_reduce_sum(loss.detach())
+            return all_reduce_sum(loss.detach())
 
     @torch.no_grad()
     def evaluate():
@@ -167,7 +169,7 @@ def fit_sharded_node_classifier(
             model.eval()
             lp = forward(False)
             hit = (lp.argmax(-1) == labels).to(torch.float32)
-            sums = sharded_gcn.all_reduce_sum(torch.stack([
+            sums = all_reduce_sum(torch.stack([
                 nll_sum(lp, w_va), (hit * w_va).sum(), (hit * w_te).sum(),
             ]))
             with annotate("gode.train.eval_read"):

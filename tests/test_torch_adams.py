@@ -55,17 +55,6 @@ PROBLEMS = {
 }
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: these tensors are small, and the suite runs
-    several processes at once, whose thread pools would otherwise wait on
-    each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _both(problem, method, ts, **kw):
     jf, tf, y0 = PROBLEMS[problem]
     y0 = np.asarray(y0, np.float64)

@@ -38,17 +38,6 @@ ADAPTIVE = dict(rtol=1e-9, atol=1e-9)    # gradients through adaptive steps
 ANALYTIC = dict(rtol=1e-4)               # tests/test_ode.py's tolerance
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: these tensors are small, and the suite runs
-    several processes at once, whose thread pools would otherwise wait on
-    each other (a test took five times as long under that load)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _t(*arrays):
     """Float64 leaves that take a gradient."""
     return [torch.tensor(np.asarray(a, np.float64), requires_grad=True) for a in arrays]

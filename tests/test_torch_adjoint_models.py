@@ -53,17 +53,6 @@ F64 = jnp.float64
 TOL = {"gcnode": dict(rtol=1e-5, atol=1e-5), "gatode": dict(rtol=1e-4, atol=1e-4)}
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: these tensors are small, and the suite runs
-    several processes at once, whose thread pools would otherwise wait on
-    each other (a test took five times as long under that load)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def data():
     return tsynthetic("cora", scale=0.08), jsynthetic("cora", scale=0.08)

@@ -49,16 +49,6 @@ TS = np.linspace(0.0, 2.0, 6)
 TOLS = dict(rtol=1e-6, atol=1e-8)
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: these tensors are small, and the suite runs
-    several processes at once."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _jfield(t, y, k, c):
     return jnp.stack([y[1], -k * y[0] - c * y[1]])
 

@@ -35,7 +35,7 @@ from graph_odenet_tpu_torch.models import GAT, GATODE, ResGAT
 from graph_odenet_tpu_torch.ops import gat_attn
 from graph_odenet_tpu_torch.utils.metrics import masked_nll
 from test_torch_bf16_models import (  # noqa: F401  (fixtures)
-    BF, PARAM_DTYPES, TOL, _one_thread, adjacencies, assert_params_and_grads,
+    BF, PARAM_DTYPES, TOL, adjacencies, assert_params_and_grads,
     assert_stats_match, data, numpy_tree, state_dtypes,
 )
 

@@ -57,15 +57,6 @@ PARAM_DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (BF, jnp.bfloat16)}
 _TORCH = {"float32": torch.float32, "bfloat16": BF}
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: small tensors, several test processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def data():
     return tsynthetic("cora", scale=0.08), jsynthetic("cora", scale=0.08)

@@ -50,6 +50,7 @@ from graph_odenet_tpu_torch.ops import csr_spmm
 from graph_odenet_tpu_torch.ops.csr_spmm import _bucket_reduce_plain, _edge_dot_plain
 from graph_odenet_tpu_torch.parallel import halo
 from graph_odenet_tpu_torch.parallel.halo import _bucket_spmm_weighted
+from graph_odenet_tpu_torch.parallel.model_parts import feature_dropout
 
 from torch_dist_worlds import _labels_weight
 
@@ -60,16 +61,6 @@ GCN_HIDDEN = 16
 HIDDEN, HEADS, STEPS = 8, 2, 2
 GCN_MODES = ("allgather", "ring", "ring_pallas")
 GAT_MODES = ("ring", "ring_pallas")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Small CPU work: one intra-op thread, so that the test workers' OpenMP
-    threads do not spin against each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -228,11 +219,10 @@ def test_sharded_gcn_bf16_feature_dropout_keeps_bf16(twins):
     features; the bf16 features stay bf16."""
     td, _ = twins
     h = td.features[:, :8].contiguous()
-    rows = slice(0, h.shape[0])
+    pg = partition_by_receiver(td.graph, 1)
 
     def drop(t):
-        return sharded_gcn._feature_dropout(t, 0.5, torch.Generator().manual_seed(3), rows,
-                                            h.shape[0])
+        return feature_dropout(t, 0.5, torch.Generator().manual_seed(3), pg, 0)
 
     got, want = drop(h.to(BF)), drop(h)
     assert got.dtype == BF

@@ -254,3 +254,9 @@ def test_entry_points_run_on_the_card_unless_asked(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_point_calls()[entry]()
     assert not trained
+
+
+def test_port_tests_run_on_one_torch_thread():
+    """``tests/torch_threads.py``, named in ``pytest.ini``, pins every test
+    process to one intra-op thread: under xdist this runs in a worker."""
+    assert torch.get_num_threads() == 1

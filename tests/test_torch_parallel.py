@@ -9,6 +9,7 @@ gloo worlds of 2 and 4 ranks are in ``test_torch_gloo2.py`` and
 """
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -37,17 +38,6 @@ from torch_dist_worlds import _labels_weight
 SCALE = 0.004  # 677 nodes, padded to 768
 TOL = dict(rtol=1e-5, atol=1e-5)  # f32 sums in another order; hub columns reach ~35
 FWD_TOL = dict(rtol=2e-4, atol=1e-6)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """This module's CPU work is small: one intra-op thread keeps its OpenMP
-    threads from spinning against the other test workers' (two torch
-    trainings side by side on 8 threads each ran 20–200× slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -433,6 +423,82 @@ def test_mesh_helpers_without_a_process_group(monkeypatch):
         mesh.check_backend(torch.zeros(2))
     monkeypatch.setattr(mesh.dist, "get_backend", lambda: "gloo")
     mesh.check_backend(torch.zeros(2))
+
+
+def test_check_parts_refuses_a_partition_of_another_size(twins, monkeypatch):
+    """``mesh.check_parts``: the group's ``(size, rank)`` when the partition
+    has as many parts, else one message; the backend is checked over several
+    parts only (a 4-rank subgroup stood in by monkeypatching ``mesh.world``)."""
+    from graph_odenet_tpu_torch.parallel import mesh
+
+    td, _ = twins
+    x = torch.zeros(4)
+    monkeypatch.setattr(mesh.dist, "get_backend", lambda *group: "nccl")
+    assert mesh.check_parts(partition_by_receiver(td.graph, 1), x) == (1, 0)
+    with pytest.raises(ValueError, match=re.escape(
+            "partitioning has 2 parts, but the default process group has 1")):
+        mesh.check_parts(partition_by_receiver(td.graph, 2), x)
+    grp = object()
+    monkeypatch.setattr(mesh, "world", lambda group=None: (4, 1) if group is grp else (1, 0))
+    monkeypatch.setattr(mesh.dist, "get_process_group_ranks", lambda group: [0, 2, 4, 6])
+    with pytest.raises(ValueError, match=re.escape(
+            "partitioning has 2 parts, but the process group of ranks [0, 2, 4, 6] has 4")):
+        mesh.check_parts(partition_by_receiver(td.graph, 2), x, grp)
+    pg4 = partition_by_receiver(td.graph, 4)
+    with pytest.raises(ValueError, match="gloo"):
+        mesh.check_parts(pg4, x, grp)
+    monkeypatch.setattr(mesh.dist, "get_backend", lambda *group: "gloo")
+    assert mesh.check_parts(pg4, x, grp) == (4, 1)
+
+
+def _rk4_loop(dyn, h, steps, t1):
+    """Classic rk4 as each sharded model wrote it out before ``model_parts.rk4``."""
+    dt = t1 / steps
+    for _ in range(steps):
+        k1 = dyn(h)
+        k2 = dyn(h + 0.5 * dt * k1)
+        k3 = dyn(h + 0.5 * dt * k2)
+        k4 = dyn(h + dt * k3)
+        h = h + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+    return h
+
+
+@pytest.mark.parametrize("steps", [1, 4])
+def test_rk4_is_the_models_loop_bit_for_bit(steps):
+    from graph_odenet_tpu_torch.parallel.model_parts import rk4
+
+    gen = torch.Generator().manual_seed(steps)
+    w, b = torch.randn(16, 16, generator=gen) / 4, torch.randn(16, generator=gen)
+    h0 = torch.randn(32, 16, generator=gen)
+    calls = []
+
+    def dyn(h):
+        calls.append(1)
+        return torch.tanh(h @ w + b) * h - 0.3 * h * h
+
+    got = rk4(dyn, h0, steps, 0.7)
+    assert len(calls) == 4 * steps and got.dtype == torch.float32
+    assert torch.equal(got, _rk4_loop(dyn, h0, steps, 0.7))
+
+
+@pytest.mark.parametrize("model, change, message", [
+    ("gcnode", dict(mode="scatter"),
+     "unknown mode 'scatter'; one of ('allgather', 'ring', 'ring_pallas')"),
+    ("gatode", dict(mode="allgather"),
+     "unknown mode 'allgather' for gatode; one of ('ring', 'ring_pallas')"),
+    ("grandnl", dict(mode="ring"),
+     "grandnl runs mode='ring_pallas' without remat, got mode='ring', remat=False"),
+    ("grandnl", dict(mode="ring_pallas", remat=True),
+     "grandnl runs mode='ring_pallas' without remat, got mode='ring_pallas', remat=True"),
+])
+def test_trainer_table_refuses_each_models_other_modes(twins, model, change, message):
+    """Each model's entry in the trainer's table refuses a ``mode`` or
+    ``remat`` it does not take, with the message its code gave before."""
+    from graph_odenet_tpu_torch.parallel import ShardedTrainConfig, fit_sharded_node_classifier
+
+    cfg = ShardedTrainConfig(model=model, hidden=8, heads=2, steps=1, epochs=1, **change)
+    with pytest.raises(ValueError, match=re.escape(message) + "$"):
+        fit_sharded_node_classifier(cfg, twins[0], device="cpu")
 
 
 def test_sgd_train_step_matches_jax(twins):

@@ -49,16 +49,6 @@ HIDDEN, HEADS, STEPS = 8, 2, 2
 MODES = ("ring", "ring_pallas")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Small CPU work: one intra-op thread, so that the test workers' OpenMP
-    threads do not spin against each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def twins():
     return synthetic_ogbn_arxiv(seed=0, scale=SCALE), jtwin(seed=0, scale=SCALE)

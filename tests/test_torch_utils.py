@@ -34,17 +34,6 @@ from graph_odenet_tpu_torch.utils import (
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: these tensors are small, and the suite runs
-    several processes at once, whose thread pools would otherwise wait on
-    each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 # --- Checkpointer -----------------------------------------------------------
 
 

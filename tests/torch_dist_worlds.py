@@ -115,6 +115,7 @@ def sharded_gcn(rank, n_ranks, *, scale, params, steps, mode, drop_seed):
     (dropout 0), and log-prob rows with dropout 0.5 from ``drop_seed``."""
     from graph_odenet_tpu_torch.convert import params_from_sharded
     from graph_odenet_tpu_torch.parallel import partition_by_receiver, sharded_gcn as sg
+    from graph_odenet_tpu_torch.parallel.mesh import all_reduce_grads
 
     data = _twin(scale)
     pg = partition_by_receiver(data.graph, n_ranks)
@@ -124,7 +125,7 @@ def sharded_gcn(rank, n_ranks, *, scale, params, steps, mode, drop_seed):
     x, y1h, w = sg.shard_batch(n_ranks, rank, data.features, y1h, w)
     loss = sg.loss_fn(model, pg, x, y1h, w, steps=steps, mode=mode)
     loss.backward()
-    sg.all_reduce_grads(model)
+    all_reduce_grads(model)
     loss = loss.detach()
     dist.all_reduce(loss)
     with torch.no_grad():
@@ -160,9 +161,8 @@ def sharded_gatode(rank, n_ranks, *, scale, params, hidden, heads, steps, modes,
     ``drop_seed``."""
     from graph_odenet_tpu_torch.convert import params_from_sharded_gat
     from graph_odenet_tpu_torch.parallel import partition_by_receiver, sharded_gat as sg
-    from graph_odenet_tpu_torch.parallel.sharded_gcn import (
-        all_reduce_grads, all_reduce_sum, shard_batch,
-    )
+    from graph_odenet_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_sum
+    from graph_odenet_tpu_torch.parallel.sharded_gcn import shard_batch
 
     data = _twin(scale)
     pg = partition_by_receiver(data.graph, n_ranks)
@@ -195,9 +195,8 @@ def grandnl(rank, n_ranks, *, scale, params, heads, steps, rate, drop_seed):
     CPU generator seeded ``drop_seed`` the log-prob rows, the NLL over the
     training nodes (all-reduced) and the all-reduced parameter gradients."""
     from graph_odenet_tpu_torch.parallel import partition_by_receiver
-    from graph_odenet_tpu_torch.parallel.sharded_gcn import (
-        all_reduce_grads, all_reduce_sum, shard_batch,
-    )
+    from graph_odenet_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_sum
+    from graph_odenet_tpu_torch.parallel.sharded_gcn import shard_batch
     from graph_odenet_tpu_torch.parallel.sharded_grand import grandnl_forward, init_grandnl_params
 
     data = _twin(scale)
@@ -285,9 +284,8 @@ def gat_data_edge(rank, n_ranks, *, scale, inputs, rate, seed, params, hidden, h
     from graph_odenet_tpu_torch.convert import params_from_sharded_gat
     from graph_odenet_tpu_torch.parallel import gat_sharded, make_mesh, partition_by_receiver
     from graph_odenet_tpu_torch.parallel import sharded_gat as sgat
-    from graph_odenet_tpu_torch.parallel.sharded_gcn import (
-        all_reduce_grads, all_reduce_sum, shard_batch,
-    )
+    from graph_odenet_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_sum
+    from graph_odenet_tpu_torch.parallel.sharded_gcn import shard_batch
 
     mesh = make_mesh((2, 2), ("data", "edge"))
     d, e, group = mesh.coord("data"), mesh.coord("edge"), mesh.group("edge")
@@ -333,6 +331,7 @@ def two_rings(rank, n_ranks, *, scale, x, params, steps):
     from graph_odenet_tpu_torch.parallel import sharded_gcn as sg
     from graph_odenet_tpu_torch.parallel import spmm_sharded
     from graph_odenet_tpu_torch.parallel.halo import MODES, all_gather_rows
+    from graph_odenet_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_sum
 
     mesh = make_mesh((2, 2), ("ring", "edge"))
     ring, group = mesh.coord("ring"), mesh.group("edge")
@@ -343,15 +342,15 @@ def two_rings(rank, n_ranks, *, scale, x, params, steps):
     out = {mode: _rows_grad(lambda v: spmm_sharded(pg, v, mode=mode, group=group), xs)
            for mode in MODES}
     out["gathered"] = _np(all_gather_rows(xs, group))
-    out["sum"] = _np(sg.all_reduce_sum(xs.sum(0), group))
+    out["sum"] = _np(all_reduce_sum(xs.sum(0), group))
     model = sg.init_params(params["w_in"].shape[0], params["w_in"].shape[1], data.n_class)
     model.load_state_dict(params_from_sharded(params))
     y1h, w = _labels_weight(data)
     xf, y1h, w = sg.shard_batch(2, me, data.features * scale_, y1h, w)
     loss = sg.loss_fn(model, pg, xf, y1h, w, steps=steps, group=group)
     loss.backward()
-    sg.all_reduce_grads(model, group)
-    out["loss"] = float(sg.all_reduce_sum(loss.detach(), group))
+    all_reduce_grads(model, group)
+    out["loss"] = float(all_reduce_sum(loss.detach(), group))
     out["grads"] = {k: _np(p.grad) for k, p in model.named_parameters()}
     return dict(out, coords=(ring, me))
 
