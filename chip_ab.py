@@ -8,7 +8,9 @@ from its own sources and measured in a process of its own.  The trees run
 one after another in the order given, so that two versions alternate on one
 card (parent, change, change, parent).  A turn runs this checkout's
 ``chip_smoke.py`` phases ``kernel`` (B1), ``bucket`` (B2),
-``bucket_weighted`` (B2-w), ``softmax_passes`` (``gather_rows`` and
+``bucket_weighted`` (B2-w; both with the footprint probe and, at the cells'
+F = 256 shapes, the SHA-256 of each call's output, compared across the
+turns), ``softmax_passes`` (``gather_rows`` and
 ``segment_max`` beside ``index_select`` and ``scatter_reduce``, in a tree
 that has them) and ``attention`` (B3 ``gat_dwh``, B4 ``gat_fwd``, B5
 ``gat_bwd`` and B1-w: ms, plain ms, bound, and host µs, device µs, device
@@ -118,6 +120,13 @@ def main():
             if have:
                 print(key, what, " | ".join(f"{t['tree']} {t['rows'][key][what]:.4f}"
                                              for t in have))
+    for key in keys:  # the outputs' digests (bucket rows at the cells' shapes): equal bits
+        digests = {t["tree"]: t["rows"][key]["sha256"] for t in turns
+                   if "sha256" in t["rows"].get(key, {})}
+        if digests:
+            same = len({json.dumps(d, sort_keys=True) for d in digests.values()}) == 1
+            print(key, "sha256", "equal in every turn" if same else "DIFFER",
+                  " | ".join(f"{tree} {json.dumps(d, sort_keys=True)}" for tree, d in digests.items()))
     for key in turns[0]["end_to_end"]:
         print(key, " | ".join(f"{t['tree']} {t['end_to_end'][key]:.4f}" for t in turns))
 

@@ -61,7 +61,13 @@ so the exit code is non-zero:
              the kernel with zero-filled outputs that every bucket adds
              into (``zero_fill_add_ms``), the form without the write; host
              µs, device µs and device launches per call of the write and the
-             add form (``call_costs``).
+             add form (``call_costs``).  At P = 1 (the cells' shape) also
+             the footprint probe (``footprint_probe``: F = 128 with the
+             columns remapped ``col % R``, so the gathered table shrinks
+             and nothing else changes) and the SHA-256 of the forward and
+             backward calls' outputs at F = 256 on seeded inputs, written
+             and added (``bucket_digests``), which ``chip_ab.py`` compares
+             across trees.
   config4    ``run_config(4)`` (edge-partitioned GCN-ODE, one part on one
              card) on the full arxiv twin through the bucket kernel, after
              one training step through the kernel held against the same step
@@ -92,7 +98,9 @@ so the exit code is non-zero:
              on every bucket at P = 8 against its plain version in float64
              (``_dot_err``), two calls bit-equal; its ms beside the plain
              ``dpv``'s, its bound, and its host µs, device µs and device
-             launches per call (one launch of ``edge_dot_kernel``).
+             launches per call (one launch of ``edge_dot_kernel``).  At the
+             F = 256 shapes the SHA-256 of each call's output on seeded
+             inputs, as in ``bucket``, and at H = 1 the footprint probe.
   softmax_passes
              the attention softmax's order-free passes on the calibrated
              arxiv twin at P = 1: ``gather_rows`` against ``index_select``
@@ -292,6 +300,7 @@ the card's name and power limit, and as the last line
 
 import copy
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -551,7 +560,7 @@ def phase_host_parts(dev, calls=10_000):
         "current_stream()": us(lambda: torch.cuda.current_stream().cuda_stream),
         "torch.empty": us(lambda: torch.empty((64, 64), device=dev)),
         "C entry, as the wrapper calls it": us(
-            lambda: entry(plan.address, ptr, None, ptr, None, 0, 1, 0, 32, 4, 0, stream)),
+            lambda: entry(plan.address, ptr, None, ptr, None, 0, 1, 0, 32, 4, 0, 0, stream)),
     }
     emit("host_parts", calls=calls, us_per_call=parts)
     return parts
@@ -1100,9 +1109,76 @@ def _randn(rng, shape, dev):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
 
 
+def sha256(t):
+    """SHA-256 of a tensor's bytes: equal digests, equal bits."""
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def bucket_digests(view, x, out0, **kw):
+    """SHA-256 of ``bucket_reduce`` over ``view`` on seeded inputs, written
+    (into NaNs) and added into ``out0``, after both calls."""
+    from graph_odenet_tpu_torch.ops.csr_spmm import bucket_reduce
+
+    wrote = bucket_reduce(view, x, torch.full_like(out0, float("nan")), accumulate=False, **kw)
+    added = bucket_reduce(view, x, out0.clone(), **kw)
+    torch.cuda.synchronize()
+    return dict(write=sha256(wrote), add=sha256(added))
+
+
+def event_ms(fn, launches):
+    """Device ms a call of ``fn()``: CUDA events around ``launches`` calls,
+    after one call to warm up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def footprint_probe(dev, view, f=128, weighted=False, fractions=(1, 2, 4, 16), launches=100,
+                    seed=31):
+    """B2's write form (``weighted``: B2-w's at H = 1) at F = ``f`` over
+    ``view`` with its columns remapped as ``col % R``, R = n_cols / each of
+    ``fractions``: the same segments, edges, lanes and instructions, the
+    gathered table ``R × f × 4`` bytes.  Device ms a launch for each R, the R
+    in turns (in order, then reversed, averaged), so the time falls with the
+    table only as far as L2 misses bound the call.  Every call takes the
+    G = 32 schedule: the resident walk, where the package has it, is turned
+    off for the probe."""
+    from graph_odenet_tpu_torch.ops import csr_spmm
+    from graph_odenet_tpu_torch.ops.csr_spmm import bucket_reduce
+
+    budget = getattr(csr_spmm, "L2_RESIDENT_BYTES", None)
+    if budget is not None:
+        csr_spmm.L2_RESIDENT_BYTES = float("inf")
+    try:
+        rng = np.random.default_rng(seed)
+        out = torch.empty((view.n_rows, f), device=dev)
+        alpha = _randn(rng, (view.n_edge, 1), dev).abs() if weighted else None
+        calls = {}
+        for frac in fractions:
+            r = view.n_cols // frac
+            v = dataclasses.replace(view, col=(view.col % r).to(torch.int32), n_cols=r)
+            x = _randn(rng, (r, f), dev)
+            calls[r] = (lambda v=v, x=x: bucket_reduce(v, x, out, accumulate=False, alpha=alpha,
+                                                       feat=f if weighted else None))
+        ms = {r: [] for r in calls}
+        for r in list(calls) + list(calls)[::-1]:
+            ms[r].append(event_ms(calls[r], launches))
+    finally:
+        if budget is not None:
+            csr_spmm.L2_RESIDENT_BYTES = budget
+    return [dict(rows=r, table_mb=r * f * 4 / 1e6, ms=sum(t) / len(t), turns=t)
+            for r, t in ms.items()]
+
+
 def phase_bucket(dev, graph, f=ARXIV_HIDDEN, iters=10):
     """B2 on every bucket of the arxiv twin at P = 8 and P = 1 (see the module doc)."""
-    from graph_odenet_tpu_torch.ops import prepare, spmm_csr
+    from graph_odenet_tpu_torch.ops import csr_spmm, prepare, spmm_csr
     from graph_odenet_tpu_torch.ops.csr_spmm import _bucket_reduce_plain, bucket_reduce
     from graph_odenet_tpu_torch.parallel import partition_by_receiver
 
@@ -1223,6 +1299,12 @@ def phase_bucket(dev, graph, f=ARXIV_HIDDEN, iters=10):
             ms=times["kernel"], plain_ms=times["plain"], library_ms=times["library"],
             zero_fill_add_ms=times["zero_fill_add"], call_costs=costs, **bound(n_bytes, n_flops),
         )
+        if n_parts == 1:  # the cells' shape: the footprint probe and the outputs' digests
+            bk1, drng = pg.bucket(0, 0), np.random.default_rng(32)
+            rows[1]["footprint"] = footprint_probe(dev, bk1.fwd)
+            rows[1]["sha256"] = {name: bucket_digests(view, x, _randn(drng, (n, f), dev))
+                                 for name, view in (("fwd", bk1.fwd), ("bwd", bk1.bwd))}
+            rows[1]["resident_launches"] = getattr(csr_spmm, "bucket_resident_launches", None)
         emit("bucket", **rows[n_parts])
     return rows
 
@@ -1500,6 +1582,18 @@ def phase_bucket_weighted(dev, graph, iters=10):
             library_max_err_over_1e4=lib_err if heads == 1 else None,
             **bound(sum(w[0] for w in work), sum(w[1] for w in work)),
         )
+        if f == ARXIV_HIDDEN:  # a cell's shape: digests on inputs of their own seed
+            drng = np.random.default_rng(51 + heads)
+            xd, od = _randn(drng, (n, f), dev), _randn(drng, (n, f), dev)
+            ad = torch.from_numpy((drng.random((bk.fwd.n_edge, heads)) + 0.5).astype(np.float32))
+            ad = ad.to(dev)
+            rows[heads, feat]["sha256"] = {
+                name: bucket_digests(view, xd, od, alpha=a, feat=feat)
+                for name, view, a in (("fwd", bk.fwd, ad), ("bwd", bk.bwd, ad[bk.t_perm]))}
+            rows[heads, feat]["resident_launches"] = getattr(csr_spmm, "bucket_resident_launches",
+                                                             None)
+            if heads == 1:
+                rows[heads, feat]["footprint"] = footprint_probe(dev, bk.fwd, weighted=True)
         emit("bucket_weighted", **rows[heads, feat])
         del x, out0, pv, pv_t, y64, g, o
 

@@ -21,9 +21,8 @@
 //     gather, and a chunk holds up to 128 features; below, V = 1 and G is
 //     the smallest power of two >= F, so at F = 16 or F = 3 a warp still
 //     reads 32 useful floats per step from 2 or 8 edges at once.  The chunk
-//     is the slowest axis of the grid.  (Chunks of 32 features, whose column
-//     slice of x fits the 50 MB L2 at arxiv size, were slower: more warp
-//     items, each reading its columns again.)
+//     is the slowest axis of the grid.  A gathered table whose 128-feature
+//     column slice outgrows L2 takes the resident walk below instead.
 //   * with float4 lanes a warp loads 32 columns and weights at once, one per
 //     lane, and broadcasts them with shuffles; four accumulators per lane
 //     keep four gathers in flight.  With single lanes each edge slot loads
@@ -61,6 +60,24 @@
 // kernel's alpha3d mode that parallel/halo.py::_bucket_spmm_weighted runs per
 // ring hop of the edge-partitioned GAT, forward over the bucket's CSR view and
 // backward (numerators permuted) over its CSC view.
+//
+// Resident walk (csr_reduce_kernel_l2): f32 calls in a gathering mode on the
+// G = 32, V = 4 lanes whose table's 128-feature column slice outgrows L2
+// (ops/csr_spmm.py::walk_width).  At the arxiv twin's 169,344 rows that slice
+// is 86.7 MB, and its random gathers miss the 50 MB L2: the same F = 128 call
+// with its columns remapped col % R took 0.280 ms at 86.7 MB, 0.223 at 43.4,
+// 0.178 at 21.7 and 0.160 at 5.4 (H100).  The walk cuts F into chunks of 32
+// features (21.7 MB at the twin), walked one after another by the grid, the
+// gathers of x evict-last in L2, the columns, weights and partial rows
+// evict-first, out streamed.  Narrow chunks pay per segment and chunk what
+// wide ones pay per segment (the G = 8 schedule's four edge slots took 0.111
+// ms an F = 32 chunk, 0.89 for F = 256), so a warp item here is four segments
+// of 8 float4 lanes, each lane walking all of its segment's edges with the
+// accumulators of G = 32, V = 4 (the same bits), and the registers are
+// capped at 64 so that 32 warps fit an SM: uncapped, 8 gathers in flight
+// took 90-100 registers and 0.73 ms a B2 call at F = 256; capped, 4 in
+// flight, 0.44 ms against 0.56 for the G = 32 schedule (B2-w at H = 1: 0.49
+// against 0.65).
 //
 // bfloat16 (gode_csr_reduce_bf16): x and out in bf16, the plain and bucket
 // modes (scaled and positional), for JAX's bf16-training tier (spmm_pallas
@@ -262,6 +279,205 @@ csr_reduce_kernel(const CsrPlan plan, const T* __restrict__ x, const float* __re
   }
 }
 
+// L2 policies (createpolicy, sm_80+) and the loads that carry them.
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ int ld_hint(const int32_t* p, uint64_t pol) {
+  int v;
+  asm("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;" : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ float ld_hint(const float* p, uint64_t pol) {
+  float v;
+  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+// A float4 lane of the resident walk through the non-coherent path with an
+// L2 policy (the gathered table), or through L2 only with one (partial rows
+// other warps wrote in this launch); streamed (evict-first) out and back.
+__device__ __forceinline__ Lane<4> ldg_hint(const float* p, uint64_t pol) {
+  float4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p), "l"(pol));
+  return {v};
+}
+__device__ __forceinline__ Lane<4> ldcg_hint(const float* p, uint64_t pol) {
+  float4 v;
+  asm volatile("ld.global.cg.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p), "l"(pol) : "memory");
+  return {v};
+}
+__device__ __forceinline__ Lane<4> ldcs(const float* p) {
+  return {__ldcs(reinterpret_cast<const float4*>(p))};
+}
+__device__ __forceinline__ void stcs(float* p, const Lane<4>& a) {
+  __stcs(reinterpret_cast<float4*>(p), a.v);
+}
+
+// The resident walk's shape: kWalkLanes float4 lanes a segment (a chunk of
+// 4 * kWalkLanes features), columns and weights of kWalkCols * kWalkLanes
+// edges loaded at once, kWalkDepth gathers and kMergeDepth partial rows in
+// flight a lane, registers capped for kWalkBlocks blocks an SM (64 a thread).
+constexpr int kWalkLanes = 8;
+constexpr int kWalkCols = 2;
+constexpr int kWalkDepth = 4;
+constexpr int kWalkBlocks = 4;
+constexpr int kMergeDepth = 8;
+
+// The resident walk (f32, scaled or weighted; see the header).  Grid: warp
+// items (group of 32/L consecutive segments, chunk) with the chunk slowest,
+// then, in the write form, one warp per empty row.  L = kWalkLanes lanes own
+// one segment, lane j features f .. f+3 of the chunk (4L wide), and walk all
+// of the segment's edges, the warp as long as its longest segment: lane j
+// loads the columns and weights of edges b + j + L*i (i < kWalkCols) of each
+// batch of kWalkCols*L edges, shuffles hand them round, and edge offset o
+// (from the segment's start) goes into acc[o % 4], in order.  So every output
+// element takes the G = 32, V = 4 schedule's association: ((acc0 + acc1) +
+// acc2) + acc3, a split row's partial rows 0 + p[k0] + p[k0+1] + ... in slot
+// order, the accumulate form's old out last.
+template <Mode kMode>
+__global__ void __launch_bounds__(kThreads, kWalkBlocks)
+csr_reduce_kernel_l2(const CsrPlan plan, const float* __restrict__ x,
+                     const float* __restrict__ alpha, float* __restrict__ out,
+                     float* __restrict__ partial, int64_t F, int64_t feat, int64_t n_chunks,
+                     int add) {
+  static_assert(kMode != Mode::kPositional, "the walk gathers");
+  constexpr int L = kWalkLanes, V = 4, D = kWalkDepth;
+  constexpr int kGroups = 32 / L;  // segments a warp item
+  constexpr int kBatch = kWalkCols * L;
+  constexpr int64_t kWidth = L * V;
+  const int64_t item = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t n_quads = (plan.n_seg + kGroups - 1) / kGroups;
+  const int64_t n_items = n_quads * n_chunks;
+  if (item >= n_items) {  // the write form's empty rows: zeros
+    const int64_t e = item - n_items;
+    if (add || e >= plan.n_empty) return;
+    float* dst = out + static_cast<int64_t>(plan.empty_row[e]) * F;
+    for (int64_t f = static_cast<int64_t>(lane) * V; f < F; f += 32 * V) {
+      stcs(dst + f, Lane<4>::zero());
+    }
+    return;
+  }
+  const int64_t chunk = item / n_quads;
+  const int64_t s = (item - chunk * n_quads) * kGroups + lane / L;
+  const bool real = s < plan.n_seg;  // a group past the last segment walks nothing
+  const int j = lane % L;
+  const int64_t f = chunk * kWidth + static_cast<int64_t>(j) * V;
+  const int64_t heads = kMode == Mode::kAlpha ? F / feat : 1;
+  const int64_t head = kMode == Mode::kAlpha ? f / feat : 0;
+  const uint64_t keep = l2_evict_last(), once = l2_evict_first();
+  const int64_t p0 = real ? plan.seg_ptr[s] : 0;
+  const int len = real ? static_cast<int>(plan.seg_ptr[s + 1] - p0) : 0;
+  const int64_t row0 = real ? plan.seg_row[s] : 0;
+  const int slot = real ? plan.seg_slot[s] : -1;
+  Lane<4> acc[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) acc[u] = Lane<4>::zero();
+  const int most = __reduce_max_sync(kFullMask, len);
+  // b is a multiple of 4, so edge b + e goes to acc[e % 4].
+  for (int b = 0; b < most; b += kBatch) {
+    int c_mine[kWalkCols];
+    float w_mine[kWalkCols];
+#pragma unroll
+    for (int i = 0; i < kWalkCols; ++i) {
+      const int e = b + i * L + j;
+      c_mine[i] = e < len ? ld_hint(plan.col + p0 + e, once) : 0;
+      w_mine[i] = kMode == Mode::kScaled && e < len ? ld_hint(plan.w + p0 + e, once) : 0.f;
+    }
+    const int n = len - b;
+#pragma unroll
+    for (int e0 = 0; e0 < kBatch; e0 += D) {
+      Lane<4> xv[D];
+      float wt[D];
+#pragma unroll
+      for (int u = 0; u < D; ++u) {
+        const int e = e0 + u;
+        const int c = __shfl_sync(kFullMask, c_mine[e / L], e % L, L);
+        if constexpr (kMode == Mode::kScaled) {
+          wt[u] = __shfl_sync(kFullMask, w_mine[e / L], e % L, L);
+        } else {
+          if (e < n) wt[u] = ld_hint(alpha + (p0 + b + e) * heads + head, once);
+        }
+        if (e < n) xv[u] = ldg_hint(x + static_cast<int64_t>(c) * F + f, keep);
+      }
+#pragma unroll
+      for (int u = 0; u < D; ++u) {
+        if (e0 + u < n) acc[(e0 + u) % 4].fma(wt[u], xv[u]);
+      }
+    }
+  }
+  if (!real) return;
+#pragma unroll
+  for (int u = 1; u < 4; ++u) acc[0].add(acc[u]);
+  int64_t row = row0;
+  if (slot >= 0) {  // a split row's segment: only the last of its groups to arrive writes it
+    acc[0].st(partial + static_cast<int64_t>(slot) * F + f);
+    __threadfence();
+    static_assert(L < 32, "a segment's lanes are part of a warp");
+    const unsigned group = ((1u << L) - 1u) << (lane - j);  // the segment's lanes
+    __syncwarp(group);
+    const int r = plan.slot_split[slot];
+    const int k0 = plan.split_ptr[r], k1 = plan.split_ptr[r + 1];
+    int32_t* counter = plan.arrivals + chunk * plan.n_split + r;
+    int before = 0;
+    if (j == 0) before = atomicAdd(counter, 1);
+    before = __shfl_sync(group, before, 0, L);
+    if (before != k1 - k0 - 1) return;  // not the last to arrive (uniform across the group)
+    __threadfence();
+    if (j == 0) *counter = 0;
+    Lane<4> sum = Lane<4>::zero();
+    for (int k = k0; k < k1; k += kMergeDepth) {
+      Lane<4> part[kMergeDepth];
+#pragma unroll
+      for (int u = 0; u < kMergeDepth; ++u) {
+        if (k + u < k1) part[u] = ldcg_hint(partial + static_cast<int64_t>(k + u) * F + f, once);
+      }
+#pragma unroll
+      for (int u = 0; u < kMergeDepth; ++u) {
+        if (k + u < k1) sum.add(part[u]);
+      }
+    }
+    acc[0] = sum;
+    row = plan.split_row[r];
+  }
+  float* dst = out + row * F + f;
+  if (add) acc[0].add(ldcs(dst));
+  stcs(dst, acc[0]);
+}
+
+int launch_walk(const CsrPlan& plan, const float* x, const float* alpha, float* out,
+                float* partial, int64_t F, int64_t feat, int mode, int add, cudaStream_t st) {
+  constexpr int64_t kGroups = 32 / kWalkLanes;
+  const int64_t n_chunks = F / (4 * kWalkLanes);
+  if (F % (4 * kWalkLanes) != 0 || plan.n_split * n_chunks > plan.n_arrivals ||
+      mode == static_cast<int>(Mode::kPositional)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t warps = (plan.n_seg + kGroups - 1) / kGroups * n_chunks + (add ? 0 : plan.n_empty);
+  const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;
+  const unsigned nb = static_cast<unsigned>(blocks);
+  if (static_cast<Mode>(mode) == Mode::kScaled) {
+    csr_reduce_kernel_l2<Mode::kScaled>
+        <<<nb, kThreads, 0, st>>>(plan, x, alpha, out, partial, F, feat, n_chunks, add);
+  } else {
+    csr_reduce_kernel_l2<Mode::kAlpha>
+        <<<nb, kThreads, 0, st>>>(plan, x, alpha, out, partial, F, feat, n_chunks, add);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int G, int V, class T>
 int launch(const CsrPlan& plan, const T* x, const float* alpha, T* out, float* partial,
            int64_t F, int64_t feat, int mode, int add, cudaStream_t st) {
@@ -297,7 +513,7 @@ int launch(const CsrPlan& plan, const T* x, const float* alpha, T* out, float* p
 // V = 4 lane's x and out rows (16 bytes for f32, 8 for bf16).
 template <class T>
 int reduce_entry(const CsrPlan* plan, const T* x, const float* alpha, T* out, float* partial,
-                 int64_t F, int64_t feat, int mode, int lanes, int vec, int accumulate,
+                 int64_t F, int64_t feat, int mode, int lanes, int vec, int accumulate, int walk,
                  void* stream) {
   const auto bad = static_cast<int>(cudaErrorInvalidValue);
   if (F < 1 || feat < 1 || F % feat != 0 || mode < 0 || mode > 2) return bad;
@@ -315,6 +531,14 @@ int reduce_entry(const CsrPlan* plan, const T* x, const float* alpha, T* out, fl
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int add = accumulate != 0;
+  if (walk != 0) {  // the resident walk: f32, a gathering mode, float4 lanes of a segment group
+    if constexpr (std::is_same_v<T, float>) {
+      if (lanes == kWalkLanes && vec == 4) {
+        return launch_walk(*plan, x, alpha, out, partial, F, feat, mode, add, st);
+      }
+    }
+    return bad;
+  }
 #define GODE_LAUNCH(G_, V_) \
   return launch<G_, V_, T>(*plan, x, alpha, out, partial, F, feat, mode, add, st)
   if (vec == 4) {
@@ -651,13 +875,15 @@ int launch_max(const void* e, const void* rows, void* out, int64_t n_edge, int64
 // of out (the plan's empty rows with zeros) and reads none.  `partial` holds
 // one row of F floats per slot of the split rows and may be null when the
 // plan has none; the plan's arrival counters must cover n_split times the
-// number of chunks.  Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() after the launch (0 on success).
+// number of chunks.  `walk` nonzero takes the resident walk (modes 0 and 1,
+// `lanes` 8 and `vec` 4: chunks of 32 features, F a multiple of 32), which
+// gives the bits of G = 32, V = 4.  Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() after the launch (0 on success).
 extern "C" int gode_csr_reduce_f32(const CsrPlan* plan, const float* x, const float* alpha,
                                    float* out, float* partial, int64_t F, int64_t feat, int mode,
-                                   int lanes, int vec, int accumulate, void* stream) {
+                                   int lanes, int vec, int accumulate, int walk, void* stream) {
   return reduce_entry<float>(plan, x, alpha, out, partial, F, feat, mode, lanes, vec, accumulate,
-                             stream);
+                             walk, stream);
 }
 
 // The same launch on bf16 x and out (modes 0 and 2; mode 1 is refused):
@@ -668,7 +894,7 @@ extern "C" int gode_csr_reduce_bf16(const CsrPlan* plan, const __nv_bfloat16* x,
                                     int lanes, int vec, int accumulate, void* stream) {
   if (mode == static_cast<int>(Mode::kAlpha)) return static_cast<int>(cudaErrorInvalidValue);
   return reduce_entry<__nv_bfloat16>(plan, x, nullptr, out, partial, F, 1, mode, lanes, vec,
-                                     accumulate, stream);
+                                     accumulate, 0, stream);
 }
 
 // One launch of the per-edge dot over the view of `plan` (see the header):

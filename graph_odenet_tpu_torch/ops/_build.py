@@ -54,7 +54,7 @@ _SIGNATURES = {
         "gode_csr_reduce_f32": [
             _p, _p, _p, _p, _p,        # plan, x, alpha, out, partial
             _i64, _i64, _i, _i, _i,    # F, feat, mode, lanes, vec
-            _i, _p,                    # accumulate, stream
+            _i, _i, _p,                # accumulate, walk, stream
         ],
         "gode_csr_reduce_bf16": [
             _p, _p, _p, _p,            # plan, x, out, partial

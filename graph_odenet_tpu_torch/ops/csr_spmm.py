@@ -50,6 +50,12 @@ message to bf16 before its f32 sum, so the two differ by bf16 rounding.
 The weighted modes (B1-w, B2-w) take float32 only, as their JAX callers
 give them: a bf16 table there raises ``TypeError``.
 
+A gathered f32 table whose 128-feature column slice outgrows L2 (the arxiv
+twin's at F = 256) is walked in chunks of 32 features instead, one chunk of
+the whole view after another, so that the chunk's slice stays in L2
+(``walk_width``; ``bucket_resident_launches`` counts them).  It gives the
+same bits as the 128-feature chunks.
+
 ``prepare`` also cuts each view into warp segments of at most
 ``SEG_EDGES`` edges, so that a hub row with many thousands of edges is
 spread over many warps.  A row cut into several segments writes partial
@@ -98,6 +104,9 @@ launches = 0
 weighted_launches = 0
 bucket_launches = 0
 bucket_weighted_launches = 0
+#: Of the launches of ``bucket_reduce``, those that took the resident walk
+#: (``walk_width``).
+bucket_resident_launches = 0
 #: Of those, the launches on bf16 features (the unweighted modes' bf16 entry).
 bf16_launches = {"csr": 0, "bucket": 0}
 #: Number of kernel launches made by ``edge_dot`` in this process.
@@ -445,12 +454,43 @@ def _lanes(f: int, vector: bool) -> tuple:
     return min(32, 1 << (f - 1).bit_length()), 1
 
 
-def _run(plan: LaunchPlan, x, out, alpha, feat, mode, accumulate):
-    """One launch of the kernel over ``plan``'s view into ``out``."""
+#: L2 bytes that one chunk's column slice of a gathered table may take and
+#: still stay resident beside a call's streaming traffic: half the H100's 50
+#: MB.  On the arxiv twin (169,344 rows) a call gathering from a 128-feature
+#: slice of 86.7 MB took 75 % more time than from one of 5.4 MB; from 21.7
+#: MB, 12 % more.
+L2_RESIDENT_BYTES = 25_000_000
+#: The resident walk's chunk: 8 float4 lanes of one segment, 32 features
+#: (the kernel's kWalkLanes).
+WALK_LANES, WALK_WIDTH = 8, 32
+
+
+def walk_width(dtype, mode: int, f: int, n_cols: int) -> int:
+    """Features of a chunk of the resident walk for a call on a gathered table
+    of ``n_cols`` rows and ``f`` features, or 0 for ``_lanes``' schedule.
+
+    The walk takes f32 tables in a gathering mode (scaled or weighted) whose
+    schedule is G = 32, V = 4 (float4 lanes, 64 < ``f``), whose 128-feature
+    column slice (``n_cols × 512`` bytes) outgrows ``L2_RESIDENT_BYTES``,
+    and that ``WALK_WIDTH`` divides.  A call it takes gives the same bits as
+    that schedule.
+    """
+    if dtype != torch.float32 or mode == _POSITIONAL or f % WALK_WIDTH:
+        return 0
+    if _lanes(f, f % 4 == 0) != (32, 4) or n_cols * 128 * 4 <= L2_RESIDENT_BYTES:
+        return 0
+    return WALK_WIDTH
+
+
+def _run(plan: LaunchPlan, x, out, alpha, feat, mode, accumulate) -> bool:
+    """One launch of the kernel over ``plan``'s view into ``out``; whether it
+    took the resident walk."""
     f = x.shape[1]
     x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
-    lanes, vec = _lanes(f, f % 4 == 0 and (x_ptr | out_ptr) % (4 * x.element_size()) == 0
-                        and (alpha is None or feat % 4 == 0))
+    vector = f % 4 == 0 and (x_ptr | out_ptr) % (4 * x.element_size()) == 0 \
+        and (alpha is None or feat % 4 == 0)
+    walk = walk_width(x.dtype, mode, f, x.shape[0]) if vector else 0
+    lanes, vec = (WALK_LANES, 4) if walk else _lanes(f, vector)
     partial = None
     if plan.n_split:
         plan.reserve(-(-f // (lanes * vec)))
@@ -464,10 +504,11 @@ def _run(plan: LaunchPlan, x, out, alpha, feat, mode, accumulate):
     else:
         rc = lib.gode_csr_reduce_f32(
             plan.address, x_ptr, None if alpha is None else alpha.data_ptr(), out_ptr,
-            partial_ptr, f, feat or 1, mode, lanes, vec, accumulate, stream,
+            partial_ptr, f, feat or 1, mode, lanes, vec, accumulate, int(walk > 0), stream,
         )
     if rc != 0:
         raise RuntimeError(f"csr_spmm kernel launch failed: CUDA error {rc}")
+    return walk > 0
 
 
 def _check_alpha(who, alpha, feat, n_edge, f, device):
@@ -564,7 +605,7 @@ def bucket_reduce(
     tensor takes the plain version; a CUDA tensor launches the kernel, one
     launch (none when an add form has no edge to add).  Returns ``out``.
     """
-    global bucket_launches, bucket_weighted_launches
+    global bucket_launches, bucket_weighted_launches, bucket_resident_launches
     device = view.device
     for name, t in (("x", x), ("out", out)):
         _check_dtype("bucket_reduce", name, t, alpha is not None)
@@ -600,7 +641,7 @@ def bucket_reduce(
         return out  # no edge: nothing to add, nothing launched
     mode = _POSITIONAL if positional else _SCALED if alpha is None else _ALPHA
     with annotate("gode.bucket_reduce"):
-        _run(plan, x, out, alpha, feat, mode, int(accumulate))
+        bucket_resident_launches += _run(plan, x, out, alpha, feat, mode, int(accumulate))
     if alpha is None:
         bucket_launches += 1
     else:

@@ -1047,6 +1047,128 @@ def test_edge_dot_captured_graph_replays_bit_equal_to_eager_calls(cuda):
             assert torch.equal(got, want)
 
 
+# ------------------------------------- B2 and B2-w: the resident walk
+
+
+def _resident_view(rng):
+    """A 2,000-row block gathering from a table of 200,000 rows, whose
+    128-feature column slice (102 MB) outgrows ``L2_RESIDENT_BYTES``: row 0
+    is a hub of 3,000 edges (split into warp segments), rows 1–4 and
+    1,500–1,999 have no edge.  Weights as in ``_bucket_view``."""
+    from graph_odenet_tpu_torch.ops.csr_spmm import csr_view
+
+    n_rows, n_cols = 2000, 200_000
+    rows = np.sort(np.concatenate([np.zeros(3000, np.int64), rng.integers(5, 1500, 30_000)]))
+    cols = rng.integers(0, n_cols, rows.shape[0])
+    w = rng.random(rows.shape[0]) + 0.5
+    w /= np.bincount(rows, weights=w, minlength=n_rows)[rows]
+    return csr_view(rows, cols, w.astype(np.float32), n_rows, n_cols)
+
+
+def _resident_call(view, x, out, heads, feat, accumulate):
+    """One ``bucket_reduce``: B2 when ``heads`` is None, else B2-w with
+    ``alpha`` made from ``view``'s edges."""
+    if heads is None:
+        return csr_spmm.bucket_reduce(view, x, out, accumulate=accumulate)
+    alpha = _softmax_weights(view, heads, np.random.default_rng(heads), x.device)
+    return csr_spmm.bucket_reduce(view, x, out, accumulate=accumulate, alpha=alpha, feat=feat)
+
+
+@pytest.mark.parametrize("accumulate", [True, False])
+@pytest.mark.parametrize("heads,feat", [(None, 256), (1, 256), (4, 64)])
+def test_resident_walk_matches_plain_and_the_parent_schedule(cuda, monkeypatch, heads, feat,
+                                                             accumulate):
+    """B2 and B2-w at the cells' F = 256 shapes on a table that takes the
+    resident walk: each launch counted, the result within TOL of the plain
+    version in float64, two calls bit-equal, and bit-equal to the same call
+    under G = 32, V = 4 lanes (the walk turned off by a budget no table
+    outgrows)."""
+    view = _resident_view(np.random.default_rng(300)).to(cuda)
+    assert view.part.n_slots > 1
+    f = 256 if heads is None else heads * feat
+    assert csr_spmm.walk_width(torch.float32, 0, f, view.n_cols) > 0
+    rng = np.random.default_rng(301)
+    x = torch.from_numpy(rng.standard_normal((view.n_cols, f)).astype(np.float32)).to(cuda)
+    out0 = torch.from_numpy(rng.standard_normal((view.n_rows, f)).astype(np.float32)).to(cuda)
+    if not accumulate:
+        out0.fill_(float("nan"))
+    before = csr_spmm.bucket_resident_launches
+    got = _resident_call(view, x, out0.clone(), heads, feat, accumulate)
+    again = _resident_call(view, x, out0.clone(), heads, feat, accumulate)
+    torch.cuda.synchronize()
+    assert csr_spmm.bucket_resident_launches == before + 2
+    alpha = None if heads is None else _softmax_weights(view, heads, np.random.default_rng(heads),
+                                                        cuda).double()
+    want = csr_spmm._bucket_reduce_plain(view, x.double(), out0.double(), False, accumulate,
+                                         alpha, feat if heads else None)
+    torch.testing.assert_close(got, want.float(), **TOL)
+    assert torch.equal(got, again)
+    empty = out0 if accumulate else torch.zeros_like(out0)
+    assert torch.equal(got[1:5], empty[1:5]) and torch.equal(got[1500:], empty[1500:])
+    monkeypatch.setattr(csr_spmm, "L2_RESIDENT_BYTES", 1 << 62)
+    parent = _resident_call(view, x, out0.clone(), heads, feat, accumulate)
+    torch.cuda.synchronize()
+    assert csr_spmm.bucket_resident_launches == before + 2
+    assert torch.equal(got, parent)
+
+
+def test_resident_walk_captured_graph_replays_bit_equal(cuda):
+    """B2 and B2-w through the resident walk, written then added into,
+    captured in a CUDA graph: its replays equal the eager calls bit for bit,
+    and every arrival counter is back at 0."""
+    view = _resident_view(np.random.default_rng(302)).to(cuda)
+    rng = np.random.default_rng(303)
+    x = torch.from_numpy(rng.standard_normal((view.n_cols, 256)).astype(np.float32)).to(cuda)
+    alpha = _softmax_weights(view, 4, rng, cuda)
+
+    def work():
+        out = torch.empty((view.n_rows, 256), device=cuda)
+        csr_spmm.bucket_reduce(view, x, out, accumulate=False)
+        csr_spmm.bucket_reduce(view, x, out, alpha=alpha, feat=64)
+        return out
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = work()  # builds the plan and its counters before the capture
+        torch.cuda.synchronize()
+    torch.cuda.current_stream().wait_stream(side)
+    before = csr_spmm.bucket_resident_launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = work()
+    assert csr_spmm.bucket_resident_launches == before + 2
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    assert torch.equal(work(), eager)
+    torch.cuda.synchronize()
+    assert not view.plan.arrivals.any()
+
+
+def test_resident_walk_leaves_other_calls_alone(cuda):
+    """A table whose 128-feature slice fits the budget, F = 40 and F = 64 on
+    the large table, and its bf16 and positional calls: none takes the walk,
+    so the counter does not move."""
+    small = _bucket_view(np.random.default_rng(304)).to(cuda)
+    big = _resident_view(np.random.default_rng(305)).to(cuda)
+    rng = np.random.default_rng(306)
+
+    def randn(n, f, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(cuda, dtype)
+
+    before = csr_spmm.bucket_resident_launches
+    csr_spmm.bucket_reduce(small, randn(small.n_cols, 256), randn(small.n_rows, 256))
+    for f in (40, 64):
+        csr_spmm.bucket_reduce(big, randn(big.n_cols, f), randn(big.n_rows, f))
+    csr_spmm.bucket_reduce(big, randn(big.n_cols, 256, torch.bfloat16),
+                           randn(big.n_rows, 256, torch.bfloat16))
+    csr_spmm.bucket_reduce(big, randn(big.n_edge, 256), randn(big.n_rows, 256), positional=True)
+    torch.cuda.synchronize()
+    assert csr_spmm.bucket_resident_launches == before
+
+
 # ------------------------------------------ B2-w: the weighted bucket mode
 
 

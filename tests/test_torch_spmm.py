@@ -99,11 +99,12 @@ def test_prepare_views(pair):
     np.testing.assert_array_equal(t_rows.numpy(), tg.senders[:e][perm].numpy())
 
 
-def _one_launch_model(part, col, w, x, out0, accumulate, rng):
+def _one_launch_model(part, col, w, x, out0, accumulate, rng, width=None):
     """The one-launch schedule of the CUDA kernel, in numpy.
 
     Warp items (segment, feature chunk) of the chunk widths that ``_lanes``
-    picks, and in the write form one item per empty row, run in the order
+    picks (or ``width``, the resident walk's), and in the write form one
+    item per empty row, run in the order
     ``rng`` shuffles.  A whole row's item writes (or adds) its sum; a split
     row's item writes its partial row and counts its arrival, and the last
     item of a split row and chunk to arrive adds the row's partial rows in
@@ -113,8 +114,9 @@ def _one_launch_model(part, col, w, x, out0, accumulate, rng):
     split_row, split_ptr, slot_split, empty_row = (
         t.numpy() for t in (part.split_row, part.split_ptr, part.slot_split, part.empty_row))
     f = x.shape[1]
-    lanes, vec = csr_spmm._lanes(f, f % 4 == 0)
-    width = lanes * vec
+    if width is None:
+        lanes, vec = csr_spmm._lanes(f, f % 4 == 0)
+        width = lanes * vec
     n_chunks = -(-f // width)
     msgs = w[:, None] * x[col]
     seg_sum = np.zeros((len(seg_row), f), np.float32)
@@ -259,6 +261,61 @@ def test_one_launch_schedule_matches_plain(view, f, accumulate):
         np.testing.assert_array_equal(runs[0][empty], out0[empty])
     else:
         assert not runs[0][empty].any()
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("f", [128, 256])
+@pytest.mark.parametrize("view", range(len(MODEL_VIEWS)),
+                         ids=[v[0] for v in MODEL_VIEWS])
+def test_resident_walk_schedule_matches_plain(view, f, accumulate):
+    """The one-launch model at the resident walk's chunk width (``f`` / 32
+    chunks, as many arrival counters a split row): bit for bit on values
+    whose sums are exact in f32, in three arrival orders; every counter ends
+    at 0."""
+    _, row_ptr, col, part, n_cols = MODEL_VIEWS[view]
+    width = csr_spmm.WALK_WIDTH
+    rng = np.random.default_rng(f + 1)
+    n_rows, n_edge = row_ptr.shape[0] - 1, col.shape[0]
+    x = rng.integers(-8, 9, (n_cols, f)).astype(np.float32)
+    w = rng.choice(np.float32([0.25, 0.5, 1.0, 2.0]), n_edge)
+    out0 = rng.integers(-8, 9, (n_rows, f)).astype(np.float32)
+    want = csr_spmm._reduce_plain(row_ptr, col, torch.from_numpy(w), torch.from_numpy(x)).numpy()
+    want = want + (out0 if accumulate else 0)
+    if not accumulate:
+        out0 = np.full_like(out0, np.nan)
+    for seed in range(3):
+        got, arrivals = _one_launch_model(part, col.numpy().astype(np.int64), w, x, out0,
+                                          accumulate, np.random.default_rng(seed), width=width)
+        assert arrivals.shape[0] == f // width and not arrivals.any()
+        np.testing.assert_array_equal(got, want)
+
+
+TWIN_ROWS, FOUR_CARD_BLOCK = 169_344, 42_336  # the arxiv twin's table; one of four blocks
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype,mode,f,n_cols,width", [
+    (_F32, csr_spmm._SCALED, 256, TWIN_ROWS, 32),        # config 4's B2
+    (_F32, csr_spmm._ALPHA, 256, TWIN_ROWS, 32),         # B2-w at H = 1 / F = 256 and H = 4 / F = 64
+    (_F32, csr_spmm._SCALED, 128, TWIN_ROWS, 32),        # a 128-feature table of the twin
+    (_F32, csr_spmm._SCALED, 96, TWIN_ROWS, 32),
+    (_F32, csr_spmm._ALPHA, 40, TWIN_ROWS, 0),           # the readout
+    (_F32, csr_spmm._SCALED, 64, TWIN_ROWS, 0),          # G = 16: edge slots, another association
+    (_F32, csr_spmm._SCALED, 100, TWIN_ROWS, 0),         # no width divides F
+    (_BF16, csr_spmm._SCALED, 256, TWIN_ROWS, 0),        # the bf16 entry
+    (_F32, csr_spmm._POSITIONAL, 256, 2_150_475, 0),     # read in order, never gathered
+    (_F32, csr_spmm._SCALED, 256, FOUR_CARD_BLOCK, 0),   # config 4's block on four cards
+    (_F32, csr_spmm._SCALED, 256, 19_840, 0),            # a Pubmed-sized table
+    (_F32, csr_spmm._SCALED, 256, 48_828, 0),            # a 128-feature slice of 24.99 MB
+    (_F32, csr_spmm._SCALED, 256, 48_829, 32),           # and of 25.00 MB and 512 bytes
+    (_F32, csr_spmm._SCALED, 256, 800_000, 32),          # past the budget at any width
+])
+def test_walk_width_of_a_call(dtype, mode, f, n_cols, width):
+    """The resident walk takes f32 tables in a gathering mode on the G = 32,
+    V = 4 schedule whose 128-feature slice outgrows ``L2_RESIDENT_BYTES``,
+    in chunks of 32 features."""
+    assert csr_spmm.L2_RESIDENT_BYTES == 25_000_000
+    assert csr_spmm.walk_width(dtype, mode, f, n_cols) == width
 
 
 def test_launch_plan_is_built_once_per_view():
